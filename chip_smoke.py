@@ -1,0 +1,518 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (sdrjfm_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line; any failure exits non-zero:
+
+1. device  — the card's name and power limit (nvidia-smi), torch's CUDA
+             version, nvcc's version.  No CUDA: exit 1.
+2. build   — builds every kernel of the main path from the sources in this
+             checkout (nvcc for the CUDA front end, Triton for the scan),
+             in parallel, and prints the build seconds.
+3. kernels — each kernel against its plain torch version on the card, at the
+             main path's shapes, with the tolerance stated.
+4. main    — synthesises an 8 s stereo+RDS capture and drives it through
+             `python -m sdrjfm_tpu_torch.app rx` (in process) on cuda at
+             block_fm=131072 with the int16 wire: PI/PS/RT back at BER 0,
+             pilot and PSS locked, 48 kHz stereo audio; the kernels' launch
+             counts over that run equal the block counts.
+5. reference — the same capture through the port on the CPU (the kernels'
+             plain versions): audio, metadata and RDS bits agree.
+6. times   — per-block step time and real-time factor; each kernel's time,
+             its plain version's, a one-call library yardstick where one
+             exists, and the bound from bytes and operations.
+7. profile — torch.profiler over 5 steady steps: the device's busy share
+             of the wall time, device ops per step, the top ops by device
+             time.
+
+Then one line {"kernels": [...]}, the card's name and power limit, and as the
+last line {"ok": true, "device": {...}}.  Outputs go to
+chiprun_out/chip_smoke/.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "chiprun_out" / "chip_smoke"
+
+# NVIDIA H100 SXM data sheet: HBM rate and the
+# FP32 rate outside the tensor cores, at the full 700 W power limit
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+BLOCK_FM = 131072
+FE_ATOL, FE_RTOL = 2e-5, 1e-5      # f32 FIR of 307 taps summed in another
+                                   # order + sincosf vs torch sin/cos ulps
+SCAN_RTOL = 1e-5                   # of max|y|: two f32 scans over 131072
+                                   # steps, associated differently, each
+                                   # ~1e-6 of the scale off float64
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def need(cond, what: str) -> None:
+    if not cond:
+        raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 5, iters: int = 20) -> float:
+    """Median over `reps` of the mean time of `iters` calls (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / iters)
+    return statistics.median(times)
+
+
+def phase_device():
+    from sdrjfm_tpu_torch.kernels.build import nvcc_path
+
+    line = card_line()
+    print(line, flush=True)
+    nvcc = subprocess.run([nvcc_path(), "--version"], capture_output=True,
+                          text=True).stdout
+    rel = [ln for ln in nvcc.splitlines() if "release" in ln]
+    emit({"phase": "device", "card": line,
+          "kind": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "torch_cuda": torch.version.cuda,
+          "nvcc": rel[0].strip() if rel else None})
+    return line
+
+
+def phase_build():
+    from sdrjfm_tpu_torch.kernels import build
+    from sdrjfm_tpu_torch.kernels.linrec import linrec
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    def triton_compile():
+        d = torch.zeros(1, 4096, device="cuda")
+        linrec(d, [0.5], torch.zeros(1, device="cuda"))
+        torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as ex:
+        f_cu = ex.submit(timed, lambda: build.build("frontend.cu"))
+        f_tr = ex.submit(timed, triton_compile)
+        s_cu, s_tr = f_cu.result(), f_tr.result()
+    ptxas = [ln.strip() for ln in build.ptxas_report("frontend.cu"
+                                                      ).splitlines()
+             if "registers" in ln or "spill" in ln]
+    emit({"phase": "build", "frontend_cu_nvcc_s": s_cu,
+          "linrec_triton_s": s_tr, "wall_s": time.perf_counter() - t0,
+          "ptxas": ptxas[:2]})
+
+
+def _fe_inputs(rng, fmt: str, T: int, dev):
+    if fmt == "c64":
+        x = (0.3 * (rng.standard_normal(T) + 1j * rng.standard_normal(T))
+             ).astype(np.complex64)
+    elif fmt == "i16":
+        x = rng.integers(-20000, 20000, (T, 2)).astype(np.int16)
+    elif fmt == "u8":
+        x = rng.integers(0, 256, (T, 2)).astype(np.uint8)
+    else:
+        x = rng.integers(-128, 128, (T, 2)).astype(np.int8)
+    return torch.from_numpy(x).to(dev)
+
+
+def phase_kernels(rx):
+    """Each kernel against its plain version at the main path's shapes."""
+    from scipy.signal import lfilter
+    from sdrjfm_tpu_torch import constants as C
+    from sdrjfm_tpu_torch.kernels.frontend import frontend, frontend_plain
+    from sdrjfm_tpu_torch.kernels.linrec import linrec, linrec_plain
+
+    dev = rx.device
+    rng = np.random.default_rng(7)
+    T = rx.cfg.block_in
+    s = lambda v, dt: torch.tensor(v, dtype=dt, device=dev)  # noqa: E731
+    fe_err = 0.0
+    fe_rows = []
+    for fmt in ("c64", "i16", "u8", "i8"):
+        for lo in (137_000, -250_000):
+            carry = torch.zeros(306, dtype=torch.complex64, device=dev)
+            carry_p = carry.clone()
+            # two consecutive blocks, the second crossing the rate modulus
+            n0 = C.INPUT_RATE - 1000
+            for blk in range(2):
+                x = _fe_inputs(rng, fmt, T, dev)
+                args = (s(0.9, torch.float32), s(1.1, torch.float32),
+                        s(0.003 - 0.02j, torch.complex64),
+                        s(lo, torch.int32), s(n0, torch.int32), True)
+                y, nc, dm = frontend(x, fmt, carry, rx.k_decim12, *args)
+                yp, ncp, dmp = frontend_plain(x, fmt, carry_p, rx.k_decim12,
+                                              *args)
+                torch.cuda.synchronize()
+                err = (y - yp).abs()
+                ok = bool((err <= FE_ATOL + FE_RTOL * yp.abs()).all())
+                cerr = float((nc - ncp).abs().max())
+                derr = float((dm - dmp).abs())
+                fe_err = max(fe_err, float(err.max()), cerr)
+                fe_rows.append({"fmt": fmt, "lo": lo, "block": blk,
+                                "max_abs_err": float(err.max()),
+                                "max_rel_err": float((err / yp.abs().clamp(
+                                    min=1e-6)).max()),
+                                "carry_err": cerr, "dc_err": derr})
+                need(ok and cerr <= FE_ATOL and derr <= 1e-6,
+                     f"frontend {fmt} lo={lo} block {blk}: {fe_rows[-1]}")
+                carry, carry_p = nc, ncp
+                n0 = (n0 + T) % C.INPUT_RATE
+    # the servo switched off: no DC correction, no subsample sums
+    x = _fe_inputs(rng, "i16", T, dev)
+    args = (s(0.9, torch.float32), s(1.1, torch.float32),
+            s(0.003 - 0.02j, torch.complex64), s(137_000, torch.int32),
+            s(5, torch.int32), False)
+    z = torch.zeros(306, dtype=torch.complex64, device=dev)
+    y, nc, dm = frontend(x, "i16", z, rx.k_decim12, *args)
+    yp, ncp, dmp = frontend_plain(x, "i16", z, rx.k_decim12, *args)
+    err = (y - yp).abs()
+    fe_err = max(fe_err, float(err.max()))
+    fe_rows.append({"fmt": "i16", "lo": 137_000, "dc_remove": False,
+                    "max_abs_err": float(err.max())})
+    need(bool((err <= FE_ATOL + FE_RTOL * yp.abs()).all()) and dm is None
+         and dmp is None, f"frontend dc_remove off: {fe_rows[-1]}")
+    emit({"phase": "kernels", "kernel": "frontend", "atol": FE_ATOL,
+          "rtol": FE_RTOL, "max_abs_err": fe_err, "cases": fe_rows})
+
+    # scan: path-like drives (alpha x tracker input) for the three trackers
+    n = rx.cfg.block_fm
+    mag = 1.0 + 0.1 * rng.standard_normal(n)
+    res = 0.3 * rng.standard_normal(n)
+    pmag = 0.4 + 0.05 * rng.standard_normal(n)
+    alphas = (C.CARRIER_ALPHA, C.FM_DC_ALPHA, C.PILOT_LOCK_ALPHA)
+    drive = torch.from_numpy(np.stack([alphas[0] * mag, alphas[1] * res,
+                                       alphas[2] * pmag]
+                                      ).astype(np.float32)).to(dev)
+    g = [1.0 - a for a in alphas]
+    y0 = torch.tensor([0.9, -0.01, 0.3], dtype=torch.float32, device=dev)
+    sc_err, sc_rows = 0.0, []
+    # R=3, the path's R=2 and R=1, and a ragged row length with fast decays
+    ragged = torch.from_numpy(rng.standard_normal((2, 10_000)).astype(
+        np.float32)).to(dev)
+    cases = [(drive[list(rows)].contiguous(), [g[r] for r in rows],
+              y0[list(rows)].contiguous()) for rows in ((0, 1, 2), (0, 1), (2,))]
+    cases.append((ragged, [0.9, 0.5], y0[:2].contiguous()))
+    for d, gg, y00 in cases:
+        y, last = linrec(d, gg, y00)
+        yp, lastp = linrec_plain(d, gg, y00)
+        torch.cuda.synchronize()
+        err = float(torch.maximum((y - yp).abs().max(),
+                                  (last - lastp).abs().max()))
+        scale = float(yp.abs().max())
+        sc_err = max(sc_err, err)
+        # both against the float64 recurrence on the host
+        exact = np.stack([lfilter([1.0], [1.0, -np.float64(np.float32(gr))],
+                                  dr, zi=[np.float64(np.float32(gr)) * v])[0]
+                          for gr, dr, v in zip(
+                              gg, d.cpu().double().numpy(),
+                              y00.cpu().double().numpy())])
+        sc_rows.append({"rows": d.shape[0], "T": d.shape[1],
+                        "max_abs_err": err,
+                        "max_rel_err": err / scale,
+                        "kernel_vs_f64": float(np.abs(
+                            y.cpu().double().numpy() - exact).max()),
+                        "plain_vs_f64": float(np.abs(
+                            yp.cpu().double().numpy() - exact).max())})
+        need(err <= SCAN_RTOL * scale, f"linrec: {sc_rows[-1]}")
+    emit({"phase": "kernels", "kernel": "linrec", "rtol_of_max": SCAN_RTOL,
+          "max_abs_err": sc_err, "cases": sc_rows})
+    return fe_err, sc_err
+
+
+def phase_main():
+    from sdrjfm_tpu_torch import app
+    from sdrjfm_tpu_torch.io.wavio import read_wav
+    from sdrjfm_tpu_torch.kernels.frontend import frontend
+    from sdrjfm_tpu_torch.kernels.linrec import linrec
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    wav, audio, report = OUT / "iq.wav", OUT / "audio.wav", OUT / "report.json"
+    t0 = time.perf_counter()
+    rc = app.main(["synth", "--out", str(wav), "--seconds", "8",
+                   "--station", "TPU FM", "--radiotext", "VERIFY RUN",
+                   "--pi", "0x10F0", "--pty", "10", "--int16"])
+    need(rc == 0, "synth")
+    synth_s = time.perf_counter() - t0
+    frontend.launches = 0
+    linrec.launches = 0
+    t0 = time.perf_counter()
+    rc = app.main(["rx", "--iq", str(wav), "--audio", str(audio), "--rds",
+                   "--report", str(report), "--block-fm", str(BLOCK_FM),
+                   "--iq-format", "i16", "--device", "cuda"])
+    rx_s = time.perf_counter() - t0
+    launches = {"frontend": frontend.launches, "linrec": linrec.launches}
+    need(rc == 0, f"rx exited {rc}")
+    rep = json.loads(report.read_text())
+    blocks = rep["blocks"]
+    rds, meta = rep["rds"], rep["meta_last"]
+    x, info = read_wav(str(audio))
+    rms = float(np.sqrt(np.mean(np.asarray(x, np.float64) ** 2)))
+    result = {"phase": "main", "blocks": blocks, "launches": launches,
+              "synth_s": synth_s, "rx_s": rx_s,
+              "throughput_x_realtime": rep["throughput_x_realtime"],
+              "pi": rds["pi_code"], "ps": rds["station_label"],
+              "rt": rds["radio_text"], "ber": rds["bit_error_rate"],
+              "groups": rds["groups_decoded"],
+              "pilot_locked": meta["pilot_locked"],
+              "pss_established": meta["pss_established"],
+              "audio_shape": list(x.shape), "audio_rate": info.rate,
+              "audio_rms": rms}
+    emit(result)
+    need(blocks > 0 and launches["frontend"] == blocks,
+         f"frontend launches {launches['frontend']} != blocks {blocks}")
+    need(launches["linrec"] == 2 * blocks,
+         f"scan launches {launches['linrec']} != 2 x blocks {blocks}")
+    need(rds["pi_code"] == "0x10F0" and rds["station_label"].strip() == "TPU FM"
+         and rds["radio_text"] == "VERIFY RUN", "RDS PI/PS/RT")
+    need(rds["bit_error_rate"] == 0.0, "RDS BER")
+    need(meta["pilot_locked"] and meta["pss_established"], "pilot/PSS lock")
+    need(info.rate == 48000 and x.ndim == 2 and x.shape[1] == 2
+         and np.isfinite(x).all() and 0.1 < rms < 1.0, "audio")
+    return wav, launches
+
+
+def phase_reference(wav):
+    """The capture through the port on cuda and on the CPU, block by block."""
+    from sdrjfm_tpu_torch.io.wavio import read_iq_wav_raw
+    from sdrjfm_tpu_torch.models.receiver import Receiver, ReceiverConfig
+
+    iq, _ = read_iq_wav_raw(str(wav))
+    cfg = ReceiverConfig(block_fm=BLOCK_FM, rds="block", audio_filter_hz=15000,
+                         iq_format="i16")
+    rxs = {d: Receiver(cfg, device=d) for d in ("cuda", "cpu")}
+    st = {d: r.init_state() for d, r in rxs.items()}
+    ctl = {d: r.initial_controls() for d, r in rxs.items()}
+    T = cfg.block_in
+    a_err, m_err, diffs = 0.0, 0.0, []
+    nblk = len(iq) // T
+    locked_before, prev_locked = [], False
+    for b in range(nblk):
+        blk = torch.from_numpy(np.array(iq[b * T:(b + 1) * T]))
+        outs = {}
+        for d, r in rxs.items():
+            st[d], outs[d] = r.step(st[d], ctl[d], blk.to(d))
+        g, c = outs["cuda"], outs["cpu"]
+        a_err = max(a_err, float((g.audio.cpu() - c.audio).abs().max()))
+        m_err = max(m_err, float((g.meta_vec.cpu() - c.meta_vec).abs().max()))
+        n = int(c.rds.count)
+        need(int(g.rds.count) == n, f"block {b}: RDS bit counts differ")
+        diffs.append(int((g.rds.bits[:n].cpu() != c.rds.bits[:n]).sum()))
+        locked_before.append(prev_locked)
+        prev_locked = bool(c.meta.pilot_locked)
+    # before the pilot locks the RDS mixer's phase is noise and marginal
+    # symbols may flip on f32 rounding; once locked, every bit must agree
+    locked_diffs = sum(d for d, lk in zip(diffs, locked_before) if lk)
+    emit({"phase": "reference", "blocks": nblk, "audio_max_abs_err": a_err,
+          "meta_vec_max_abs_err": m_err, "rds_bit_diffs_per_block": diffs,
+          "locked_blocks": sum(locked_before),
+          "rds_bit_diffs_after_lock": locked_diffs, "audio_atol": 1e-3})
+    need(a_err <= 1e-3 and locked_diffs == 0 and sum(locked_before) >= 8,
+         "cuda vs cpu reference")
+
+
+def phase_times(rx, wav, fe_err, sc_err, launches, card):
+    """Step time and per-kernel times at the main path's shapes."""
+    from sdrjfm_tpu_torch import constants as C
+    from sdrjfm_tpu_torch.io.wavio import read_iq_wav_raw
+    from sdrjfm_tpu_torch.kernels.frontend import (HALO, NTAPS, frontend,
+                                                   frontend_plain)
+    from sdrjfm_tpu_torch.kernels.linrec import linrec, linrec_plain
+    import torch.nn.functional as F
+
+    dev = rx.device
+    cfg = rx.cfg
+    T, M = cfg.block_in, cfg.block_fm
+    iq, _ = read_iq_wav_raw(str(wav))
+    nblk = len(iq) // T
+    blocks = [torch.from_numpy(np.array(iq[b * T:(b + 1) * T])).to(dev)
+              for b in range(nblk)]
+    # per-block step, state chained over the capture's blocks
+    state, ctl = rx.init_state(), rx.initial_controls()
+    for b in range(3):
+        state, _ = rx.step(state, ctl, blocks[b])
+    torch.cuda.synchronize()
+    steps, walls = [], []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        w0 = time.perf_counter()
+        a.record()
+        for blk in blocks:
+            state, out = rx.step(state, ctl, blk)
+        e.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - w0) / nblk * 1e3)
+        steps.append(a.elapsed_time(e) / nblk)
+    step_ms = statistics.median(steps)
+    block_s = T / C.INPUT_RATE
+    emit({"phase": "times", "what": "step", "block_fm": M,
+          "step_ms": step_ms, "step_ms_all": steps,
+          "host_wall_ms": statistics.median(walls),
+          "fm_stereo_rds_realtime_x": block_s / (step_ms / 1e3),
+          "card": card})
+
+    # front end, int16 wire: rotate 10 inputs (63 MB > the 50 MB L2)
+    rng = np.random.default_rng(3)
+    xs = [_fe_inputs(rng, "i16", T, dev) for _ in range(10)]
+    carry = torch.zeros(HALO, dtype=torch.complex64, device=dev)
+    sc = lambda v, dt: torch.tensor(v, dtype=dt, device=dev)  # noqa: E731
+    args = (sc(0.9, torch.float32), sc(1.1, torch.float32),
+            sc(0.003 - 0.02j, torch.complex64), sc(137_000, torch.int32),
+            sc(12345, torch.int32), True)
+    it = iter(range(10 ** 9))
+    fe_ms = cuda_ms(lambda: frontend(xs[next(it) % 10], "i16", carry,
+                                     rx.k_decim12, *args))
+    fe_plain_ms = cuda_ms(lambda: frontend_plain(xs[next(it) % 10], "i16",
+                                                 carry, rx.k_decim12, *args))
+    # yardstick: one conv1d (stride 12, TF32 off) on pre-mixed planes
+    planes = [torch.randn(2, 1, T + NTAPS - 12, device=dev)
+              for _ in range(4)]
+    wk = rx.k_decim12.flip(0)[None, None, :].contiguous()
+    fe_lib_ms = cuda_ms(lambda: F.conv1d(planes[next(it) % 4], wk,
+                                         stride=12))
+    fe_bytes = T * 4 + M * 8 + 2 * HALO * 8 + NTAPS * 4
+    fe_flops = 4 * NTAPS * M + 10 * T   # FIR (complex x real taps) + mix
+    fe_bound = max(fe_bytes / HBM_BYTES_PER_S, fe_flops / FP32_FLOP_PER_S)
+    fe_by = ("bytes" if fe_bytes / HBM_BYTES_PER_S
+             >= fe_flops / FP32_FLOP_PER_S else "operations")
+
+    # scan: the path's two launches per block ([2, M] then [1, M])
+    d2 = torch.rand(2, M, device=dev) * 1e-3
+    d1 = torch.rand(1, M, device=dev) * 1e-3
+    g2, g1 = [1 - C.CARRIER_ALPHA, 1 - C.FM_DC_ALPHA], [1 - C.PILOT_LOCK_ALPHA]
+    y02, y01 = torch.zeros(2, device=dev), torch.zeros(1, device=dev)
+    sc_ms = cuda_ms(lambda: (linrec(d2, g2, y02), linrec(d1, g1, y01)))
+    sc_plain_ms = cuda_ms(lambda: (linrec_plain(d2, g2, y02),
+                                   linrec_plain(d1, g1, y01)), iters=5)
+    sc_bytes = 3 * M * 8 + 3 * 12
+    sc_flops = 3 * M * 2
+    sc_bound = max(sc_bytes / HBM_BYTES_PER_S, sc_flops / FP32_FLOP_PER_S)
+    sc_by = ("bytes" if sc_bytes / HBM_BYTES_PER_S
+             >= sc_flops / FP32_FLOP_PER_S else "operations")
+    kernels = [
+        {"name": "frontend", "route": "cuda",
+         "source": "sdrjfm_tpu_torch/csrc/frontend.cu",
+         "replaces": "sdrjfm_tpu/ops/pallas_frontend.py:71",
+         "launches": launches["frontend"], "max_abs_err": fe_err,
+         "ms": fe_ms, "plain_ms": fe_plain_ms, "bound_ms": fe_bound * 1e3,
+         "bound_by": fe_by, "library_ms": fe_lib_ms,
+         "shape": f"int16 [{T},2] -> complex64 [{M}] per block"},
+        {"name": "linrec", "route": "triton",
+         "source": "sdrjfm_tpu_torch/kernels/linrec.py",
+         "replaces": "sdrjfm_tpu/ops/blockops.py:282",
+         "launches": launches["linrec"], "max_abs_err": sc_err,
+         "ms": sc_ms, "plain_ms": sc_plain_ms, "bound_ms": sc_bound * 1e3,
+         "bound_by": sc_by, "library_ms": None,
+         "shape": f"per block: one [2,{M}] and one [1,{M}] float32 launch"},
+    ]
+    emit({"phase": "times", "what": "kernels", "card": card,
+          "kernels": kernels})
+    return kernels
+
+
+def phase_profile(rx, wav, card):
+    """torch.profiler over a steady window of steps: the device's busy
+    share of the wall time and the ops that take the device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from sdrjfm_tpu_torch.io.wavio import read_iq_wav_raw
+
+    T = rx.cfg.block_in
+    iq, _ = read_iq_wav_raw(str(wav))
+    blocks = [torch.from_numpy(np.array(iq[b * T:(b + 1) * T])).to(rx.device)
+              for b in range(6)]
+    state, ctl = rx.init_state(), rx.initial_controls()
+    state, _ = rx.step(state, ctl, blocks[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        for blk in blocks[1:]:
+            state, _ = rx.step(state, ctl, blk)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+    nstep = len(blocks) - 1
+    # device-side events only (kernels, memcpy/memset): the CPU-side op
+    # events carry the same device time again
+    rows = [(e.self_device_time_total, e.key, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    dev_total_us = sum(r[0] for r in rows)
+    launches = sum(r[2] for r in rows)
+    emit({"phase": "profile", "steps": nstep, "card": card,
+          "wall_ms_per_step": wall / nstep * 1e3,
+          "device_ms_per_step": (dev_total_us / nstep / 1e3
+                                 if rows else "not measured"),
+          "device_busy_share": (dev_total_us / 1e6 / wall
+                                if rows else "not measured"),
+          "device_events_per_step": launches / nstep,
+          "top_device_ops": [{"op": k[:80], "us_per_step": us / nstep,
+                              "calls_per_step": c / nstep}
+                             for us, k, c in rows[:12]]})
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    card = phase_device()
+    phase_build()
+    from sdrjfm_tpu_torch.models.receiver import Receiver, ReceiverConfig
+    rx = Receiver(ReceiverConfig(block_fm=BLOCK_FM, rds="block",
+                                 audio_filter_hz=15000, iq_format="i16"),
+                  device="cuda")
+    fe_err, sc_err = phase_kernels(rx)
+    wav, launches = phase_main()
+    phase_reference(wav)
+    kernels = phase_times(rx, wav, fe_err, sc_err, launches, card)
+    phase_profile(rx, wav, card)
+    wav.unlink()                      # 74 MB: keep the output folder small
+    (OUT / "kernels.json").write_text(json.dumps({"card": card,
+                                                   "kernels": kernels},
+                                                  indent=2))
+    emit({"kernels": kernels})
+    print(card_line(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,252 @@
+"""Core block-processing primitives, in torch (port of sdrjfm_tpu.ops.blockops).
+
+Every primitive maps a whole time block `[T]` at once and threads an
+explicit carry, so consecutive blocks stitch exactly to one long-array
+computation (the tests hold split blocks against the whole array):
+
+- FIR / decimating FIR  -> strided `conv1d` over `concat(carry, x)` on split
+                           real/imag planes (carry = last taps-1 inputs)
+- overlap-save filter   -> batched `torch.fft` convolution (carry = last
+                           F-hop inputs), zero block latency
+- one-pole trackers     -> the first-order recurrence scan kernel
+                           (`kernels/linrec.py`), carry = last output
+- lock counters         -> run length of true via `torch.cummax`
+- LO mix                -> exact integer NCO phase, base-512 int32 digits
+
+Only what the main path uses is ported; `fir_interpolate`, `iir_apply` /
+`IIRSpec` and `rate_map_linear` are listed in ROADMAP.md.  Nothing here
+synchronises with the host: scalars that vary at run time are 0-dim device
+tensors, and constants are Python numbers passed to the ops.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.linrec import linrec
+
+Tensor = torch.Tensor
+
+# ---------------------------------------------------------------------------
+# FIR convolution with explicit left context
+# ---------------------------------------------------------------------------
+
+
+def _conv_complex(xp: Tensor, kernel: Tensor, stride: int) -> Tensor:
+    """Strided VALID causal conv of complex xp with a real or complex kernel:
+    y[n] = sum_k kernel[k] * xp[n*stride + K-1 - k]."""
+    k = kernel.flip(0)
+    if k.is_complex():
+        w = torch.stack([k.real, k.imag])[:, None, :]       # [2, 1, K]
+    else:
+        w = k.to(torch.float32)[None, None, :]              # [1, 1, K]
+    inp = torch.stack([xp.real, xp.imag])[:, None, :]       # [2, 1, T+K-1]
+    out = F.conv1d(inp, w, stride=stride)                   # [2, C, T]
+    if k.is_complex():
+        return torch.complex(out[0, 0] - out[1, 1], out[1, 0] + out[0, 1])
+    return torch.complex(out[0, 0], out[1, 0])
+
+
+def _conv_valid_real(xp: Tensor, kernel: Tensor, stride: int = 1) -> Tensor:
+    w = kernel.flip(0).to(xp.dtype)[None, None, :]
+    return F.conv1d(xp[None, None, :], w, stride=stride)[0, 0]
+
+
+def fir_apply(x: Tensor, kernel: Tensor, carry: Tensor
+              ) -> Tuple[Tensor, Tensor]:
+    """Causal FIR over a block.  kernel[0] multiplies the newest sample;
+    carry holds the previous K-1 inputs.  Returns (y [T], new_carry)."""
+    K = kernel.shape[0]
+    xp = torch.cat([carry.to(x.dtype), x])
+    new_carry = xp[-(K - 1):] if K > 1 else carry
+    if xp.is_complex() or kernel.is_complex():
+        y = _conv_complex(xp.to(torch.complex64), kernel, stride=1)
+    else:
+        y = _conv_valid_real(xp, kernel)
+    return y, new_carry
+
+
+def fir_decimate(x: Tensor, kernel: Tensor, factor: int, carry: Tensor
+                 ) -> Tuple[Tensor, Tensor]:
+    """Decimating causal FIR: output m is the filter at input sample
+    m*factor + factor - 1 of the stream (the reference's decimation
+    counter).  x [T] with T % factor == 0.  Returns (y [T/factor],
+    new_carry [K-1])."""
+    T = x.shape[0]
+    assert T % factor == 0, (T, factor)
+    K = kernel.shape[0]
+    xp = torch.cat([carry.to(x.dtype), x])
+    new_carry = xp[-(K - 1):]
+    xp = xp[factor - 1:]
+    if xp.is_complex() or kernel.is_complex():
+        y = _conv_complex(xp, kernel, stride=factor)
+    else:
+        y = _conv_valid_real(xp, kernel, stride=factor)
+    return y, new_carry
+
+
+def fir_zero_state(kernel_len: int, device=None,
+                   dtype=torch.complex64) -> Tensor:
+    return torch.zeros(kernel_len - 1, dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Overlap-save FFT fast convolution
+# ---------------------------------------------------------------------------
+
+
+def fft_filter_apply(x: Tensor, response: Tensor, hop: int, carry: Tensor
+                     ) -> Tuple[Tensor, Tensor]:
+    """Overlap-save convolution of a block with a frozen kernel.
+    response [F] complex; carry [F-hop] trailing inputs.  Returns (y [T]
+    causal filtered block, real when x is real; new_carry)."""
+    Fs = response.shape[0]
+    halo = Fs - hop
+    T = x.shape[0]
+    assert T % hop == 0, (T, hop, Fs)
+    xp = torch.cat([carry, x.to(carry.dtype)])
+    new_carry = xp[-halo:]
+    frames = xp.unfold(0, Fs, hop)                          # [T/hop, F]
+    out = torch.fft.ifft(torch.fft.fft(frames.to(torch.complex64))
+                         * response[None, :])
+    y = out[:, halo:].reshape(-1)
+    if not x.is_complex():
+        y = y.real
+    return y, new_carry
+
+
+def fft_filter_apply_multi(x: Tensor, responses: Tensor, hop: int,
+                           carry: Tensor) -> Tuple[Tensor, Tensor]:
+    """M overlap-save convolutions of ONE block sharing one forward FFT;
+    for a real input the forward runs as an rfft with the negative half
+    mirrored by conjugate symmetry.  responses [M, F]; carry [F-hop]
+    (complex storage, zero imaginary part for a real stream).  Returns
+    (ys [M, T] complex, new_carry)."""
+    M, Fs = responses.shape
+    halo = Fs - hop
+    T = x.shape[0]
+    assert T % hop == 0, (T, hop, Fs)
+    xp = torch.cat([carry.to(torch.complex64), x.to(torch.complex64)])
+    new_carry = xp[-halo:]
+    frames = xp.unfold(0, Fs, hop)                          # [T/hop, F]
+    if x.is_complex():
+        spec = torch.fft.fft(frames)
+    else:
+        r = torch.fft.rfft(frames.real)
+        spec = torch.cat([r, r[:, 1:Fs // 2].flip(-1).conj()], dim=-1)
+    out = torch.fft.ifft(spec[None, :, :] * responses[:, None, :])
+    ys = out[:, :, halo:].reshape(M, T)
+    return ys, new_carry
+
+
+def fft_filter_zero_state(fft_size: int, hop: int, device=None,
+                          dtype=torch.complex64) -> Tensor:
+    return torch.zeros(fft_size - hop, dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Integer sample delay with carry
+# ---------------------------------------------------------------------------
+
+
+def delay_apply(x: Tensor, carry: Tensor) -> Tuple[Tensor, Tensor]:
+    """Delay a stream by len(carry) samples.  Returns (delayed, new carry)."""
+    if carry.shape[0] == 0:
+        return x, carry
+    xp = torch.cat([carry, x])
+    return xp[: x.shape[0]], xp[x.shape[0]:]
+
+
+# ---------------------------------------------------------------------------
+# First-order linear recurrences (one-pole trackers) — the scan kernel
+# ---------------------------------------------------------------------------
+
+
+def linrec_apply(drive: Tensor, g: float, y0: Tensor
+                 ) -> Tuple[Tensor, Tensor]:
+    """y[n] = g*y[n-1] + drive[n] for a real [T] block with a constant
+    decay g and initial state y0 (y[-1]).  Returns (y [T], y[T-1])."""
+    y, last = linrec(drive.to(torch.float32)[None].contiguous(), [g],
+                     y0.to(torch.float32).reshape(1))
+    return y[0], last[0]
+
+
+def ema_apply(x: Tensor, alpha: float, y0: Tensor) -> Tuple[Tensor, Tensor]:
+    """Exponential moving average y[n] = (1-alpha)*y[n-1] + alpha*x[n]."""
+    return linrec_apply(alpha * x, 1.0 - alpha, y0)
+
+
+def ema_apply_rows(xs: Sequence[Tensor], alphas: Sequence[float],
+                   y0s: Sequence[Tensor]):
+    """Several independent EMAs over equal-length blocks in ONE scan launch.
+    Returns [(y_i, last_i)] in input order."""
+    drive = torch.stack([a * x.to(torch.float32)
+                         for a, x in zip(alphas, xs)])
+    y0 = torch.stack([v.to(torch.float32) for v in y0s])
+    y, last = linrec(drive, [1.0 - a for a in alphas], y0)
+    return [(y[i], last[i]) for i in range(len(xs))]
+
+
+# ---------------------------------------------------------------------------
+# Run-length / lock-counter logic
+# ---------------------------------------------------------------------------
+
+
+def runlength_true(flags: Tensor, r0: Tensor) -> Tuple[Tensor, Tensor]:
+    """Consecutive-true run length ending at each sample, with carry-in r0
+    (the reference's SampleLockStableCnt pattern)."""
+    T = flags.shape[0]
+    idx = torch.arange(T, dtype=torch.int32, device=flags.device)
+    last_false = torch.cummax(torch.where(flags, -1, idx), dim=0).values
+    rl = torch.where(last_false >= 0, idx - last_false,
+                     idx + 1 + r0.to(torch.int32))
+    rl = torch.where(flags, rl, 0).to(torch.int32)
+    return rl, rl[-1]
+
+
+# ---------------------------------------------------------------------------
+# Phase helpers
+# ---------------------------------------------------------------------------
+
+_NCO_BASE = 512  # digit base for int32-safe modular products (base*rate < 2^31)
+
+
+def _digits3(v: Tensor, base: int):
+    return v % base, (v // base) % base, v // (base * base)
+
+
+def oscillator_phases(freq_hz: Tensor, rate: int, n0_mod: Tensor,
+                      count: int) -> Tensor:
+    """Exact integer NCO phase ramp 2*pi*((f*(n0+i)) mod rate)/rate in f32.
+
+    freq_hz, n0_mod: int32 0-dim tensors (freq may be negative; torch's %
+    and // floor like jnp's).  All products stay below 2^31 through the
+    base-512 digit split, so the ramp is exact for unbounded streams."""
+    q = int(rate)
+    assert q * _NCO_BASE < 2 ** 31
+    dev = freq_hz.device
+    f = freq_hz.to(torch.int32) % q
+    c0 = f
+    c1 = (c0 * _NCO_BASE) % q
+    c2 = (c1 * _NCO_BASE) % q
+    a0, a1, a2 = _digits3(n0_mod.to(torch.int32) % q, _NCO_BASE)
+    start = ((a0 * c0) % q + (a1 * c1) % q) % q
+    start = (start + (a2 * c2) % q) % q
+    i = torch.arange(count, dtype=torch.int32, device=dev)
+    d0, d1, d2 = _digits3(i, _NCO_BASE)
+    t = ((d0 * c0) % q + (d1 * c1) % q) % q
+    t = (t + (d2 * c2) % q) % q
+    t = (t + start) % q
+    return t.to(torch.float32) * (2.0 * math.pi / q)
+
+
+def mix_lo(x: Tensor, freq_hz: Tensor, rate: int, n0_mod: Tensor) -> Tensor:
+    """Multiply a block by e^{-j 2 pi f n / rate} from global index n0 (a
+    station at +f Hz offset lands at baseband)."""
+    ph = oscillator_phases(freq_hz, rate, n0_mod, x.shape[0])
+    return x * torch.complex(torch.cos(ph), -torch.sin(ph))
+
