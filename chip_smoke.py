@@ -8,8 +8,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. device  — the card's name and power limit (nvidia-smi), torch's CUDA
              version, nvcc's version.  No CUDA: exit 1.
 2. build   — builds every kernel of the main path from the sources in this
-             checkout (nvcc for the CUDA front end, Triton for the scan),
-             in parallel, and prints the build seconds.
+             checkout (one nvcc per CUDA source, all in parallel), prints
+             the build seconds and each kernel's -Xptxas -v lines.
 3. kernels — each kernel against its plain torch version on the card, at the
              main path's shapes, with the tolerance stated.
 4. main    — synthesises an 8 s stereo+RDS capture and drives it through
@@ -19,9 +19,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
              counts over that run equal the block counts.
 5. reference — the same capture through the port on the CPU (the kernels'
              plain versions): audio, metadata and RDS bits agree.
-6. times   — per-block step time and real-time factor; each kernel's time,
-             its plain version's, a one-call library yardstick where one
-             exists, and the bound from bytes and operations.
+6. times   — per-block step time and real-time factor; each kernel's
+             device time (its calls queued behind a device sleep, so the
+             host cannot set the pace) and host time per wrapper call, its
+             plain version's time, a one-call library yardstick where one
+             exists (timed the same way), and the bound from bytes and
+             operations.
 7. profile — torch.profiler over 5 steady steps: the device's busy share
              of the wall time, device ops per step, the top ops by device
              time.
@@ -53,11 +56,14 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
 BLOCK_FM = 131072
+SOURCES = ("frontend.cu", "linrec.cu")       # every kernel of the main path
 FE_ATOL, FE_RTOL = 2e-5, 1e-5      # f32 FIR of 307 taps summed in another
                                    # order + sincosf vs torch sin/cos ulps
 SCAN_RTOL = 1e-5                   # of max|y|: two f32 scans over 131072
                                    # steps, associated differently, each
                                    # ~1e-6 of the scale off float64
+SCAN_F64_RTOL = 2e-6               # of max|y|: the kernel vs the float64
+                                   # recurrence on the host
 
 
 def emit(obj) -> None:
@@ -76,8 +82,11 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 5, iters: int = 20) -> float:
-    """Median over `reps` of the mean time of `iters` calls (CUDA events)."""
+def paced_ms(fn, reps: int = 5, iters: int = 20) -> float:
+    """Median over `reps` of the mean time of `iters` back-to-back calls
+    between CUDA events.  The host sets the pace when a call costs it more
+    than the card: use only for functions that synchronise with the host
+    (the plain versions copy constants from it)."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -91,6 +100,66 @@ def cuda_ms(fn, reps: int = 5, iters: int = 20) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b) / iters)
     return statistics.median(times)
+
+
+_SLEEP_CYCLES_PER_MS = None
+
+
+def _sleep_cycles_per_ms() -> float:
+    """Rate of torch.cuda._sleep on this card, from one timed sleep."""
+    global _SLEEP_CYCLES_PER_MS
+    if _SLEEP_CYCLES_PER_MS is None:
+        cycles = 20_000_000
+        torch.cuda._sleep(cycles // 10)                    # warm up
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(cycles)
+        b.record()
+        torch.cuda.synchronize()
+        _SLEEP_CYCLES_PER_MS = cycles / a.elapsed_time(b)
+    return _SLEEP_CYCLES_PER_MS
+
+
+def device_ms(fn, what: str, reps: int = 5, iters: int = 20):
+    """(device ms per call, host us per call) of `fn`, which must not
+    synchronise with the host.
+
+    Each rep enqueues a device-side sleep and then `iters` calls; CUDA
+    events around the calls time the card alone, because the host has
+    queued every call before the sleep ends.  The run fails if the host
+    took longer to enqueue the calls than the sleep lasted (measured from
+    before the sleep was enqueued, so the bound is strict)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    cycles = int((3.0 * host_ms + 1.0) * _sleep_cycles_per_ms())
+    dev, host = [], []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        s.record()
+        torch.cuda._sleep(cycles)
+        a.record()
+        h1 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        h2 = time.perf_counter()
+        b.record()
+        torch.cuda.synchronize()
+        window = s.elapsed_time(a)
+        need((h2 - h0) * 1e3 < window,
+             f"{what}: host enqueue {(h2 - h0) * 1e3:.3f} ms outlasted the "
+             f"{window:.3f} ms device sleep it must hide behind")
+        dev.append(a.elapsed_time(b) / iters)
+        host.append((h2 - h1) / iters * 1e6)
+    return statistics.median(dev), statistics.median(host)
 
 
 def phase_device():
@@ -110,30 +179,24 @@ def phase_device():
 
 
 def phase_build():
+    """nvcc for every kernel source, all started together; prints each
+    kernel's registers, shared memory and spills (-Xptxas -v)."""
     from sdrjfm_tpu_torch.kernels import build
-    from sdrjfm_tpu_torch.kernels.linrec import linrec
 
-    def timed(fn):
+    def timed(src):
         t0 = time.perf_counter()
-        fn()
+        build.build(src)
         return time.perf_counter() - t0
 
-    def triton_compile():
-        d = torch.zeros(1, 4096, device="cuda")
-        linrec(d, [0.5], torch.zeros(1, device="cuda"))
-        torch.cuda.synchronize()
-
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
-        f_cu = ex.submit(timed, lambda: build.build("frontend.cu"))
-        f_tr = ex.submit(timed, triton_compile)
-        s_cu, s_tr = f_cu.result(), f_tr.result()
-    ptxas = [ln.strip() for ln in build.ptxas_report("frontend.cu"
-                                                      ).splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "frontend_cu_nvcc_s": s_cu,
-          "linrec_triton_s": s_tr, "wall_s": time.perf_counter() - t0,
-          "ptxas": ptxas[:2]})
+    with ThreadPoolExecutor(len(SOURCES)) as ex:
+        secs = dict(zip(SOURCES, ex.map(timed, SOURCES)))
+    wall = time.perf_counter() - t0
+    for src in SOURCES:
+        for ln in build.ptxas_report(src).splitlines():
+            if "registers" in ln or "spill" in ln or "Compiling" in ln:
+                print(f"ptxas {src}: {ln.strip()}", flush=True)
+    emit({"phase": "build", "nvcc_s": secs, "wall_s": wall})
 
 
 def _fe_inputs(rng, fmt: str, T: int, dev):
@@ -154,7 +217,8 @@ def phase_kernels(rx):
     from scipy.signal import lfilter
     from sdrjfm_tpu_torch import constants as C
     from sdrjfm_tpu_torch.kernels.frontend import frontend, frontend_plain
-    from sdrjfm_tpu_torch.kernels.linrec import linrec, linrec_plain
+    from sdrjfm_tpu_torch.kernels.linrec import (KERNEL_CHUNK, linrec,
+                                                 linrec_plain)
 
     dev = rx.device
     rng = np.random.default_rng(7)
@@ -162,51 +226,72 @@ def phase_kernels(rx):
     s = lambda v, dt: torch.tensor(v, dtype=dt, device=dev)  # noqa: E731
     fe_err = 0.0
     fe_rows = []
+
+    def fe_blocks(fmt, lo, T, n0, dc_remove, offset=0, nblk=2):
+        """`nblk` consecutive blocks, carries chained, kernel vs plain.
+        `offset` > 0 hands the kernel a wire view that starts that many
+        samples into its buffer (not 16-byte aligned)."""
+        nonlocal fe_err
+        carry = torch.zeros(306, dtype=torch.complex64, device=dev)
+        carry_p = carry.clone()
+        for blk in range(nblk):
+            x = _fe_inputs(rng, fmt, T + offset, dev)[offset:]
+            args = (s(0.9, torch.float32), s(1.1, torch.float32),
+                    s(0.003 - 0.02j, torch.complex64), s(lo, torch.int32),
+                    s(n0, torch.int32), dc_remove)
+            y, nc, dm = frontend(x, fmt, carry, rx.k_decim12, *args)
+            yp, ncp, dmp = frontend_plain(x, fmt, carry_p, rx.k_decim12,
+                                          *args)
+            torch.cuda.synchronize()
+            err = (y - yp).abs()
+            ok = bool((err <= FE_ATOL + FE_RTOL * yp.abs()).all())
+            cerr = float((nc - ncp).abs().max())
+            derr = float((dm - dmp).abs()) if dc_remove else None
+            fe_err = max(fe_err, float(err.max()), cerr)
+            fe_rows.append({"fmt": fmt, "lo": lo, "T": T, "block": blk,
+                            "dc_remove": dc_remove, "offset": offset,
+                            "max_abs_err": float(err.max()),
+                            "max_rel_err": float((err / yp.abs().clamp(
+                                min=1e-6)).max()),
+                            "carry_err": cerr, "dc_err": derr})
+            dc_ok = (derr <= 1e-6 if dc_remove
+                     else dm is None and dmp is None)
+            need(ok and cerr <= FE_ATOL and dc_ok,
+                 f"frontend: {fe_rows[-1]}")
+            carry, carry_p = nc, ncp
+            n0 = (n0 + T) % C.INPUT_RATE
+
+    # every wire format and both LO signs, two blocks each, the second
+    # crossing the rate modulus; the DC mean finished in the kernel
     for fmt in ("c64", "i16", "u8", "i8"):
         for lo in (137_000, -250_000):
-            carry = torch.zeros(306, dtype=torch.complex64, device=dev)
-            carry_p = carry.clone()
-            # two consecutive blocks, the second crossing the rate modulus
-            n0 = C.INPUT_RATE - 1000
-            for blk in range(2):
-                x = _fe_inputs(rng, fmt, T, dev)
-                args = (s(0.9, torch.float32), s(1.1, torch.float32),
-                        s(0.003 - 0.02j, torch.complex64),
-                        s(lo, torch.int32), s(n0, torch.int32), True)
-                y, nc, dm = frontend(x, fmt, carry, rx.k_decim12, *args)
-                yp, ncp, dmp = frontend_plain(x, fmt, carry_p, rx.k_decim12,
-                                              *args)
-                torch.cuda.synchronize()
-                err = (y - yp).abs()
-                ok = bool((err <= FE_ATOL + FE_RTOL * yp.abs()).all())
-                cerr = float((nc - ncp).abs().max())
-                derr = float((dm - dmp).abs())
-                fe_err = max(fe_err, float(err.max()), cerr)
-                fe_rows.append({"fmt": fmt, "lo": lo, "block": blk,
-                                "max_abs_err": float(err.max()),
-                                "max_rel_err": float((err / yp.abs().clamp(
-                                    min=1e-6)).max()),
-                                "carry_err": cerr, "dc_err": derr})
-                need(ok and cerr <= FE_ATOL and derr <= 1e-6,
-                     f"frontend {fmt} lo={lo} block {blk}: {fe_rows[-1]}")
-                carry, carry_p = nc, ncp
-                n0 = (n0 + T) % C.INPUT_RATE
+            fe_blocks(fmt, lo, T, C.INPUT_RATE - 1000, True)
     # the servo switched off: no DC correction, no subsample sums
+    fe_blocks("i16", 137_000, T, 5, False, nblk=1)
+    # a ragged last tile (1000 outputs = 512 + 488), with wire views that
+    # start off the 16-byte grid
+    fe_blocks("i16", -250_000, 12 * 1000, 12345, True, offset=1)
+    fe_blocks("u8", 137_000, 12 * 1000, C.INPUT_RATE - 300, True, offset=3)
+    fe_blocks("c64", 137_000, 12 * 1000, 0, True)
+    # one launch per block: no reduction or division kernels beside it
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     x = _fe_inputs(rng, "i16", T, dev)
     args = (s(0.9, torch.float32), s(1.1, torch.float32),
             s(0.003 - 0.02j, torch.complex64), s(137_000, torch.int32),
-            s(5, torch.int32), False)
+            s(5, torch.int32), True)
     z = torch.zeros(306, dtype=torch.complex64, device=dev)
-    y, nc, dm = frontend(x, "i16", z, rx.k_decim12, *args)
-    yp, ncp, dmp = frontend_plain(x, "i16", z, rx.k_decim12, *args)
-    err = (y - yp).abs()
-    fe_err = max(fe_err, float(err.max()))
-    fe_rows.append({"fmt": "i16", "lo": 137_000, "dc_remove": False,
-                    "max_abs_err": float(err.max())})
-    need(bool((err <= FE_ATOL + FE_RTOL * yp.abs()).all()) and dm is None
-         and dmp is None, f"frontend dc_remove off: {fe_rows[-1]}")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        frontend(x, "i16", z, rx.k_decim12, *args)
+        torch.cuda.synchronize()
+    fe_kernels = [e.key for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.count > 0]
     emit({"phase": "kernels", "kernel": "frontend", "atol": FE_ATOL,
-          "rtol": FE_RTOL, "max_abs_err": fe_err, "cases": fe_rows})
+          "rtol": FE_RTOL, "max_abs_err": fe_err,
+          "device_kernels_per_call": fe_kernels, "cases": fe_rows})
+    need(len(fe_kernels) == 1 and "frontend_kernel" in fe_kernels[0],
+         f"frontend: one kernel per call, got {fe_kernels}")
 
     # scan: path-like drives (alpha x tracker input) for the three trackers
     n = rx.cfg.block_fm
@@ -220,14 +305,28 @@ def phase_kernels(rx):
     g = [1.0 - a for a in alphas]
     y0 = torch.tensor([0.9, -0.01, 0.3], dtype=torch.float32, device=dev)
     sc_err, sc_rows = 0.0, []
-    # R=3, the path's R=2 and R=1, and a ragged row length with fast decays
-    ragged = torch.from_numpy(rng.standard_normal((2, 10_000)).astype(
-        np.float32)).to(dev)
+
+    def rand(R, T, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal((R, T))).astype(
+            np.float32)).to(dev)
+
+    # R=3, the path's R=2 and R=1, ragged and short rows, one chunk's
+    # worth less one, four blocks' worth, and g = 1 (a plain sum)
     cases = [(drive[list(rows)].contiguous(), [g[r] for r in rows],
               y0[list(rows)].contiguous()) for rows in ((0, 1, 2), (0, 1), (2,))]
-    cases.append((ragged, [0.9, 0.5], y0[:2].contiguous()))
-    for d, gg, y00 in cases:
-        y, last = linrec(d, gg, y00)
+    cases += [(rand(2, 10_000), [0.9, 0.5], y0[:2].contiguous()),
+              (rand(3, 1), g, y0),
+              (rand(2, KERNEL_CHUNK * 2 - 1, 1e-2), g[1:], y0[1:].contiguous()),
+              (rand(1, 4 * n, 1e-3), g[2:], y0[2:].contiguous()),
+              (rand(3, n, 1e-3), [1.0, g[1], 0.5], y0)]
+    runs = [(d, gg, y00, *linrec(d, gg, y00)) for d, gg, y00 in cases]
+    # two launches back to back on the same look-back words (no sync
+    # between): the second must not read the first's published prefixes
+    d_a, d_b = rand(2, n, 1e-2), rand(2, n, 1e-2)
+    runs += [(d, g[:2], y0[:2].contiguous(), *linrec(d, g[:2],
+                                                     y0[:2].contiguous()))
+             for d in (d_a, d_b)]
+    for d, gg, y00, y, last in runs:
         yp, lastp = linrec_plain(d, gg, y00)
         torch.cuda.synchronize()
         err = float(torch.maximum((y - yp).abs().max(),
@@ -240,14 +339,18 @@ def phase_kernels(rx):
                           for gr, dr, v in zip(
                               gg, d.cpu().double().numpy(),
                               y00.cpu().double().numpy())])
-        sc_rows.append({"rows": d.shape[0], "T": d.shape[1],
+        k64 = float(np.abs(y.cpu().double().numpy() - exact).max())
+        sc_rows.append({"rows": d.shape[0], "T": d.shape[1], "g": gg,
+                        "chunks_per_row": -(-d.shape[1] // KERNEL_CHUNK),
                         "max_abs_err": err,
                         "max_rel_err": err / scale,
-                        "kernel_vs_f64": float(np.abs(
-                            y.cpu().double().numpy() - exact).max()),
+                        "kernel_vs_f64": k64,
+                        "kernel_vs_f64_of_max": k64 / scale,
                         "plain_vs_f64": float(np.abs(
                             yp.cpu().double().numpy() - exact).max())})
-        need(err <= SCAN_RTOL * scale, f"linrec: {sc_rows[-1]}")
+        need(err <= SCAN_RTOL * scale and k64 <= SCAN_F64_RTOL * scale,
+             f"linrec: {sc_rows[-1]}")
+    need(-(-n // KERNEL_CHUNK) >= 16, "linrec: under 16 blocks per row")
     emit({"phase": "kernels", "kernel": "linrec", "rtol_of_max": SCAN_RTOL,
           "max_abs_err": sc_err, "cases": sc_rows})
     return fe_err, sc_err
@@ -394,16 +497,18 @@ def phase_times(rx, wav, fe_err, sc_err, launches, card):
             sc(0.003 - 0.02j, torch.complex64), sc(137_000, torch.int32),
             sc(12345, torch.int32), True)
     it = iter(range(10 ** 9))
-    fe_ms = cuda_ms(lambda: frontend(xs[next(it) % 10], "i16", carry,
-                                     rx.k_decim12, *args))
-    fe_plain_ms = cuda_ms(lambda: frontend_plain(xs[next(it) % 10], "i16",
-                                                 carry, rx.k_decim12, *args))
-    # yardstick: one conv1d (stride 12, TF32 off) on pre-mixed planes
+    fe_ms, fe_host_us = device_ms(
+        lambda: frontend(xs[next(it) % 10], "i16", carry, rx.k_decim12,
+                         *args), "frontend")
+    fe_plain_ms = paced_ms(lambda: frontend_plain(xs[next(it) % 10], "i16",
+                                                  carry, rx.k_decim12, *args))
+    # yardstick: one conv1d (stride 12, TF32 off) on pre-mixed planes,
+    # rotated over 8 x 12.6 MB so that the L2 is cold as well
     planes = [torch.randn(2, 1, T + NTAPS - 12, device=dev)
-              for _ in range(4)]
+              for _ in range(8)]
     wk = rx.k_decim12.flip(0)[None, None, :].contiguous()
-    fe_lib_ms = cuda_ms(lambda: F.conv1d(planes[next(it) % 4], wk,
-                                         stride=12))
+    fe_lib_ms, fe_lib_host_us = device_ms(
+        lambda: F.conv1d(planes[next(it) % 8], wk, stride=12), "conv1d")
     fe_bytes = T * 4 + M * 8 + 2 * HALO * 8 + NTAPS * 4
     fe_flops = 4 * NTAPS * M + 10 * T   # FIR (complex x real taps) + mix
     fe_bound = max(fe_bytes / HBM_BYTES_PER_S, fe_flops / FP32_FLOP_PER_S)
@@ -415,9 +520,11 @@ def phase_times(rx, wav, fe_err, sc_err, launches, card):
     d1 = torch.rand(1, M, device=dev) * 1e-3
     g2, g1 = [1 - C.CARRIER_ALPHA, 1 - C.FM_DC_ALPHA], [1 - C.PILOT_LOCK_ALPHA]
     y02, y01 = torch.zeros(2, device=dev), torch.zeros(1, device=dev)
-    sc_ms = cuda_ms(lambda: (linrec(d2, g2, y02), linrec(d1, g1, y01)))
-    sc_plain_ms = cuda_ms(lambda: (linrec_plain(d2, g2, y02),
-                                   linrec_plain(d1, g1, y01)), iters=5)
+    sc2_ms, sc2_host_us = device_ms(lambda: linrec(d2, g2, y02), "linrec R=2")
+    sc1_ms, sc1_host_us = device_ms(lambda: linrec(d1, g1, y01), "linrec R=1")
+    sc_ms = sc2_ms + sc1_ms
+    sc_plain_ms = paced_ms(lambda: (linrec_plain(d2, g2, y02),
+                                    linrec_plain(d1, g1, y01)), iters=5)
     sc_bytes = 3 * M * 8 + 3 * 12
     sc_flops = 3 * M * 2
     sc_bound = max(sc_bytes / HBM_BYTES_PER_S, sc_flops / FP32_FLOP_PER_S)
@@ -430,13 +537,17 @@ def phase_times(rx, wav, fe_err, sc_err, launches, card):
          "launches": launches["frontend"], "max_abs_err": fe_err,
          "ms": fe_ms, "plain_ms": fe_plain_ms, "bound_ms": fe_bound * 1e3,
          "bound_by": fe_by, "library_ms": fe_lib_ms,
+         "host_us_per_call": fe_host_us,
+         "library_host_us_per_call": fe_lib_host_us,
          "shape": f"int16 [{T},2] -> complex64 [{M}] per block"},
-        {"name": "linrec", "route": "triton",
-         "source": "sdrjfm_tpu_torch/kernels/linrec.py",
+        {"name": "linrec", "route": "cuda",
+         "source": "sdrjfm_tpu_torch/csrc/linrec.cu",
          "replaces": "sdrjfm_tpu/ops/blockops.py:282",
          "launches": launches["linrec"], "max_abs_err": sc_err,
          "ms": sc_ms, "plain_ms": sc_plain_ms, "bound_ms": sc_bound * 1e3,
          "bound_by": sc_by, "library_ms": None,
+         "ms_per_launch": {"R=2": sc2_ms, "R=1": sc1_ms},
+         "host_us_per_call": (sc2_host_us + sc1_host_us) / 2,
          "shape": f"per block: one [2,{M}] and one [1,{M}] float32 launch"},
     ]
     emit({"phase": "times", "what": "kernels", "card": card,
@@ -482,6 +593,11 @@ def phase_profile(rx, wav, card):
           "device_busy_share": (dev_total_us / 1e6 / wall
                                 if rows else "not measured"),
           "device_events_per_step": launches / nstep,
+          # the hand kernels' own device time inside a real step
+          "hand_kernels": [{"op": k[:80], "us_per_call": us / c,
+                            "calls_per_step": c / nstep}
+                           for us, k, c in rows
+                           if "frontend" in k or "linrec" in k],
           "top_device_ops": [{"op": k[:80], "us_per_step": us / nstep,
                               "calls_per_step": c / nstep}
                              for us, k, c in rows[:12]]})

@@ -6,6 +6,10 @@ the hand-written kernel of `csrc/frontend.cu` (the port of the TPU kernel
 `frontend_plain`, the same function in torch ops, which is also the
 reference the kernel is held against on the card.  There is no fallback:
 on a CUDA tensor the kernel launches or the call raises.
+
+One launch per block: the kernel also finishes the DC servo's subsample
+mean.  `nco_index_steps` mirrors the kernel's NCO stepping, so that the CPU
+tests reach it.
 """
 
 from __future__ import annotations
@@ -25,7 +29,10 @@ DECIM = 12
 NTAPS = 307
 HALO = NTAPS - 1
 DC_SUBSAMPLE = 64
-TILE = 256                        # outputs per thread block (csrc TILE)
+LEAD = NTAPS - DECIM              # window samples before a tile's own range
+TILE = 512                        # outputs per thread block (csrc TILE)
+THREADS = 384                     # threads per block (csrc THREADS)
+MAX_T = 2 ** 30                   # the kernel indexes samples in int32
 
 WIRE_FORMATS = {"c64": (0, torch.complex64), "i16": (1, torch.int16),
                 "u8": (2, torch.uint8), "i8": (3, torch.int8)}
@@ -45,6 +52,26 @@ def decode_wire(iq: torch.Tensor, fmt: str) -> Tuple[torch.Tensor,
     if fmt == "i8":
         return x[:, 0] * (1.0 / 128.0), x[:, 1] * (1.0 / 128.0)
     raise ValueError(f"unknown iq_format {fmt!r}")
+
+
+def nco_index_steps(f: int, n0: int, q: int, n_first: int, count: int,
+                    stride: int = THREADS) -> np.ndarray:
+    """The NCO indices one kernel thread steps through: samples
+    n_first + stride*v for v < count (a thread's window positions).  The
+    first index is the exact (f * (n0 + n)) mod q in 64-bit floor-mod
+    arithmetic; every later one is one 32-bit add of (f * stride) mod q and
+    one conditional subtract, as in csrc/frontend.cu.  Returns int64
+    [count]."""
+    fq = f % q
+    idx = (fq * ((n0 + n_first) % q)) % q
+    step = (fq * (stride % q)) % q
+    out = np.empty(count, np.int64)
+    for v in range(count):
+        out[v] = idx
+        idx += step
+        assert idx < 2 ** 32
+        idx = idx - q if idx >= q else idx
+    return out
 
 
 def frontend_plain(iq, fmt, carry, taps, lgain, rgain, rf_dc, lo_freq,
@@ -86,6 +113,7 @@ class FrontendKernel:
     def __init__(self):
         self.launches = 0
         self._fn = None
+        self._tickets = {}        # device -> the DC reduction's ticket
 
     def _entry(self):
         if self._fn is None:
@@ -96,7 +124,8 @@ class FrontendKernel:
                            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                            ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                            ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_void_p]
+                           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_void_p]
             fn.restype = ctypes.c_int
             if lib.sdr_frontend_tile() != TILE:
                 raise RuntimeError("frontend: csrc TILE != wrapper TILE")
@@ -121,9 +150,9 @@ class FrontendKernel:
         T = iq.shape[0]
         dev = iq.device
         _check(iq, "iq", dtype, (T,) if fmt == "c64" else (T, 2), dev)
-        if T % DECIM or T < HALO:
+        if T % DECIM or not HALO <= T <= MAX_T:
             raise ValueError(f"frontend: block length {T} must be a multiple "
-                             f"of {DECIM} and at least {HALO}")
+                             f"of {DECIM} in [{HALO}, {MAX_T}]")
         if iq.data_ptr() % (8 if fmt == "c64" else 4 if fmt == "i16" else 2):
             raise ValueError("frontend: iq is not aligned to its sample size")
         if not 0 < rate < 2 ** 31 // 512:
@@ -138,8 +167,16 @@ class FrontendKernel:
         M = T // DECIM
         y = torch.empty(M, dtype=torch.complex64, device=dev)
         new_carry = torch.empty(HALO, dtype=torch.complex64, device=dev)
-        part = (torch.empty(((M + TILE - 1) // TILE, 2), dtype=torch.float32,
-                            device=dev) if dc_remove else None)
+        part = ticket = dc_mean = None
+        if dc_remove:
+            part = torch.empty(((M + TILE - 1) // TILE, 2),
+                               dtype=torch.float32, device=dev)
+            dc_mean = torch.empty((), dtype=torch.complex64, device=dev)
+            ticket = self._tickets.get(dev)
+            if ticket is None:    # zeroed once; each launch leaves it at 0
+                ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+                self._tickets[dev] = ticket
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         w_rad = float(np.float32(2.0 * np.pi / rate))
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
@@ -148,15 +185,11 @@ class FrontendKernel:
                 lgain.data_ptr(), rgain.data_ptr(), rf_dc.data_ptr(),
                 lo_freq.data_ptr(), n0_mod.data_ptr(), int(dc_remove),
                 int(rate), w_rad, y.data_ptr(), new_carry.data_ptr(),
-                part.data_ptr() if part is not None else None, stream)
+                ptr(part), ptr(ticket), ptr(dc_mean), stream)
         if rc != 0:
             raise RuntimeError(f"frontend kernel launch failed: CUDA error "
                                f"{rc}")
         self.launches += 1
-        dc_mean = None
-        if part is not None:
-            n_sub = (T + DC_SUBSAMPLE - 1) // DC_SUBSAMPLE
-            dc_mean = torch.view_as_complex(part.sum(0)) / n_sub
         return y, new_carry, dc_mean
 
 

@@ -2,101 +2,33 @@
 
 The JAX package gets this from `lax.associative_scan` with the combine
 `_first_order_combine` (sdrjfm_tpu/ops/blockops.py:277-294); PyTorch has no
-such primitive, so the port carries a hand-written Triton kernel.  It has no
-Pallas counterpart.  On the main path it runs the AM-carrier and AFC
-trackers of the discriminator (two rows, one launch) and the pilot lock
-metric (one row, one launch) over each block.
+such primitive, so the port carries a hand-written CUDA kernel,
+`csrc/linrec.cu`: a single-pass scan with decoupled look-back over chunks
+of 2048 samples (its note says why).  It has no Pallas counterpart.  On the
+main path it runs the AM-carrier and AFC trackers of the discriminator (two
+rows, one launch) and the pilot lock metric (one row, one launch) over each
+block.
 
-`linrec` is the wrapper: on a CUDA tensor it launches the Triton kernel
-(imported and compiled at the first launch, never at import), on a CPU
-tensor it runs `linrec_plain`, a chunked scan in torch ops that is also the
-reference for the kernel on the card.
-
-Kernel design: one program per row walks its row in chunks of ROWS x COLS
-samples, carrying the chunk's last output into the next chunk.  A chunk is
-viewed as ROWS sub-rows of COLS samples: `tl.associative_scan` runs the
-combine (g1*g2, v1*g2 + v2) along each sub-row with zero carry-in, and the
-sub-rows are joined with exact decay powers g^n = exp2(n * log2 g), log2 g
-taken on the host in float64.  Why two levels: with Triton's scan along
-one 4096-sample axis the decay products lose accuracy (on an H100 the
-pilot-lock row came out 4.3e-5 of its scale off the plain version), while
-128-sample sub-rows joined by exact powers stay within ~1e-6 of the scale
-of a float64 recurrence (chip_smoke.py checks both).  What bounds it on an
-H100: the work is tiny (3
-rows x 131072 samples read and written, ~3 MB, ~1 us at 3.35 TB/s), but
-one program per row serialises each row's 32 chunks on one SM, so a launch
-is latency-bound, not bandwidth-bound.  Splitting each row over several
-programs (a three-phase scan) is the next step if a trace shows it matters.
+`linrec` is the wrapper: on a CUDA tensor it launches the kernel (built
+with nvcc at the first launch, never at import), on a CPU tensor it runs
+`linrec_plain`, a chunked scan in torch ops that is also the reference for
+the kernel on the card.
 """
 
 from __future__ import annotations
 
-import os
+import ctypes
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .build import BUILD_DIR
+from . import build
 
+SOURCE = "linrec.cu"
 CHUNK = 128               # plain version: in-chunk matrix size
-ROWS, COLS = 32, 128      # Triton kernel: a 4096-sample chunk as 32 x 128
-NUM_WARPS = 8
-
-_linrec_combine = None    # Triton functions, defined at the first launch
-_linrec_kernel = None
-tl = None
-
-
-def _define_triton():
-    """Import Triton and define the kernel (first launch only).  The
-    functions are bound as module globals so that Triton resolves
-    `_linrec_combine` and `tl` inside the kernel body."""
-    global _linrec_combine, _linrec_kernel, tl
-    if _linrec_kernel is not None:
-        return _linrec_kernel
-    # keep Triton's compile cache inside the checkout, beside the nvcc builds
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def _linrec_combine(g1, v1, g2, v2):
-        return g1 * g2, v1 * g2 + v2
-
-    @triton.jit
-    def _linrec_kernel(d_ptr, g_ptr, l2g_ptr, y0_ptr, y_ptr, last_ptr, T,
-                       ROWS: tl.constexpr, COLS: tl.constexpr):
-        row = tl.program_id(0)
-        g = tl.load(g_ptr + row)
-        l2g = tl.load(l2g_ptr + row)                    # log2(g)
-        carry = tl.load(y0_ptr + row)
-        base = row.to(tl.int64) * T
-        r = tl.arange(0, ROWS)[:, None]
-        k = tl.arange(0, ROWS)[None, :]
-        c = tl.arange(0, COLS)[None, :]
-        # g^(c+1) along a sub-row, g^(r*COLS) per sub-row, and the strictly
-        # lower-triangular g^((r-1-k)*COLS) that joins the sub-rows
-        pw = tl.exp2((c + 1).to(tl.float32) * l2g)
-        pr = tl.exp2((tl.arange(0, ROWS) * COLS).to(tl.float32) * l2g)
-        join = tl.where(k < r, tl.exp2(((r - 1 - k) * COLS).to(tl.float32)
-                                       * l2g), 0.0)
-        for start in range(0, T, ROWS * COLS):
-            offs = start + r * COLS + c
-            mask = offs < T
-            d = tl.load(d_ptr + base + offs, mask=mask, other=0.0)
-            gv = tl.where(mask, g, 1.0)
-            _, v = tl.associative_scan((gv, d), 1, _linrec_combine)
-            ends = tl.sum(tl.where(c == COLS - 1, v, 0.0), axis=1)
-            c_in = tl.sum(join * ends[None, :], axis=1) + pr * carry
-            y = v + pw * c_in[:, None]
-            tl.store(y_ptr + base + offs, y, mask=mask)
-            last = tl.minimum(start + ROWS * COLS, T) - 1
-            carry = tl.sum(tl.sum(tl.where(offs == last, y, 0.0), axis=1),
-                           axis=0)
-        tl.store(last_ptr + row, carry)
-
-    return _linrec_kernel
+KERNEL_CHUNK = 2048       # samples per thread block (csrc CHUNK)
+EPOCHS = 2 ** 30          # the kernel's epoch field is 30 bits
 
 
 def linrec_plain(drive: torch.Tensor, g: Sequence[float],
@@ -135,12 +67,28 @@ def linrec_plain(drive: torch.Tensor, g: Sequence[float],
 
 
 class LinrecKernel:
-    """Callable wrapper with a launch counter (`launches` counts Triton
+    """Callable wrapper with a launch counter (`launches` counts kernel
     launches only; CPU calls of the plain version do not count)."""
 
     def __init__(self):
         self.launches = 0
+        self._fn = None
         self._g: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._status: Dict[torch.device, torch.Tensor] = {}
+        self._epoch = 0
+
+    def _entry(self):
+        if self._fn is None:
+            lib = build.load(SOURCE)
+            fn = lib.sdr_linrec
+            fn.argtypes = [ctypes.c_void_p] * 6 + [
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint,
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            if lib.sdr_linrec_chunk() != KERNEL_CHUNK:
+                raise RuntimeError("linrec: csrc CHUNK != wrapper CHUNK")
+            self._fn = fn
+        return self._fn
 
     def _g_tensors(self, g: Sequence[float], dev):
         """(g, log2 g) per row as f32 device tensors, cached: a fresh H2D
@@ -154,6 +102,15 @@ class LinrecKernel:
             self._g[key] = t
         return t
 
+    def _status_words(self, n: int, dev) -> torch.Tensor:
+        """The look-back words, zeroed once per device and grown on demand;
+        the epoch tells one launch's words from the last's."""
+        st = self._status.get(dev)
+        if st is None or st.numel() < n:
+            st = torch.zeros(max(n, 1024), dtype=torch.int64, device=dev)
+            self._status[dev] = st
+        return st
+
     def __call__(self, drive: torch.Tensor, g: Sequence[float],
                  y0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         if drive.device.type == "cpu":
@@ -165,6 +122,8 @@ class LinrecKernel:
         if not drive.is_contiguous():
             raise ValueError("linrec: drive must be contiguous")
         R, T = drive.shape
+        if not (1 <= R <= 65535 and 1 <= T < 2 ** 31 - KERNEL_CHUNK):
+            raise ValueError(f"linrec: shape {(R, T)} out of range")
         if len(g) != R:
             raise ValueError(f"linrec: {len(g)} decays for {R} rows")
         if not all(0.0 < float(v) <= 1.0 for v in g):
@@ -173,13 +132,20 @@ class LinrecKernel:
                 or tuple(y0.shape) != (R,) or not y0.is_contiguous()):
             raise ValueError("linrec: y0 must be a contiguous [R] float32 "
                              "tensor on the drive's device")
-        kernel = _define_triton()
-        g_t, l2g_t = self._g_tensors(g, drive.device)
+        dev = drive.device
+        fn = self._entry()
+        g_t, l2g_t = self._g_tensors(g, dev)
+        status = self._status_words(R * -(-T // KERNEL_CHUNK), dev)
+        self._epoch = self._epoch % (EPOCHS - 1) + 1
         y = torch.empty_like(drive)
-        last = torch.empty(R, dtype=torch.float32, device=drive.device)
-        with torch.cuda.device(drive.device):
-            kernel[(R,)](drive, g_t, l2g_t, y0, y, last, T, ROWS=ROWS,
-                         COLS=COLS, num_warps=NUM_WARPS)
+        last = torch.empty(R, dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            rc = fn(drive.data_ptr(), g_t.data_ptr(), l2g_t.data_ptr(),
+                    y0.data_ptr(), y.data_ptr(), last.data_ptr(), R, T,
+                    status.data_ptr(), self._epoch,
+                    torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"linrec kernel launch failed: CUDA error {rc}")
         self.launches += 1
         return y, last
 

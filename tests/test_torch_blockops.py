@@ -16,7 +16,7 @@ import torch
 from sdrjfm_tpu import constants as JC
 from sdrjfm_tpu.ops import blockops as JB
 from sdrjfm_tpu.ops import design
-from sdrjfm_tpu_torch.kernels.linrec import linrec_plain
+from sdrjfm_tpu_torch.kernels.linrec import KERNEL_CHUNK, linrec_plain
 from sdrjfm_tpu_torch.ops import blockops as TB
 
 torch.set_num_threads(2)
@@ -204,3 +204,24 @@ class TestScan:
         y1, l1 = linrec_plain(_t(d[:, :2500]), g, y0)
         y2, _ = linrec_plain(_t(d[:, 2500:]), g, l1)
         _close(torch.cat([y1, y2], dim=1), y, rtol=0, atol=1e-6)
+
+    @pytest.mark.parametrize("T,g", [
+        (2 * KERNEL_CHUNK + 77, [1 - 1e-3, 0.5]),   # not a multiple
+        (100, [1 - 1e-4, 0.9]),                     # shorter than one chunk
+        (KERNEL_CHUNK + 1, [1.0, 1 - 1e-3]),        # g = 1: a plain sum
+    ])
+    def test_plain_scan_against_float64_at_kernel_chunk_edges(self, T, g):
+        """Row lengths around the kernel's chunk, and g = 1.0, against a
+        float64 recurrence within 1e-6 of the output scale."""
+        from scipy.signal import lfilter
+        rng = np.random.default_rng(T)
+        d = (1e-2 * rng.standard_normal((2, T))).astype(np.float32)
+        y0 = np.array([0.4, -0.2], np.float32)
+        y, last = linrec_plain(_t(d), g, _t(y0))
+        gd = np.float32(g).astype(np.float64)
+        want = np.stack([lfilter([1.0], [1.0, -gr], dr, zi=[gr * v])[0]
+                         for gr, dr, v in zip(gd, d.astype(np.float64),
+                                              y0.astype(np.float64))])
+        scale = float(np.abs(want).max())
+        _close(y, want, rtol=0, atol=1e-6 * scale)
+        _close(last, want[:, -1], rtol=0, atol=1e-6 * scale)

@@ -20,9 +20,12 @@ from sdrjfm_tpu import constants as JC
 from sdrjfm_tpu.models.receiver import Receiver as JReceiver
 from sdrjfm_tpu.models.receiver import ReceiverConfig as JConfig
 from sdrjfm_tpu.ops import blockops as JB
-from sdrjfm_tpu_torch.kernels.frontend import (FrontendKernel, frontend,
-                                               frontend_plain)
+from sdrjfm_tpu_torch.kernels.frontend import (LEAD, THREADS, TILE,
+                                               FrontendKernel,
+                                               frontend, frontend_plain,
+                                               nco_index_steps)
 from sdrjfm_tpu_torch.models.receiver import Receiver, ReceiverConfig
+from sdrjfm_tpu_torch.ops import blockops as TB
 
 torch.set_num_threads(2)
 
@@ -139,3 +142,93 @@ def test_wrapper_counts_only_kernel_launches():
                               z(torch.float32), z(torch.complex64),
                               z(torch.int32), z(torch.int32), False)
     assert torch.equal(y, y2)
+
+
+Q = JC.INPUT_RATE
+
+
+@pytest.mark.parametrize("f", [0, 1, -1, 137_000, -250_000, 1_151_999, Q - 1])
+@pytest.mark.parametrize("n0", [0, 12345, Q - 300, Q - 1])
+def test_nco_index_steps_exact(f, n0):
+    """The kernel's 32-bit NCO stepping == (f * (n0 + n)) mod q, for
+    threads whose positions start in the carry, cross tile boundaries and
+    the block's end, and cross the rate modulus."""
+    for n_first in (-LEAD - 1, 12 * TILE - 300, T - 5 * THREADS - 3,
+                    Q - n0 - 7):
+        got = nco_index_steps(f, n0, Q, n_first, count=30)
+        n = n_first + THREADS * np.arange(30)
+        want = np.array([(f * (n0 + int(v))) % Q for v in n])
+        np.testing.assert_array_equal(got, want)
+
+
+# csrc/frontend.cu's shared-memory layout: J consecutive outputs per thread,
+# PGROUPS phase groups, the window as S[p][c][u] for index 12*(J*u + c) + p
+J, PGROUPS, NROW = 8, 6, 26
+NU = (TILE + NROW - 2) // J + 1
+PLANE = J * NU + 1
+WIN, WSTAGE = 12 * TILE + LEAD, 12 * J * NU
+
+
+def _tile_window(tile, T):
+    """(first window sample, own range start, own range end) of a tile: the
+    window starts LEAD samples early; the own ranges partition [0, T)."""
+    own = 12 * TILE * tile
+    return own - LEAD, own, min(own + 12 * TILE, T)
+
+
+def _kernel_layout_fir(xm, carry, taps):
+    """The kernel's tiling and polyphase register blocking, in numpy
+    (float64): stage each tile's window into S, accumulate J outputs per
+    thread over each phase group's phases, sum the groups."""
+    T = len(xm)
+    M = T // 12
+    xp = np.concatenate([carry, xm]).astype(np.complex128)
+    H = np.zeros((12, NROW))
+    for p in range(12):
+        for r in range(NROW):
+            k = 306 - 12 * r - p
+            H[p, r] = taps[k] if k >= 0 else 0.0
+    y = np.zeros(-(-M // TILE) * TILE, np.complex128)
+    g = np.arange(TILE // J)
+    for tile in range(-(-M // TILE)):
+        base, _, _ = _tile_window(tile, T)
+        w = np.arange(WSTAGE)
+        n = base + w
+        ok = (w < WIN) & (n < T)
+        val = np.where(ok, xp[np.clip(n, -306, T - 1) + 306], 0.0)
+        S = np.full(12 * PLANE, np.nan, np.complex128)
+        jj, p = w // 12, w % 12
+        S[p * PLANE + (jj % J) * NU + jj // J] = val
+        acc = np.zeros((PGROUPS, J, len(g)), np.complex128)
+        for pg in range(PGROUPS):
+            for p in range(pg * 12 // PGROUPS, (pg + 1) * 12 // PGROUPS):
+                for i in range(J + NROW - 1):
+                    x = S[p * PLANE + (i % J) * NU + g + i // J]
+                    for c in range(J):
+                        if 0 <= i - c < NROW:
+                            acc[pg, c] += H[p, i - c] * x
+        y[tile * TILE:(tile + 1) * TILE] = acc.sum(0).T.reshape(-1)
+    return y[:M]
+
+
+@pytest.mark.parametrize("blocks", [(12 * 1000,), (12 * 1024, 12 * 600)])
+def test_kernel_tiling_matches_fir_decimate(taps, blocks):
+    """Tile windows (LEAD samples early, from the carry for tile 0), a
+    ragged last tile, the carry and the polyphase layout reproduce
+    fir_decimate's alignment over consecutive blocks; the tiles' own
+    ranges partition the block, so each carry sample has one writer."""
+    rng = np.random.default_rng(len(blocks))
+    carry = np.zeros(306, np.complex64)
+    for T in blocks:
+        xm = (rng.standard_normal(T) + 1j * rng.standard_normal(T)
+              ).astype(np.complex64)
+        want, new_carry = TB.fir_decimate(torch.from_numpy(xm),
+                                          torch.from_numpy(taps), 12,
+                                          torch.from_numpy(carry))
+        got = _kernel_layout_fir(xm, carry, taps)
+        np.testing.assert_allclose(got, want.numpy(), rtol=0, atol=1e-5)
+        owns = [_tile_window(t, T)[1:] for t in range(-(-T // 12 // TILE))]
+        assert owns[0][0] == 0 and owns[-1][1] == T
+        assert all(a[1] == b[0] for a, b in zip(owns, owns[1:]))
+        np.testing.assert_array_equal(new_carry.numpy(), xm[T - 306:])
+        carry = xm[T - 306:]
