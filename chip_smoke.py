@@ -11,7 +11,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
              checkout (one nvcc per CUDA source, all in parallel), prints
              the build seconds and each kernel's -Xptxas -v lines.
 3. kernels — each kernel against its plain torch version on the card, at the
-             main path's shapes, with the tolerance stated.
+             main path's shapes, with the tolerance stated: the front end
+             and the real scan; the complex pole bank (kernel A) also
+             against the float64 recurrence, at the squelch's shapes and on
+             ragged rows; the RDS decoders 1-3 (kernels B1-B3) on chained
+             segments of a clean baseband from a warmed-up state.
 4. main    — synthesises an 8 s stereo+RDS capture and drives it through
              `python -m sdrjfm_tpu_torch.app rx` (in process) on cuda at
              block_fm=131072 with the int16 wire: PI/PS/RT back at BER 0,
@@ -19,15 +23,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
              counts over that run equal the block counts.
 5. reference — the same capture through the port on the CPU (the kernels'
              plain versions): audio, metadata and RDS bits agree.
-6. times   — per-block step time and real-time factor; each kernel's
+5b. options — `rx` on cuda at block_fm=131072 once per receiver option
+             (scan decoders 1-3, squelch nsq/lsq on the station and on a
+             noise-only capture, the other discriminators, the deemphasis
+             scan, the input filter, the reference front end, 192 kHz audio,
+             the test tone, the taps and dumps, a raw u8 capture at 2.4
+             MS/s, and 2.5 MS/s refused with exit 2): each run's checks,
+             each kernel's launch count over the run (counts set to 0 just
+             before it), and its first two blocks of audio against the same
+             run on the CPU; emit_audio_i16 against the host quantizer.
+6. times   — per-block step time and real-time factor (the main path, and
+             the heaviest option config: input filter + nsq + scan2); each
+             kernel's
              device time (its calls queued behind a device sleep, so the
              host cannot set the pace) and host time per wrapper call, its
              plain version's time, a one-call library yardstick where one
              exists (timed the same way), and the bound from bytes and
-             operations.
+             operations; for the sequential RDS decoders also the estimate
+             of their dependency chain.
 7. profile — torch.profiler over 5 steady steps: the device's busy share
              of the wall time, device ops per step, the top ops by device
-             time.
+             time; for the main path and for the heaviest option config.
 
 Then one line {"kernels": [...]}, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}.  Outputs go to
@@ -56,7 +72,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
 BLOCK_FM = 131072
-SOURCES = ("frontend.cu", "linrec.cu")       # every kernel of the main path
+SOURCES = ("frontend.cu", "linrec.cu", "rds_scan.cu")   # every kernel
 FE_ATOL, FE_RTOL = 2e-5, 1e-5      # f32 FIR of 307 taps summed in another
                                    # order + sincosf vs torch sin/cos ulps
 SCAN_RTOL = 1e-5                   # of max|y|: two f32 scans over 131072
@@ -64,6 +80,15 @@ SCAN_RTOL = 1e-5                   # of max|y|: two f32 scans over 131072
                                    # ~1e-6 of the scale off float64
 SCAN_F64_RTOL = 2e-6               # of max|y|: the kernel vs the float64
                                    # recurrence on the host
+POLE_RTOL = 1e-6                   # of max_n sum_p |r_p||w_p[n]| (the sum's
+                                   # terms cancel: the residues reach ~170),
+                                   # kernel vs plain and vs float64; both sit
+                                   # near 1e-7 of it
+RDS_IQ_ATOL = 1e-4                 # constellation points O(1-10) after f32
+                                   # Costas loops fed by differently summed
+                                   # FIRs; bits and emit counts must be equal
+OPT_AUDIO_ATOL = 1e-3              # cuda vs cpu audio of an option run (as
+                                   # phase reference; the wav is PCM16)
 
 
 def emit(obj) -> None:
@@ -555,7 +580,7 @@ def phase_times(rx, wav, fe_err, sc_err, launches, card):
     return kernels
 
 
-def phase_profile(rx, wav, card):
+def phase_profile(rx, wav, card, what: str = "main path"):
     """torch.profiler over a steady window of steps: the device's busy
     share of the wall time and the ops that take the device time."""
     from torch.autograd import DeviceType
@@ -586,7 +611,7 @@ def phase_profile(rx, wav, card):
     rows.sort(reverse=True)
     dev_total_us = sum(r[0] for r in rows)
     launches = sum(r[2] for r in rows)
-    emit({"phase": "profile", "steps": nstep, "card": card,
+    emit({"phase": "profile", "what": what, "steps": nstep, "card": card,
           "wall_ms_per_step": wall / nstep * 1e3,
           "device_ms_per_step": (dev_total_us / nstep / 1e3
                                  if rows else "not measured"),
@@ -597,10 +622,478 @@ def phase_profile(rx, wav, card):
           "hand_kernels": [{"op": k[:80], "us_per_call": us / c,
                             "calls_per_step": c / nstep}
                            for us, k, c in rows
-                           if "frontend" in k or "linrec" in k],
+                           if any(n in k for n in ("frontend", "linrec",
+                                                   "pole_", "decoder"))],
           "top_device_ops": [{"op": k[:80], "us_per_step": us / nstep,
                               "calls_per_step": c / nstep}
                              for us, k, c in rows[:12]]})
+
+
+
+def _squelch_specs():
+    from sdrjfm_tpu_torch.ops.squelch import make_squelch_config
+    sq = make_squelch_config()
+    return [sq.hp, sq.lp]
+
+
+def _rds_baseband(seconds: float, seed: int = 4):
+    """A clean RDS baseband at 24 kS/s with a constant rotation and a
+    little noise (the scan decoders' input z24)."""
+    from sdrjfm_tpu_torch import constants as C
+    from sdrjfm_tpu_torch.io.synth import rds_baseband
+    from sdrjfm_tpu_torch.rds import encode
+    syms = encode.differential_encode(encode.make_bitstream(
+        pi=0x1234, station="SCANDEC ", repeats=6))
+    n = int(seconds * C.RDS_RATE)
+    rng = np.random.default_rng(seed)
+    z = rds_baseband(syms, n, C.RDS_RATE) * np.exp(1j * 0.4)
+    z = z + 0.02 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    return torch.from_numpy(z.astype(np.complex64))
+
+
+def _to(state, dev):
+    if isinstance(state, tuple):
+        return type(state)(*(_to(v, dev) for v in state))
+    return state.to(dev)
+
+
+def phase_option_kernels(dev="cuda"):
+    """Kernel A against its plain version and the float64 recurrence;
+    kernels B1-B3 against their plain versions on chained segments."""
+    from scipy.signal import lfilter
+    from sdrjfm_tpu_torch.kernels.linrec import (POLE_CHUNK, pole_bank,
+                                                 pole_bank_plain)
+    from sdrjfm_tpu_torch.rds import scan_decoders as SD
+    from sdrjfm_tpu_torch.rds.bitrecovery import bit_capacity
+
+    rng = np.random.default_rng(8)
+    specs = _squelch_specs()
+    rows, a_err = [], 0.0
+    # the squelch's shapes (2 banks x 10 poles x 131072), then ragged rows:
+    # one bank, a chunk plus one, and under one chunk
+    for T, banks in ((BLOCK_FM, specs), (BLOCK_FM, specs[1:]),
+                     (POLE_CHUNK + 1, specs), (1000, specs[:1])):
+        x = torch.from_numpy((0.3 * rng.standard_normal((len(banks), T))
+                              ).astype(np.float32)).to(dev)
+        w0 = [torch.from_numpy((0.05 * (rng.standard_normal(10)
+                                        + 1j * rng.standard_normal(10))
+                                ).astype(np.complex64)).to(dev)
+              for _ in banks]
+        y, wT = pole_bank(x, banks, w0)
+        pol, res, _ = pole_bank.constants(banks, torch.device(dev))
+        yp, wTp = pole_bank_plain(x, pol, res, torch.stack(w0))
+        torch.cuda.synchronize()
+        row = {"banks": len(banks), "poles": 10, "T": T,
+               "max_abs_err": float((y - yp).abs().max()),
+               "state_err": float((torch.stack(wT) - wTp).abs().max())}
+        for b, spec in enumerate(banks):
+            g = spec.poles.astype(np.complex128)
+            xd = x[b].double().cpu().numpy().astype(np.complex128)
+            w0d = w0[b].cpu().numpy().astype(np.complex128)
+            ws = np.stack([lfilter([1.0], [1.0, -gp], xd, zi=[gp * w0d[p]])[0]
+                           for p, gp in enumerate(g)])
+            ref = np.real((spec.residues.astype(np.complex128)[:, None]
+                           * ws).sum(0))
+            scale = float((np.abs(spec.residues)[:, None]
+                           * np.abs(ws)).sum(0).max())
+            k64 = float(np.abs(y[b].cpu().numpy() - ref).max()) / scale
+            kp = float((y[b] - yp[b]).abs().max()) / scale
+            row[f"bank{b}_scale"] = scale
+            row[f"bank{b}_kernel_vs_f64_of_scale"] = k64
+            row[f"bank{b}_kernel_vs_plain_of_scale"] = kp
+            need(k64 <= POLE_RTOL and kp <= POLE_RTOL, f"pole_bank: {row}")
+        a_err = max(a_err, row["max_abs_err"])
+        rows.append(row)
+    emit({"phase": "kernels", "kernel": "pole_bank", "rtol_of_scale": POLE_RTOL,
+          "max_abs_err": a_err, "cases": rows})
+
+    # B1-B3: warm up in the plain version on the CPU, hand the same state
+    # to the kernel and to the plain version on the card, then chained
+    # segments, the last of them a full block (16384 samples)
+    z = _rds_baseband(2.0)
+    b_err = {}
+    for kind, (mk, zero, fn) in SD.DECODERS.items():
+        cfg = mk()
+        st = fn(z[:4800], cfg, zero(cfg), 300)[4]          # cpu: plain
+        st_k = st_p = _to(st, dev)
+        segs, err = [], 0.0
+        for lo, hi in ((4800, 6800), (6800, 8800), (8800, 8800 + 16384)):
+            seg = z[lo:hi].to(dev)
+            cap = bit_capacity(hi - lo)
+            bk, ck, qk, ik, st_k = fn(seg, cfg, st_k, cap, True)
+            bp, cp, qp, ip, st_p = SD._PLAIN[int(kind[-1])](seg, cfg, st_p,
+                                                            cap, True)
+            torch.cuda.synchronize()
+            n = int(cp)
+            r = {"T": hi - lo, "count": [int(ck), n],
+                 "bits_equal": bool(torch.equal(bk[:n], bp[:n])),
+                 "iq_err": float((qk - qp).abs().max()),
+                 "stream_err": float((ik - ip).abs().max()),
+                 "state_err": float((SD.pack_state(st_k)
+                                     - SD.pack_state(st_p)).abs().max())}
+            segs.append(r)
+            err = max(err, r["iq_err"], r["stream_err"])
+            need(int(ck) == n and r["bits_equal"] and n > 0.9 * (hi - lo)
+                 / SD.SPS and max(r["iq_err"], r["stream_err"]) <= RDS_IQ_ATOL,
+                 f"rds {kind}: {r}")
+        b_err[kind] = err
+        emit({"phase": "kernels", "kernel": f"rds_{kind}",
+              "iq_atol": RDS_IQ_ATOL, "max_abs_err": err, "segments": segs})
+    return a_err, b_err
+
+
+def _write_u8_capture(wav, path, seconds: float):
+    """The synth capture resampled on the host to 2.4 MS/s (rtl-sdr's rate)
+    and written as a headerless u8 file."""
+    from scipy.signal import resample_poly
+    from sdrjfm_tpu_torch.io.synth import iq_to_u8
+    from sdrjfm_tpu_torch.io.wavio import read_iq_wav
+    iq, _ = read_iq_wav(str(wav))
+    iq = iq[: int(seconds * 2_304_000)]
+    iq_to_u8(resample_poly(iq, 25, 24).astype(np.complex64)).tofile(str(path))
+
+
+def _write_noise_capture(path, seconds: float, seed: int = 9):
+    from sdrjfm_tpu_torch.io.wavio import write_iq_wav
+    rng = np.random.default_rng(seed)
+    n = int(seconds * 2_304_000)
+    iq = (0.05 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+          ).astype(np.complex64)
+    write_iq_wav(str(path), iq, 2_304_000, float32=False)
+
+
+def _head(src, dst, blocks: int, raw_block_bytes: int = 0):
+    """The first `blocks` blocks of a capture (wav or raw)."""
+    from sdrjfm_tpu_torch.io.wavio import read_iq_wav_raw, write_iq_wav
+    if raw_block_bytes:
+        dst.write_bytes(src.read_bytes()[: blocks * raw_block_bytes])
+        return
+    iq, rate = read_iq_wav_raw(str(src))
+    x = np.asarray(iq[: blocks * BLOCK_FM * 12], np.float32) / 32768.0
+    write_iq_wav(str(dst), (x[:, 0] + 1j * x[:, 1]).astype(np.complex64),
+                 rate, float32=False)
+
+
+def _counters():
+    from sdrjfm_tpu_torch.kernels.frontend import frontend
+    from sdrjfm_tpu_torch.kernels.linrec import linrec, pole_bank
+    from sdrjfm_tpu_torch.rds import scan_decoders as SD
+    return {"frontend": frontend, "linrec": linrec, "pole_bank": pole_bank,
+            "rds_scan1": SD.decoder1_scan, "rds_scan2": SD.decoder2_scan,
+            "rds_scan3": SD.decoder3_scan}
+
+
+# (name, capture, flags, launches per block, checks): every option of the
+# port's receiver through the CLI
+OPTION_RUNS = [
+    ("scan1", "station", ["--rds", "--rds-decoder", "scan1"],
+     {"frontend": 1, "linrec": 2, "rds_scan1": 1}, "rds"),
+    ("scan2", "station", ["--rds", "--rds-decoder", "scan2"],
+     {"frontend": 1, "linrec": 2, "rds_scan2": 1}, "rds"),
+    ("scan3", "station", ["--rds", "--rds-decoder", "scan3"],
+     {"frontend": 1, "linrec": 2, "rds_scan3": 1}, "rds"),
+    ("nsq_station", "station", ["--rds", "--squelch", "nsq",
+                                "--squelch-level", "80"],
+     {"frontend": 1, "linrec": 3, "pole_bank": 1}, "open"),
+    ("nsq_noise", "noise", ["--squelch", "nsq", "--squelch-level", "80"],
+     {"frontend": 1, "linrec": 3, "pole_bank": 1}, "closed"),
+    ("lsq_station", "station", ["--squelch", "lsq", "--squelch-level", "50"],
+     {"frontend": 1, "linrec": 2}, "open"),
+    ("lsq_noise", "noise", ["--squelch", "lsq", "--squelch-level", "50"],
+     {"frontend": 1, "linrec": 2}, "closed"),
+    ("pll", "station", ["--rds", "--decoder", "pll"],
+     {"frontend": 1, "linrec": 4}, "rds"),
+    ("real_baseband", "station", ["--rds", "--decoder", "real_baseband"],
+     {"frontend": 1, "linrec": 2}, "rds"),
+    ("difference", "station", ["--rds", "--decoder", "difference"],
+     {"frontend": 1, "linrec": 2}, "rds"),
+    ("am", "station", ["--decoder", "am"], {"frontend": 1, "linrec": 2},
+     "finite"),
+    ("deemph_scan", "station", ["--rds", "--audio-filter", "0"],
+     {"frontend": 1, "linrec": 3}, "rds"),
+    ("input_filter", "station", ["--rds", "--input-filter"],
+     {"frontend": 0, "linrec": 2}, "rds"),
+    ("reference", "station", ["--rds", "--frontend", "reference"],
+     {"frontend": 0, "linrec": 2}, "rds"),
+    ("audio_192k", "station", ["--rds", "--audio-192k"],
+     {"frontend": 1, "linrec": 2}, "rds192"),
+    ("test_tone", "station", ["--test-tone"], {"frontend": 1, "linrec": 2},
+     "finite"),
+    ("taps_dumps", "station", ["--rds", "--taps", "--dump-input", "{tmp}/in.wav",
+                               "--dump-if", "{tmp}/if.wav", "--dump-mpx",
+                               "{tmp}/mpx.wav"],
+     {"frontend": 0, "linrec": 2}, "dumps"),
+    ("raw_u8_2400k", "raw", ["--rds", "--iq-format", "u8", "--input-rate",
+                             "2400000"], {"frontend": 1, "linrec": 2}, "rds"),
+]
+
+
+def phase_options(wav, dev="cuda", cmp_dev="cpu"):
+    """`rx` once per option on `dev`, launch counts, checks, and the first
+    two blocks of audio against the same run on `cmp_dev`."""
+    import shutil
+
+    # the dumps and captures are large: keep them out of the output folder
+    tmp = ROOT / "chiprun_work" / "options_tmp"
+    tmp.mkdir(parents=True, exist_ok=True)
+    try:
+        return _run_options(wav, dev, cmp_dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _run_options(wav, dev, cmp_dev, tmp):
+    import contextlib
+    import io
+    from sdrjfm_tpu_torch import app
+    from sdrjfm_tpu_torch.io.pcmout import quantize_pcm16
+    from sdrjfm_tpu_torch.io.wavio import read_wav
+    from sdrjfm_tpu_torch.models.receiver import Receiver, ReceiverConfig
+
+    caps = {"station": wav, "noise": tmp / "noise.wav",
+            "raw": tmp / "iq_2400k.u8"}
+    _write_noise_capture(caps["noise"], 3.0)
+    _write_u8_capture(wav, caps["raw"], 4.0)
+    raw_blk = BLOCK_FM * 12 * 25 // 24 * 2
+    heads = {k: tmp / f"head_{k}{'.u8' if k == 'raw' else '.wav'}"
+             for k in caps}
+    for k in caps:
+        _head(caps[k], heads[k], 2, raw_blk if k == "raw" else 0)
+    counters = _counters()
+    results, launches_by_kernel = [], {}
+    for name, cap, flags, per_block, check in OPTION_RUNS:
+        fl = [f.format(tmp=tmp) for f in flags]
+        audio, rep = tmp / f"{name}.wav", tmp / f"{name}.json"
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        rc = app.main(["rx", "--iq", str(caps[cap]), "--audio", str(audio),
+                       "--report", str(rep), "--block-fm", str(BLOCK_FM),
+                       "--device", dev, *fl])
+        secs = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        need(rc == 0, f"option {name}: rx exited {rc}")
+        r = json.loads(rep.read_text())
+        blocks = r["blocks"]
+        x, info = read_wav(str(audio))
+        half = x[len(x) // 2:]
+        rms = float(np.sqrt(np.mean(np.asarray(half, np.float64) ** 2)))
+        row = {"option": name, "flags": fl, "blocks": blocks,
+               "launches": launches, "rx_s": secs,
+               "audio_rate": info.rate, "audio_rms_2nd_half": rms}
+        want = {k: per_block.get(k, 0) * blocks for k in counters}
+        need(launches == want, f"option {name}: launches {launches} != "
+                               f"{want}")
+        for k, v in launches.items():
+            if v:
+                launches_by_kernel.setdefault(k, {})[name] = v
+        need(np.isfinite(x).all(), f"option {name}: audio not finite")
+        if check.startswith("rds"):
+            rds = r["rds"]
+            row.update(pi=rds["pi_code"], ps=rds["station_label"],
+                       rt=rds["radio_text"], ber=rds["bit_error_rate"],
+                       groups=rds["groups_decoded"])
+            need(rds["pi_code"] == "0x10F0"
+                 and rds["station_label"].strip() == "TPU FM"
+                 and rds["bit_error_rate"] <= 0.01,
+                 f"option {name}: RDS {row}")
+            need(0.1 < rms < 1.0, f"option {name}: audio rms {rms}")
+            need(info.rate == (192000 if check == "rds192" else 48000),
+                 f"option {name}: audio rate {info.rate}")
+        elif check == "open":
+            need(0.1 < rms < 1.0, f"option {name}: squelch did not open")
+        elif check == "closed":
+            need(rms == 0.0, f"option {name}: squelch did not close ({rms})")
+        elif check == "dumps":
+            sizes = {n: (tmp / f"{n}.wav").stat().st_size
+                     for n in ("in", "if", "mpx")}
+            row["dump_bytes"] = sizes
+            # float32 wavs: complex input and IF, mono MPX, 44-byte header
+            need(sizes == {"in": 44 + blocks * BLOCK_FM * 12 * 8,
+                           "if": 44 + blocks * BLOCK_FM * 8,
+                           "mpx": 44 + blocks * BLOCK_FM * 4},
+                 f"option {name}: dumps {sizes}")
+        # the first two blocks on the comparison device
+        ca, cr = tmp / f"{name}_cmp.wav", tmp / f"{name}_cmp.json"
+        rc = app.main(["rx", "--iq", str(heads[cap]), "--audio", str(ca),
+                       "--report", str(cr), "--block-fm", str(BLOCK_FM),
+                       "--device", cmp_dev, *fl])
+        need(rc == 0, f"option {name}: {cmp_dev} rx exited {rc}")
+        xc, _ = read_wav(str(ca))
+        err = float(np.abs(x[: len(xc)] - xc).max())
+        row[f"audio_err_vs_{cmp_dev}_2_blocks"] = err
+        need(len(xc) > 0 and err <= OPT_AUDIO_ATOL,
+             f"option {name}: {dev} vs {cmp_dev} audio {err}")
+        results.append(row)
+        emit({"phase": "options", **row})
+    # 2.5 MS/s does not tile a 131072 block: exit 2 with the message
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = app.main(["rx", "--iq", str(wav), "--input-rate", "2500000",
+                       "--block-fm", str(BLOCK_FM), "--device", dev])
+    msg = err.getvalue().strip()
+    emit({"phase": "options", "option": "input_rate_2500000", "exit": rc,
+          "message": msg[:160]})
+    need(rc == 2 and "must divide by 576" in msg, "2.5 MS/s refusal")
+    # emit_audio_i16: the on-device quantizer equals the host's bit for bit
+    from sdrjfm_tpu_torch.io.wavio import read_iq_wav_raw
+    iq, _ = read_iq_wav_raw(str(wav))
+    rx = Receiver(ReceiverConfig(block_fm=BLOCK_FM, rds="block",
+                                 audio_filter_hz=15000, iq_format="i16",
+                                 emit_audio_i16=True), device=dev)
+    st, ctl = rx.init_state(), rx.initial_controls()
+    T = rx.cfg.block_in
+    mism = 0
+    for b in range(2):
+        st, out = rx.step(st, ctl, torch.from_numpy(
+            np.array(iq[b * T:(b + 1) * T])).to(dev))
+        mism += int((out.audio_i16.cpu().numpy()
+                     != quantize_pcm16(out.audio.cpu().numpy())).sum())
+    emit({"phase": "options", "option": "emit_audio_i16",
+          "mismatches_vs_host_quantizer": mism})
+    need(mism == 0, "emit_audio_i16 != host quantizer")
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "options.json").write_text(json.dumps(results, indent=2))
+    return launches_by_kernel
+
+
+def _chain_cycles(kind: str, cfg) -> int:
+    """Cycles a sample on a decoder's dependency chain: 4 cycles a dependent
+    f32 add or multiply (Hopper's FMA pipe latency), ~40 for an accurate
+    sinf/cosf, a FIR as one accumulator (taps dependent adds), the pole
+    states as 2 dependent ops each plus the residue sum."""
+    if kind == "scan1":
+        taps = len(cfg.lp21) + len(cfg.match) + len(cfg.sharp.num)
+        return 40 + 4 * 8 + 4 * taps + 4 * 2 * len(cfg.sharp.poles) + 16
+    if kind == "scan2":
+        return 4 * len(cfg.rrc) + 40 + 4 * 8 + 4 * 12 + 16
+    return 40 + 4 * 8 + 4 * len(cfg.lp21) + 40 + 4 * 4 + 16
+
+
+def _flops_per_sample(kind: str, cfg) -> int:
+    """f32 operations a sample, counting an accurate sinf/cosf as ~20."""
+    if kind == "scan1":
+        taps = len(cfg.lp21) + len(cfg.match) + len(cfg.sharp.num)
+        return 12 + 2 * 20 + 2 * taps + 12 * len(cfg.sharp.poles)
+    if kind == "scan2":
+        return 4 * len(cfg.rrc) + 8 + 12 + (12 + 40) // 20
+    return 12 + 2 * 20 + 2 * len(cfg.lp21) + 20 + 4
+
+
+def _max_sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def phase_option_times(a_err, b_err, launches, card):
+    """The new kernels' device and host times at the path's shapes, their
+    plain versions', bounds and (B1-B3) dependency-chain estimates; the
+    heaviest option config's step time and profile."""
+    from sdrjfm_tpu_torch.kernels.linrec import pole_bank, pole_bank_plain
+    from sdrjfm_tpu_torch.rds import scan_decoders as SD
+    from sdrjfm_tpu_torch.rds.bitrecovery import bit_capacity
+
+    dev = torch.device("cuda")
+    M = BLOCK_FM
+    specs = _squelch_specs()
+    x = torch.rand(2, M, device=dev) - 0.5
+    w0 = [torch.zeros(10, dtype=torch.complex64, device=dev)
+          for _ in specs]
+    a_ms, a_host = device_ms(lambda: pole_bank(x, specs, w0), "pole_bank")
+    pol, res, _ = pole_bank.constants(specs, dev)
+    a_plain = paced_ms(lambda: pole_bank_plain(x, pol, res, torch.stack(w0)),
+                       reps=3, iters=3)
+    P, B = 10, 2
+    a_bytes = 2 * B * M * 4 + B * P * 8 * 4
+    a_flops = B * P * M * (8 + 8 + 4)     # two passes, residue sum
+    a_bound = max(a_bytes / HBM_BYTES_PER_S, a_flops / FP32_FLOP_PER_S)
+    kernels = [{
+        "name": "pole_bank", "route": "cuda",
+        "source": "sdrjfm_tpu_torch/csrc/linrec.cu",
+        "replaces": "sdrjfm_tpu/ops/blockops.py:378",
+        "launches": launches.get("pole_bank", {}).get("nsq_station", 0),
+        "max_abs_err": a_err, "ms": a_ms, "plain_ms": a_plain,
+        "bound_ms": a_bound * 1e3,
+        "bound_by": ("bytes" if a_bytes / HBM_BYTES_PER_S
+                     >= a_flops / FP32_FLOP_PER_S else "operations"),
+        "library_ms": None, "host_us_per_call": a_host,
+        "shape": f"2 banks x 10 poles x {M} float32 (the squelch's, per "
+                 f"block; two launches a call)"}]
+    clock = _max_sm_clock_hz()
+    z = _rds_baseband(1.0).to(dev)[:M // 8]
+    n = z.shape[0]
+    cap = bit_capacity(n)
+    for kind, (mk, zero, fn) in SD.DECODERS.items():
+        cfg = mk()
+        st = zero(cfg, device=dev)
+        ms, host = device_ms(lambda: fn(z, cfg, st, cap), f"rds_{kind}",
+                             reps=3, iters=5)
+        plain = paced_ms(lambda: SD._PLAIN[int(kind[-1])](z, cfg, st, cap),
+                         reps=1, iters=1)
+        nbytes = n * 8 + cap * 9 + 2 * 4 * SD.pack_state(st).numel()
+        flops = n * _flops_per_sample(kind, cfg)
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S)
+        chain_ms = n * _chain_cycles(kind, cfg) / clock * 1e3
+        kernels.append({
+            "name": f"rds_decoder{kind[-1]}", "route": "cuda",
+            "source": "sdrjfm_tpu_torch/csrc/rds_scan.cu",
+            "replaces": "sdrjfm_tpu/rds/scan_decoders.py:"
+                        + {"scan1": "108", "scan2": "191",
+                           "scan3": "313"}[kind],
+            "launches": launches.get(f"rds_{kind}", {}).get(kind, 0),
+            "max_abs_err": b_err[kind], "ms": ms, "plain_ms": plain,
+            "bound_ms": bound * 1e3,
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= flops / FP32_FLOP_PER_S else "operations"),
+            "library_ms": None, "host_us_per_call": host,
+            "chain_estimate_ms": chain_ms,
+            "chain_cycles_per_sample": _chain_cycles(kind, cfg),
+            "sm_clock_mhz": clock / 1e6,
+            "shape": f"complex64 [{n}] per block, one thread"})
+    emit({"phase": "times", "what": "option kernels", "card": card,
+          "kernels": kernels})
+    return kernels
+
+
+def _heavy_rx():
+    from sdrjfm_tpu_torch.models.receiver import Receiver, ReceiverConfig
+    return Receiver(ReceiverConfig(block_fm=BLOCK_FM, rds="scan2",
+                                   squelch="nsq", input_filter=True,
+                                   audio_filter_hz=15000, iq_format="i16"),
+                    device="cuda")
+
+
+def phase_heavy_step(wav, card):
+    """Step time and real-time factor of the heaviest option config."""
+    from sdrjfm_tpu_torch import constants as C
+    from sdrjfm_tpu_torch.io.wavio import read_iq_wav_raw
+    rx = _heavy_rx()
+    T = rx.cfg.block_in
+    iq, _ = read_iq_wav_raw(str(wav))
+    blocks = [torch.from_numpy(np.array(iq[b * T:(b + 1) * T])).to("cuda")
+              for b in range(len(iq) // T)]
+    state, ctl = rx.init_state(), rx.initial_controls()
+    for blk in blocks[:2]:
+        state, _ = rx.step(state, ctl, blk)
+    torch.cuda.synchronize()
+    steps = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for blk in blocks:
+            state, _ = rx.step(state, ctl, blk)
+        e.record()
+        torch.cuda.synchronize()
+        steps.append(a.elapsed_time(e) / len(blocks))
+    step_ms = statistics.median(steps)
+    emit({"phase": "times", "what": "step, input filter + nsq + scan2",
+          "block_fm": BLOCK_FM, "step_ms": step_ms, "step_ms_all": steps,
+          "fm_stereo_rds_realtime_x": T / C.INPUT_RATE / (step_ms / 1e3),
+          "card": card})
+    return rx
 
 
 def main() -> int:
@@ -614,10 +1107,15 @@ def main() -> int:
                                  audio_filter_hz=15000, iq_format="i16"),
                   device="cuda")
     fe_err, sc_err = phase_kernels(rx)
+    a_err, b_err = phase_option_kernels()
     wav, launches = phase_main()
     phase_reference(wav)
+    opt_launches = phase_options(wav)
     kernels = phase_times(rx, wav, fe_err, sc_err, launches, card)
+    kernels += phase_option_times(a_err, b_err, opt_launches, card)
     phase_profile(rx, wav, card)
+    heavy = phase_heavy_step(wav, card)
+    phase_profile(heavy, wav, card, "input filter + nsq + scan2")
     wav.unlink()                      # 74 MB: keep the output folder small
     (OUT / "kernels.json").write_text(json.dumps({"card": card,
                                                    "kernels": kernels},

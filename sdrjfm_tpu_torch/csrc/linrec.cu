@@ -1,4 +1,6 @@
-// First-order linear-recurrence scan for Hopper (sm_90a):
+// First-order linear-recurrence scans for Hopper (sm_90a).
+//
+// Part 1, sdr_linrec: real decays,
 //   y[r, n] = g[r] * y[r, n-1] + d[r, n],  y[r, -1] = y0[r],
 // row by row, in one pass over the input.
 //
@@ -194,5 +196,235 @@ int sdr_linrec(const void* d, const void* g, const void* l2g, const void* y0,
 }
 
 int sdr_linrec_chunk() { return CHUNK; }
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Part 2, sdr_pole_bank (kernel A): banks of complex one-pole recurrences
+// over a shared real drive, summed with their residues,
+//   w[b, p, n] = g[b, p] * w[b, p, n-1] + d[b, n],   w[b, p, -1] = w0[b, p]
+//   y[b, n]    = Re sum_p r[b, p] * w[b, p, n]
+// -- a biquad cascade factored into poles (IIRSpec).  It replaces the JAX
+// package's jax.vmap(linrec_apply) over the poles in iir_apply
+// (sdrjfm_tpu/ops/blockops.py:378-382), an associative scan with no Pallas
+// counterpart.  On the squelch path: two banks (high- and low-pass) of 10
+// poles over 131072 samples a block.
+//
+// What bounds it on an H100: it reads B*T floats and writes B*T floats
+// (2 MB a block for the squelch, under 1 us at 3.35 TB/s) and does 8 flops
+// per pole and sample twice over (0.04 GFLOP, under 1 us at 67 TFLOP/s):
+// latency-bound, like the real scan.  Design, reduce-then-scan in two
+// launches over chunks of 4096 samples (grid chunks x banks, 256 threads,
+// 16 consecutive samples a thread):
+//   * pole_agg_kernel: each chunk's zero-carry-in end state per pole (a
+//     thread runs its 16 samples in sequence, a shuffle tree and the block
+//     join the segments);
+//   * pole_scan_kernel: each chunk takes its carry-in from w0 and its
+//     predecessors' aggregates in sequence (at most T/4096 complex FMAs a
+//     pole), then a shuffle scan gives each thread its carry-in, and the
+//     thread reruns its 16 samples from it, summing Re(r w) over the poles
+//     in registers: the [P, T] pole states never reach device memory.
+// Every join of segments multiplies by a power g^(16 * 2^k) computed in
+// float64 on the host and rounded once (a power formed as exp(n log g) in
+// f32 would lose ~n * 1e-7 rad of phase), so each join costs at most a few
+// f32 roundings; inside a segment the recurrence runs exactly as written.
+// Deterministic: no atomics, no look-back.  Measured: PERF.md (chip_smoke.py
+// phases kernels and times).
+// ---------------------------------------------------------------------------
+
+namespace poles {
+
+constexpr int THREADS = 256;
+constexpr int SEG = 16;                       // consecutive samples a thread
+constexpr int CHUNK = THREADS * SEG;          // 4096 samples a thread block
+constexpr int WARPS = THREADS / 32;
+constexpr int NPOW = 9;                       // g^(SEG * 2^k), k < NPOW
+constexpr int MAXP = 16;                      // poles a bank, at most
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+// a * b + c
+__device__ __forceinline__ float2 cfma(float2 a, float2 b, float2 c) {
+  return make_float2(fmaf(a.x, b.x, fmaf(-a.y, b.y, c.x)),
+                     fmaf(a.x, b.y, fmaf(a.y, b.x, c.y)));
+}
+// g * w + x for a real drive sample x
+__device__ __forceinline__ float2 step(float2 g, float2 w, float x) {
+  return make_float2(fmaf(g.x, w.x, fmaf(-g.y, w.y, x)),
+                     fmaf(g.x, w.y, g.y * w.x));
+}
+__device__ __forceinline__ float2 shfl_up2(float2 v, int o) {
+  return make_float2(__shfl_up_sync(FULL, v.x, o),
+                     __shfl_up_sync(FULL, v.y, o));
+}
+__device__ __forceinline__ float2 shfl_down2(float2 v, int o) {
+  return make_float2(__shfl_down_sync(FULL, v.x, o),
+                     __shfl_down_sync(FULL, v.y, o));
+}
+// g^(SEG * n) for 0 <= n < 2^NPOW, a product of the binary powers
+__device__ __forceinline__ float2 seg_pow(const float2* pw, int n) {
+  float2 r = make_float2(1.0f, 0.0f);
+#pragma unroll
+  for (int k = 0; k < NPOW; ++k)
+    if ((n >> k) & 1) r = cmul(r, pw[k]);
+  return r;
+}
+
+__device__ __forceinline__ void load_seg(const float* __restrict__ d,
+                                         long long rbase, int base, int T,
+                                         float (&x)[SEG]) {
+#pragma unroll
+  for (int i = 0; i < SEG; ++i)
+    x[i] = base + i < T ? d[rbase + base + i] : 0.0f;
+}
+
+__global__ void __launch_bounds__(THREADS)
+pole_agg_kernel(const float* __restrict__ d, const float2* __restrict__ g,
+                const float2* __restrict__ pw, float2* __restrict__ agg,
+                int P, int T) {
+  __shared__ float2 s_pw[MAXP][NPOW];
+  __shared__ float2 s_w[MAXP][WARPS];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int chunk = blockIdx.x, b = blockIdx.y, nchunks = gridDim.x;
+  for (int i = tid; i < P * NPOW; i += THREADS)
+    s_pw[i / NPOW][i % NPOW] = pw[(long long)b * P * NPOW + i];
+  float x[SEG];
+  load_seg(d, (long long)b * T, chunk * CHUNK + tid * SEG, T, x);
+  __syncthreads();
+#pragma unroll
+  for (int p = 0; p < MAXP; ++p) {
+    if (p >= P) break;
+    const float2 gp = g[b * P + p];
+    float2 a = make_float2(0.0f, 0.0f);
+#pragma unroll
+    for (int i = 0; i < SEG; ++i) a = step(gp, a, x[i]);
+    // shuffle tree: the left segment decays across the right one
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+      const int o = 1 << k;
+      const float2 right = shfl_down2(a, o);
+      if ((lane & (2 * o - 1)) == 0) a = cfma(s_pw[p][k], a, right);
+    }
+    if (lane == 0) s_w[p][warp] = a;
+  }
+  __syncthreads();
+  if (tid < P) {
+    float2 A = s_w[tid][0];
+    for (int w = 1; w < WARPS; ++w) A = cfma(s_pw[tid][5], A, s_w[tid][w]);
+    agg[((long long)b * nchunks + chunk) * P + tid] = A;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+pole_scan_kernel(const float* __restrict__ d, const float2* __restrict__ g,
+                 const float2* __restrict__ r, const float2* __restrict__ pw,
+                 const float2* __restrict__ w0,
+                 const float2* __restrict__ agg, float* __restrict__ y,
+                 float2* __restrict__ wT, int P, int T) {
+  __shared__ float2 s_pw[MAXP][NPOW];
+  __shared__ float2 s_w[MAXP][WARPS];
+  __shared__ float2 s_E[MAXP];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int chunk = blockIdx.x, b = blockIdx.y, nchunks = gridDim.x;
+  for (int i = tid; i < P * NPOW; i += THREADS)
+    s_pw[i / NPOW][i % NPOW] = pw[(long long)b * P * NPOW + i];
+  const int base = chunk * CHUNK + tid * SEG;
+  float x[SEG];
+  load_seg(d, (long long)b * T, base, T, x);
+  __syncthreads();
+  if (tid < P) {
+    // the state just before this chunk: w0, then each predecessor chunk
+    const float2 gC = s_pw[tid][NPOW - 1];    // g^CHUNK
+    float2 E = w0[b * P + tid];
+    for (int k = 0; k < chunk; ++k)
+      E = cfma(gC, E, agg[((long long)b * nchunks + k) * P + tid]);
+    s_E[tid] = E;
+  }
+  float2 C[MAXP], X[MAXP];
+#pragma unroll
+  for (int p = 0; p < MAXP; ++p) {
+    if (p >= P) break;
+    const float2 gp = g[b * P + p];
+    float2 a = make_float2(0.0f, 0.0f);
+#pragma unroll
+    for (int i = 0; i < SEG; ++i) a = step(gp, a, x[i]);
+    // warp inclusive scan of the segments' zero-carry ends
+    float2 W = a;
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+      const int o = 1 << k;
+      const float2 up = shfl_up2(W, o);
+      if (lane >= o) W = cfma(s_pw[p][k], up, W);
+    }
+    float2 xl = shfl_up2(W, 1);
+    if (lane == 0) xl = make_float2(0.0f, 0.0f);
+    X[p] = xl;
+    if (lane == 31) s_w[p][warp] = W;
+  }
+  __syncthreads();
+  if (tid < P) {
+    // exclusive prefix over the warps, zero carry into the chunk
+    float2 acc = make_float2(0.0f, 0.0f);
+    for (int w = 0; w < WARPS; ++w) {
+      const float2 wt = s_w[tid][w];
+      s_w[tid][w] = acc;
+      acc = cfma(s_pw[tid][5], acc, wt);
+    }
+  }
+  __syncthreads();
+  float yv[SEG];
+#pragma unroll
+  for (int i = 0; i < SEG; ++i) yv[i] = 0.0f;
+#pragma unroll
+  for (int p = 0; p < MAXP; ++p) {
+    if (p >= P) break;
+    // carry into this thread's segment
+    C[p] = cfma(seg_pow(s_pw[p], lane), s_w[p][warp], X[p]);
+    C[p] = cfma(seg_pow(s_pw[p], tid), s_E[p], C[p]);
+    const float2 gp = g[b * P + p], rp = r[b * P + p];
+    float2 w = C[p];
+#pragma unroll
+    for (int i = 0; i < SEG; ++i) {
+      w = step(gp, w, x[i]);
+      yv[i] = fmaf(rp.x, w.x, fmaf(-rp.y, w.y, yv[i]));
+      if (base + i == T - 1) wT[b * P + p] = w;
+    }
+  }
+  const long long rbase = (long long)b * T;
+#pragma unroll
+  for (int i = 0; i < SEG; ++i)
+    if (base + i < T) y[rbase + base + i] = yv[i];
+}
+
+}  // namespace poles
+
+extern "C" {
+
+// d, y: [B, T] float32; g (poles), r (residues), w0, wT: [B, P] complex64
+// (float2); pw: [B, P, NPOW] complex64 with pw[b, p, k] = g^(16 * 2^k)
+// from float64; agg: B * ceil(T/4096) * P complex64 of scratch.  All device
+// pointers; two launches on `stream`.  Returns cudaGetLastError().
+int sdr_pole_bank(const void* d, const void* g, const void* r, const void* pw,
+                  const void* w0, void* y, void* wT, void* agg, int B, int P,
+                  int T, void* stream) {
+  if (B < 1 || B > 65535 || P < 1 || P > poles::MAXP || T < 1)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((T + poles::CHUNK - 1) / poles::CHUNK),
+                  (unsigned)B);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  poles::pole_agg_kernel<<<grid, poles::THREADS, 0, s>>>(
+      (const float*)d, (const float2*)g, (const float2*)pw, (float2*)agg, P,
+      T);
+  const int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  poles::pole_scan_kernel<<<grid, poles::THREADS, 0, s>>>(
+      (const float*)d, (const float2*)g, (const float2*)r, (const float2*)pw,
+      (const float2*)w0, (const float2*)agg, (float*)y, (float2*)wT, P, T);
+  return (int)cudaGetLastError();
+}
+
+int sdr_pole_chunk() { return poles::CHUNK; }
+int sdr_pole_maxp() { return poles::MAXP; }
 
 }  // extern "C"

@@ -27,6 +27,10 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # only good to ~2^-21.4 absolute near 0 and far worse for large arguments).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# per-source additions: the RDS decoders are feedback loops, so every
+# multiply and add rounds on its own as in their plain versions (an FMA
+# contraction moves the Costas phase and the bit clock from there on)
+EXTRA_FLAGS = {"rds_scan.cu": ["-fmad=false"]}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -47,7 +51,7 @@ def library_path(source: str) -> Path:
     """Where `source` (a file name under csrc/) builds to."""
     h = hashlib.sha256()
     h.update((CSRC / source).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + EXTRA_FLAGS.get(source, [])).encode())
     return BUILD_DIR / f"lib{Path(source).stem}_{h.hexdigest()[:16]}.so"
 
 
@@ -59,7 +63,8 @@ def build(source: str) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+    cmd = [nvcc_path(), *NVCC_FLAGS, *EXTRA_FLAGS.get(source, []), "-o",
+           str(tmp), str(CSRC / source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {source} "

@@ -1,18 +1,25 @@
-"""First-order linear-recurrence scan: y[n] = g*y[n-1] + d[n], row by row.
+"""First-order linear-recurrence scans, row by row: y[n] = g*y[n-1] + d[n].
 
-The JAX package gets this from `lax.associative_scan` with the combine
+The JAX package gets these from `lax.associative_scan` with the combine
 `_first_order_combine` (sdrjfm_tpu/ops/blockops.py:277-294); PyTorch has no
-such primitive, so the port carries a hand-written CUDA kernel,
-`csrc/linrec.cu`: a single-pass scan with decoupled look-back over chunks
-of 2048 samples (its note says why).  It has no Pallas counterpart.  On the
-main path it runs the AM-carrier and AFC trackers of the discriminator (two
-rows, one launch) and the pilot lock metric (one row, one launch) over each
-block.
+such primitive, so the port carries hand-written CUDA kernels in
+`csrc/linrec.cu`.  Neither has a Pallas counterpart.
 
-`linrec` is the wrapper: on a CUDA tensor it launches the kernel (built
-with nvcc at the first launch, never at import), on a CPU tensor it runs
-`linrec_plain`, a chunked scan in torch ops that is also the reference for
-the kernel on the card.
+- `linrec`: real decays in (0, 1], a single-pass scan with decoupled
+  look-back over chunks of 2048 samples.  On the main path it runs the
+  AM-carrier and AFC trackers of the discriminator (two rows, one launch)
+  and the pilot lock metric (one row); off it, the deemphasis scan (two
+  rows) and the `pll` discriminator's one-pole.
+- `pole_bank`: COMPLEX decays, the biquad cascades of `IIRSpec` factored
+  into one-pole recurrences (JAX `jax.vmap(linrec_apply)` over the poles,
+  blockops.py:378-382), with the residue-weighted sum y = Re sum_i r_i w_i
+  fused so the [P, T] pole states never reach device memory.  A call is
+  two launches (chunk aggregates, then the scan).
+
+Each wrapper launches its kernel on a CUDA tensor (built with nvcc at the
+first launch, never at import) and runs its plain version on a CPU tensor;
+the plain versions, chunked scans in torch ops, are also the kernels'
+references on the card.
 """
 
 from __future__ import annotations
@@ -31,35 +38,40 @@ KERNEL_CHUNK = 2048       # samples per thread block (csrc CHUNK)
 EPOCHS = 2 ** 30          # the kernel's epoch field is 30 bits
 
 
-def linrec_plain(drive: torch.Tensor, g: Sequence[float],
+def linrec_plain(drive: torch.Tensor, g: Sequence,
                  y0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked scan in torch ops: inside each CHUNK a lower-triangular
     g^(i-j) matmul, between chunks the same recurrence one level up (with
-    g^CHUNK), applied recursively.  Only powers of g < 1 appear, so nothing
-    overflows (the cumsum(d*g^-n)*g^n shortcut would: g^-131072 ~ e^131 for
-    g = 1 - 1e-3).  drive [R, T] f32, g R floats, y0 [R] -> (y, y[:, -1])."""
+    g^CHUNK), applied recursively.  Only powers of |g| <= 1 appear, so
+    nothing overflows (the cumsum(d*g^-n)*g^n shortcut would: g^-131072 ~
+    e^131 for g = 1 - 1e-3).  drive [R, T] f32 with R real decays, or
+    complex64 with R complex decays; y0 [R] -> (y, y[:, -1])."""
     R, T = drive.shape
     dev = drive.device
     n = -(-T // CHUNK)
-    # g rounds to f32 first, as jnp.asarray(g, float32) does in JAX
-    gd = np.asarray(g, np.float32).astype(np.float64)[:, None]
+    # g rounds to f32 (c64) first, as jnp.asarray(g, drive.dtype) does
+    if drive.is_complex():
+        gd = np.asarray(g, np.complex64).astype(np.complex128)[:, None]
+        f32 = np.complex64
+    else:
+        gd = np.asarray(g, np.float32).astype(np.float64)[:, None]
+        f32 = np.float32
     i = np.arange(CHUNK)
     e = i[:, None] - i[None, :]
     with np.errstate(under="ignore"):
         L = np.where(e[None] >= 0, gd[:, :, None] ** np.maximum(e, 0)[None],
                      0.0)
         pw = gd ** (i + 1)[None, :]                       # g^(i+1)
-        gC = (gd[:, 0] ** CHUNK).astype(np.float32)
-    L = torch.as_tensor(L.astype(np.float32), device=dev)
-    pw = torch.as_tensor(pw.astype(np.float32), device=dev)
+        gC = (gd[:, 0] ** CHUNK).astype(f32)
+    L = torch.as_tensor(L.astype(f32), device=dev)
+    pw = torch.as_tensor(pw.astype(f32), device=dev)
     dp = torch.nn.functional.pad(drive, (0, n * CHUNK - T)).view(R, n, CHUNK)
     local = torch.matmul(dp, L.transpose(1, 2))           # zero carry-in
     y0 = y0.to(drive.dtype)
     if n == 1:
         c_in = y0[:, None]
     else:
-        ends, _ = linrec_plain(local[:, :, -1].contiguous(),
-                               [float(v) for v in gC], y0)
+        ends, _ = linrec_plain(local[:, :, -1].contiguous(), list(gC), y0)
         c_in = torch.cat([y0[:, None], ends[:, :-1]], dim=1)
     y = (local + c_in[:, :, None] * pw[:, None, :]).reshape(R, n * CHUNK)
     y = y[:, :T]
@@ -151,3 +163,141 @@ class LinrecKernel:
 
 
 linrec = LinrecKernel()
+
+
+# ---------------------------------------------------------------------------
+# Complex pole bank (kernel A)
+# ---------------------------------------------------------------------------
+
+POLE_SEG = 16                        # samples a thread (csrc poles::SEG)
+POLE_CHUNK = 4096                    # samples a thread block (poles::CHUNK)
+POLE_NPOW = 9                        # g^(SEG*2^k), k < NPOW (poles::NPOW)
+POLE_MAXP = 16                       # poles a bank (poles::MAXP)
+
+
+def pole_bank_plain(drive: torch.Tensor, poles: torch.Tensor,
+                    residues: torch.Tensor, w0: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Banks of complex one-pole recurrences over a shared real drive:
+    w[b, p, n] = poles[b, p] * w[b, p, n-1] + drive[b, n], w[b, p, -1] =
+    w0[b, p]; y[b, n] = Re sum_p residues[b, p] * w[b, p, n].  drive [B, T]
+    f32; poles, residues, w0 [B, P] complex64.  Returns (y [B, T] f32, wT
+    [B, P] complex64), as the JAX package's iir_apply sums its vmapped
+    scans."""
+    B, T = drive.shape
+    P = poles.shape[1]
+    d = drive.to(torch.complex64)[:, None, :].expand(B, P, T).reshape(B * P, T)
+    g = poles.detach().cpu().numpy().reshape(-1)
+    w, wT = linrec_plain(d.contiguous(), list(g), w0.reshape(-1))
+    y = torch.sum(residues.reshape(B, P, 1) * w.view(B, P, T), dim=1).real
+    return y, wT.view(B, P)
+
+
+def _pole_powers(poles: np.ndarray) -> np.ndarray:
+    """g^(SEG * 2^k) for k < NPOW per pole, in float64 from the complex64
+    poles, rounded once to complex64: the kernel joins segments with these
+    (a power formed as exp(n log g) in f32 would lose ~n * 1e-7 rad)."""
+    g = poles.astype(np.complex128)
+    return np.stack([g ** (POLE_SEG * 2 ** k) for k in range(POLE_NPOW)],
+                    axis=-1).astype(np.complex64)
+
+
+class PoleBankKernel:
+    """Callable wrapper of kernel A with a launch counter (`launches`
+    counts calls that launched the kernel pair; CPU calls do not count).
+
+    __call__(drive [B, T] f32, specs: B objects with .poles/.residues
+    complex64 arrays, w0s: B tensors [P_b] complex64) -> (y [B, T] f32,
+    [wT_b [P_b] complex64]).  Banks with fewer poles are padded with zero
+    poles of zero residue, which add nothing."""
+
+    def __init__(self):
+        self.launches = 0
+        self._fn = None
+        self._consts: Dict[tuple, tuple] = {}
+        self._scratch: Dict[torch.device, torch.Tensor] = {}
+
+    def _entry(self):
+        if self._fn is None:
+            lib = build.load(SOURCE)
+            fn = lib.sdr_pole_bank
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            if (lib.sdr_pole_chunk() != POLE_CHUNK
+                    or lib.sdr_pole_maxp() != POLE_MAXP):
+                raise RuntimeError("pole_bank: csrc geometry != wrapper's")
+            self._fn = fn
+        return self._fn
+
+    def constants(self, specs, dev):
+        """(poles, residues, powers) as padded device tensors, cached: a
+        fresh host-to-device copy per call would synchronise."""
+        key = (tuple((s.poles.tobytes(), s.residues.tobytes())
+                     for s in specs), str(dev))
+        t = self._consts.get(key)
+        if t is None:
+            P = max(len(s.poles) for s in specs)
+            if not 1 <= P <= POLE_MAXP:
+                raise ValueError(f"pole_bank: {P} poles, at most {POLE_MAXP}")
+            pol = np.zeros((len(specs), P), np.complex64)
+            res = np.zeros((len(specs), P), np.complex64)
+            for b, s in enumerate(specs):
+                pol[b, :len(s.poles)] = s.poles
+                res[b, :len(s.residues)] = s.residues
+            if np.any(np.abs(pol) > 1.0):
+                raise ValueError("pole_bank: a pole lies outside the unit "
+                                 "circle")
+            t = tuple(torch.as_tensor(a, device=dev)
+                      for a in (pol, res, _pole_powers(pol)))
+            self._consts[key] = t
+        return t
+
+    def __call__(self, drive: torch.Tensor, specs, w0s):
+        dev = drive.device
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"pole_bank: unsupported device {dev}")
+        if drive.dtype != torch.float32 or drive.dim() != 2:
+            raise TypeError("pole_bank: drive must be a [B, T] float32 tensor")
+        B, T = drive.shape
+        if len(specs) != B or len(w0s) != B:
+            raise ValueError(f"pole_bank: {B} rows, {len(specs)} banks, "
+                             f"{len(w0s)} states")
+        pol, res, pw = self.constants(specs, dev)
+        P = pol.shape[1]
+        for s, w in zip(specs, w0s):
+            if (w.dtype != torch.complex64 or w.device != dev
+                    or tuple(w.shape) != (len(s.poles),)):
+                raise ValueError("pole_bank: each state must be a [P_b] "
+                                 "complex64 tensor on the drive's device")
+        w0 = torch.stack([torch.nn.functional.pad(w, (0, P - w.shape[0]))
+                          for w in w0s])
+        if dev.type == "cpu":
+            y, wT = pole_bank_plain(drive, pol, res, w0)
+        else:
+            if not drive.is_contiguous():
+                raise ValueError("pole_bank: drive must be contiguous")
+            if not (1 <= B <= 65535 and 1 <= T < 2 ** 31 - POLE_CHUNK):
+                raise ValueError(f"pole_bank: shape {(B, T)} out of range")
+            nchunks = -(-T // POLE_CHUNK)
+            agg = self._scratch.get(dev)
+            if agg is None or agg.numel() < B * nchunks * P:
+                agg = torch.empty(max(B * nchunks * P, 4096),
+                                  dtype=torch.complex64, device=dev)
+                self._scratch[dev] = agg
+            y = torch.empty_like(drive)
+            wT = torch.empty(B, P, dtype=torch.complex64, device=dev)
+            with torch.cuda.device(dev):
+                rc = self._entry()(
+                    drive.data_ptr(), pol.data_ptr(), res.data_ptr(),
+                    pw.data_ptr(), w0.data_ptr(), y.data_ptr(),
+                    wT.data_ptr(), agg.data_ptr(), B, P, T,
+                    torch.cuda.current_stream(dev).cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"pole_bank kernel launch failed: CUDA "
+                                   f"error {rc}")
+            self.launches += 1
+        return y, [wT[b, :len(s.poles)] for b, s in enumerate(specs)]
+
+
+pole_bank = PoleBankKernel()

@@ -7,16 +7,19 @@ with `iq_block` one block of 2.304 MS/s wire-format input on the receiver's
 device and `out` carrying the 48 kHz stereo audio, the RDS bits and the
 metadata.  Chain layout (rates):
 
-    [2.304M] wire decode -> gains -> DC servo -> LO mix -> ÷12   (one CUDA kernel)
-    [192k]   discriminator -> pilot recovery -> PSS -> matrix
+    [native] wire decode -> gains -> (rate map to 2.304M)
+    [2.304M] (gains) -> DC servo -> LO mix -> ÷12         (one CUDA kernel)
+             or, with the input filter, the `reference` cascade or the
+             input tap: the same stages as torch ops with the 65536-point
+             overlap-save filter or the tap between the mix and the ÷12
+    [192k]   discriminator -> (squelch) -> pilot recovery -> PSS -> matrix
              -> RDS tap (57k analytic bandpass, ÷8)
-    [48k]    audio filter with deemphasis folded in -> volume -> ÷4 -> ramp
-    [24k]    RDS bit recovery (block BPSK)
+    [48k]    audio filter with the deemphasis folded in (or the deemphasis
+             scan) -> volume -> ÷4 -> ramp -> (test tone) -> (÷ to 192k)
+    [24k]    RDS bit recovery (block BPSK, or the scan decoders 1-3)
 
-This slice ports the main path: the `flat` front end in all four wire
-formats, the `complex_baseband`/`mixed` discriminators, stereo or mono with
-PSS, the audio filter on, RDS `block` or off.  Every other option raises
-NotImplementedError in `Receiver.__init__`, naming ROADMAP.md.  `step`
+Every single-device option of the JAX ReceiverConfig runs here; only the
+sharded paths (`shard_axis`) are not ported (ROADMAP.md, queue 1).  `step`
 never synchronises with the host; the one device-to-host transfer a runner
 needs per block is `Output.meta_vec`.
 """
@@ -31,14 +34,17 @@ import numpy as np
 import torch
 
 from .. import constants as C
-from ..kernels.frontend import frontend
+from ..kernels.frontend import decode_wire, frontend
 from ..ops import blockops as B
 from ..ops import design
-from ..ops.demod import (PORTED_DECODERS, DemodState, demod_zero_state,
+from ..ops.demod import (DECODERS, DemodState, demod_zero_state,
                          demodulate_block)
 from ..ops.pilot import PilotState, make_pilot_config, pilot_zero_state, \
     recover_pilot
 from ..ops.pss import PSSState, make_pss_config, pss_adapt, pss_zero_state
+from ..ops.squelch import (SquelchState, level_squelch, make_squelch_config,
+                           noise_squelch, squelch_zero_state)
+from ..rds import scan_decoders as SD
 from ..rds.bitrecovery import (PHASE_SUB, BitBlock, BitRecoveryState,
                                bitrecovery_zero_state,
                                make_bitrecovery_config, recover_bits)
@@ -48,7 +54,7 @@ Tensor = torch.Tensor
 __all__ = ["ReceiverConfig", "SOUND_MATRICES", "Controls", "default_controls",
            "Meta", "Output", "meta_dict_from_vec", "ReceiverState",
            "Receiver", "BitBlock", "BitRecoveryState", "DemodState",
-           "PilotState", "PSSState"]
+           "PilotState", "PSSState", "SquelchState", "quantize_i16"]
 
 
 @dataclass(frozen=True)
@@ -98,9 +104,20 @@ class ReceiverConfig:
 
     @property
     def wire_len(self) -> int:
-        """Samples per block as fed to step().  The native-rate adapter is
-        not ported, so this is block_in."""
-        return self.block_in
+        """Samples per block as fed to step(): block_in at input_rate, or
+        the native-rate length when a rate adapter is configured.  Raises
+        ValueError (with the JAX package's message) when block_in * num is
+        not a multiple of den."""
+        if not self.native_rate:
+            return self.block_in
+        num, den = self.rate_ratio
+        if self.block_in * num % den:
+            raise ValueError(
+                f"native_rate {self.native_rate}: block_in {self.block_in} "
+                f"* {num} must divide by {den} — pick a block_fm whose "
+                f"block_in (block_fm*12) is a multiple of den/gcd; e.g. "
+                f"block_fm=12288*k covers the common SDR rates")
+        return self.block_in * num // den
 
     @property
     def wire_rate(self) -> int:
@@ -139,10 +156,10 @@ class Controls(NamedTuple):
     right_gain: Tensor
     input_lgain: Tensor       # f32 — input attenuation
     input_rgain: Tensor
-    squelch_level: Tensor     # f32 0..100 (squelch is not ported)
+    squelch_level: Tensor     # f32 0..100
     pano: Tensor = None       # f32 stereo panorama multiplier on L-R
     sound_mix: Tensor = None  # [2,2] f32 output channel mix
-    tone_gate: Tensor = None  # f32 test-tone gate (test tone not ported)
+    tone_gate: Tensor = None  # f32 test-tone gate: 1 inject, 0 clean
 
 
 def default_controls(sound: str = "stereo", pano: float = 1.0,
@@ -172,9 +189,9 @@ class Output(NamedTuple):
     audio: Tensor             # [block_working, 2] float32
     meta: Meta
     rds: Optional[BitBlock]
-    taps: Optional[dict]      # always None: debug taps are not ported
+    taps: Optional[dict]      # debug taps (cfg.emit_taps), else None
     meta_vec: Optional[Tensor] = None    # f32[len(Meta._fields)+1]
-    audio_i16: Optional[Tensor] = None   # not ported: always None
+    audio_i16: Optional[Tensor] = None   # [block_audio, 2] int16
 
 
 def meta_dict_from_vec(mv) -> Tuple[dict, int]:
@@ -194,13 +211,13 @@ class ReceiverState(NamedTuple):
     band1: Tensor
     band2: Tensor
     demod: DemodState
-    squelch: Optional[object]
+    squelch: Optional[SquelchState]
     pilot: PilotState
     pss: PSSState
     phase_delay: Tensor       # pilot-phase delay line for the RDS mix
     rds57_filt: Optional[Tensor]
     rds_decim: Optional[Tensor]
-    bitrec: Optional[BitRecoveryState]
+    bitrec: Optional[object]  # BitRecoveryState or a scan-decoder state
     audio_filt: Optional[Tensor]
     deemph: Tensor
     audio_decim: Tensor
@@ -210,31 +227,11 @@ class ReceiverState(NamedTuple):
     rate_carry: Optional[Tensor] = None
 
 
-def _unported(cfg: ReceiverConfig) -> Optional[str]:
-    """The first option of `cfg` that this port does not run, or None."""
-    checks = [
-        (cfg.frontend != "flat", f"frontend={cfg.frontend!r}"),
-        (cfg.input_filter, "input_filter"),
-        (cfg.native_rate not in (0, cfg.input_rate),
-         f"native_rate={cfg.native_rate}"),
-        (cfg.squelch != "off", f"squelch={cfg.squelch!r}"),
-        (cfg.rds not in ("off", "block"), f"rds={cfg.rds!r}"),
-        (cfg.test_tone, "test_tone"),
-        (cfg.audio_rate != cfg.working_rate,
-         f"audio_rate={cfg.audio_rate} (the -m upsample)"),
-        (cfg.emit_taps or cfg.emit_input_tap, "emit_taps"),
-        (cfg.emit_audio_i16, "emit_audio_i16"),
-        (cfg.decoder not in PORTED_DECODERS, f"decoder={cfg.decoder!r}"),
-        (cfg.sound not in SOUND_MATRICES, f"sound={cfg.sound!r}"),
-        (cfg.audio_filter_hz <= 0,
-         "audio_filter_hz=0 (the deemphasis scan without the audio filter)"),
-        (cfg.iq_format not in ("c64", "i16", "u8", "i8"),
-         f"iq_format={cfg.iq_format!r}"),
-    ]
-    for bad, what in checks:
-        if bad:
-            return what
-    return None
+def quantize_i16(audio: Tensor) -> Tensor:
+    """io.pcmout's PCM16 quantizer on the device: clip to [-1, 1 - 2^-15],
+    scale by 32768, truncate toward zero (numpy's astype(int16))."""
+    return torch.trunc(torch.clamp(audio, -1.0, 1.0 - 1.0 / 32768)
+                       * 32768.0).to(torch.int16)
 
 
 class Receiver:
@@ -242,12 +239,18 @@ class Receiver:
     init_state/step.  `device=None` means CUDA; without CUDA that raises —
     pass device='cpu' to run the plain versions on the CPU."""
 
+    DC_SUBSAMPLE = 64
+
     def __init__(self, cfg: ReceiverConfig, device=None):
-        what = _unported(cfg)
-        if what is not None:
-            raise NotImplementedError(
-                f"{what} is not ported to sdrjfm_tpu_torch yet "
-                f"(ROADMAP.md, queue 1)")
+        if cfg.decoder not in DECODERS:
+            raise ValueError(f"unknown decoder {cfg.decoder!r}")
+        if cfg.sound not in SOUND_MATRICES \
+                and cfg.sound != "left_minus_right_test":
+            raise ValueError(f"unknown sound selector {cfg.sound!r}")
+        if cfg.iq_format not in ("c64", "i16", "u8", "i8"):
+            raise ValueError(f"unknown iq_format {cfg.iq_format!r}")
+        if cfg.frontend not in ("flat", "reference"):
+            raise ValueError(f"unknown frontend {cfg.frontend!r}")
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -263,19 +266,38 @@ class Receiver:
         dev = self.device
         fs_in, fs_fm = cfg.input_rate, cfg.fm_rate
         as_dev = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
-        # composite single-stage ÷12 kernel conv(h1, upsample6(h2)), built
-        # exactly as the JAX receiver builds it (bit-identical f32 taps)
-        self.k_band1 = design.lowpass_sinc(127, 110000.0, fs_in
-                                           ).astype(np.float32)
-        self.k_band2 = design.lowpass_sinc(31, 110000.0, fs_in / 6
-                                           ).astype(np.float32)
+        # decimation kernels: the reference's 25/3-tap cascade, or the flat
+        # pair collapsed into one composite ÷12 kernel conv(h1, upsample6(h2))
+        # (bit-identical f32 taps to the JAX receiver's)
+        if cfg.frontend == "reference":
+            self.k_band1 = design.lowpass_sinc(4 * 6 + 1, fs_fm / 2, fs_in
+                                               ).astype(np.float32)
+            self.k_band2 = design.lowpass_sinc(2 + 1, fs_fm / 2, fs_in / 6
+                                               ).astype(np.float32)
+        else:
+            self.k_band1 = design.lowpass_sinc(127, 110000.0, fs_in
+                                               ).astype(np.float32)
+            self.k_band2 = design.lowpass_sinc(31, 110000.0, fs_in / 6
+                                               ).astype(np.float32)
+        self._k_bands = (as_dev(self.k_band1), as_dev(self.k_band2))
         up2 = np.zeros(6 * (len(self.k_band2) - 1) + 1, np.float64)
         up2[::6] = self.k_band2
         self.k_decim12 = as_dev(np.convolve(
             self.k_band1.astype(np.float64), up2).astype(np.float32))
+        # the fused kernel serves the flat path unless a stage has to sit
+        # between the mix and the ÷12 (the input filter or the input tap)
+        self.fused_frontend = (cfg.frontend == "flat" and not cfg.input_filter
+                               and not (cfg.emit_taps and cfg.emit_input_tap))
+        # strong input filter (inputFilter 65536/251)
+        k_in = design.lowpass_sinc(C.INPUT_FILTER_DEGREE,
+                                   cfg.fm_bandwidth_hz / 2, fs_in)
+        self.H_input = as_dev(design.fft_filter_response(
+            k_in, cfg.input_fft).astype(np.complex64))
         self.pilot_cfg = make_pilot_config(fs_fm, cfg.fm_fft, hop=cfg.fm_hop)
         self.pss_cfg = make_pss_config(fs_fm, subblock=min(4096, cfg.block_fm),
                                        device=dev)
+        self.squelch_cfg = (make_squelch_config(fs_fm)
+                            if cfg.squelch != "off" else None)
         rds_taps = C.PILOTFILTER_SIZE + 1          # 769
         k57 = design.bandpass_complex(
             rds_taps, C.RDS_FREQUENCY - C.RDS_WIDTH / 2,
@@ -294,60 +316,107 @@ class Receiver:
         self.k_rds_decim = as_dev(design.lowpass_sinc(
             C.RDS_DECIM_TAPS, cfg.rds_rate / 2, fs_fm).astype(np.float32))
         self.bitrec_cfg = make_bitrecovery_config(
-            cfg.rds_rate, phase_sub=min(PHASE_SUB, cfg.block_rds), device=dev)
-        # audio lowpass with the deemphasis one-pole folded into the same
-        # overlap-save kernel (receiver.py:367-390 of the JAX package)
-        self.deemph_alpha = C.deemphasis_alpha(cfg.deemphasis_us, fs_fm)
-        k_af = design.lowpass_sinc(C.AUDIO_FILTER_DEGREE,
-                                   cfg.audio_filter_hz, fs_fm)
-        a = self.deemph_alpha
-        max_deg = cfg.fm_fft - cfg.fm_hop + 1 - len(k_af)
-        if a < 1.0:
-            L = min(max_deg, int(np.ceil(-104.0 / np.log2(1.0 - a))))
-            k_d = a * (1.0 - a) ** np.arange(L, dtype=np.float64)
+            cfg.rds_rate, device=dev,
+            phase_sub=(min(PHASE_SUB, cfg.block_rds) if cfg.rds == "block"
+                       else PHASE_SUB))
+        if cfg.rds.startswith("scan"):
+            if cfg.rds not in SD.DECODERS:
+                raise ValueError(f"unknown rds decoder {cfg.rds!r}")
+            self.scan_cfg = SD.DECODERS[cfg.rds][0](cfg.rds_rate)
+        elif cfg.rds in ("off", "block"):
+            self.scan_cfg = None
         else:
-            k_d = np.ones(1)
-        if len(k_d) > max_deg:
-            raise NotImplementedError(
-                "this fm_fft/fm_hop geometry cannot fold the deemphasis into "
-                "the audio filter; the deemphasis scan is not ported yet "
-                "(ROADMAP.md, queue 1)")
-        k_af = np.convolve(np.asarray(k_af, np.float64), k_d)
-        self.deemph_folded = True
-        self.H_audio = as_dev(design.fft_filter_response(
-            k_af, cfg.fm_fft).astype(np.complex64))
+            raise ValueError(f"unknown rds decoder {cfg.rds!r}")
+        # audio lowpass with the deemphasis one-pole folded into the same
+        # overlap-save kernel when it fits the geometry (receiver.py:367-392
+        # of the JAX package); otherwise the deemphasis runs as a scan
+        self.deemph_alpha = C.deemphasis_alpha(cfg.deemphasis_us, fs_fm)
+        self.deemph_folded = False
+        self.H_audio = None
+        if cfg.audio_filter_hz > 0:
+            k_af = design.lowpass_sinc(C.AUDIO_FILTER_DEGREE,
+                                       cfg.audio_filter_hz, fs_fm)
+            a = self.deemph_alpha
+            max_deg = cfg.fm_fft - cfg.fm_hop + 1 - len(k_af)
+            if a < 1.0:
+                L = min(max_deg, int(np.ceil(-104.0 / np.log2(1.0 - a))))
+                k_d = a * (1.0 - a) ** np.arange(L, dtype=np.float64)
+            else:
+                k_d = np.ones(1)
+            if len(k_d) <= max_deg:
+                k_af = np.convolve(np.asarray(k_af, np.float64), k_d)
+                self.deemph_folded = True
+            self.H_audio = as_dev(design.fft_filter_response(
+                k_af, cfg.fm_fft).astype(np.complex64))
         self.k_audio_decim = as_dev(design.polyphase_resampler_kernel(
             fs_fm // cfg.working_rate).astype(np.float32))
+        self.k_audio_up = None
+        if cfg.audio_rate != cfg.working_rate:
+            if cfg.audio_rate % cfg.working_rate:
+                raise ValueError(f"audio_rate {cfg.audio_rate} is not a "
+                                 f"multiple of {cfg.working_rate}")
+            self.k_audio_up = as_dev(design.polyphase_resampler_kernel(
+                cfg.audio_rate // cfg.working_rate).astype(np.float32))
+        # unit input gains for the fused kernel after the rate map (the
+        # gains were applied on the native wire; x1.0 is exact)
+        self._unit = torch.ones((), dtype=torch.float32, device=dev)
         self._validate()
 
     def _validate(self):
         cfg = self.cfg
-        assert cfg.block_fm % cfg.fm_hop == 0
-        assert cfg.block_fm % self.pss_cfg.subblock == 0
-        if cfg.rds == "block":
-            assert cfg.block_rds % self.bitrec_cfg.phase_sub == 0, \
-                (cfg.block_rds, self.bitrec_cfg.phase_sub)
+        if cfg.native_rate:
+            cfg.wire_len              # raises unless the ratio tiles a block
+        for ok, what in (
+                (cfg.block_fm % cfg.fm_hop == 0, "block_fm % fm_hop"),
+                (cfg.block_fm % self.pss_cfg.subblock == 0,
+                 "block_fm % the PSS sub-block"),
+                (not cfg.input_filter or cfg.block_in % cfg.input_hop == 0,
+                 "block_in % input_hop"),
+                (cfg.rds != "block"
+                 or cfg.block_rds % self.bitrec_cfg.phase_sub == 0,
+                 "block_rds % the carrier-phase sub-block"),
+                (self.squelch_cfg is None
+                 or cfg.block_fm % self.squelch_cfg.hold_period == 0,
+                 "block_fm % the squelch hold period")):
+            if not ok:
+                raise ValueError(f"ReceiverConfig: {what} must be 0")
 
     # ------------------------------------------------------------------
     def initial_controls(self) -> Controls:
         """default_controls seeded from cfg.sound and cfg.panorama, on the
         receiver's device."""
-        return default_controls(sound=self.cfg.sound, pano=self.cfg.panorama,
+        sound = self.cfg.sound if self.cfg.sound in SOUND_MATRICES \
+            else "stereo"
+        return default_controls(sound=sound, pano=self.cfg.panorama,
                                 device=self.device)
+
+    def _bitrec_zero_state(self):
+        cfg, dev = self.cfg, self.device
+        if cfg.rds == "block":
+            return bitrecovery_zero_state(self.bitrec_cfg, device=dev)
+        if cfg.rds.startswith("scan"):
+            return SD.DECODERS[cfg.rds][1](self.scan_cfg, device=dev)
+        return None
 
     def init_state(self) -> ReceiverState:
         cfg, dev = self.cfg, self.device
         rds_on = cfg.rds != "off"
         zero_c = lambda: torch.zeros((), dtype=torch.complex64, device=dev)  # noqa: E731
         i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+        up = cfg.audio_rate // cfg.working_rate
         return ReceiverState(
             n0_mod=i32(0),
             rf_dc=zero_c(),
-            input_filt=None,
-            band1=B.fir_zero_state(self.k_decim12.shape[0], device=dev),
+            input_filt=(B.fft_filter_zero_state(cfg.input_fft, cfg.input_hop,
+                                                device=dev)
+                        if cfg.input_filter else None),
+            band1=B.fir_zero_state(len(self.k_band1)
+                                   if cfg.frontend == "reference"
+                                   else self.k_decim12.shape[0], device=dev),
             band2=B.fir_zero_state(len(self.k_band2), device=dev),
             demod=demod_zero_state(dev),
-            squelch=None,
+            squelch=(squelch_zero_state(self.squelch_cfg, device=dev)
+                     if self.squelch_cfg else None),
             pilot=pilot_zero_state(self.pilot_cfg, device=dev),
             pss=pss_zero_state(self.pss_cfg, device=dev),
             phase_delay=torch.zeros(self.rds_delay, dtype=torch.float32,
@@ -357,21 +426,35 @@ class Receiver:
                         if rds_on else None),
             rds_decim=(B.fir_zero_state(self.k_rds_decim.shape[0],
                                         device=dev) if rds_on else None),
-            bitrec=(bitrecovery_zero_state(self.bitrec_cfg, device=dev)
-                    if cfg.rds == "block" else None),
-            audio_filt=B.fft_filter_zero_state(cfg.fm_fft, cfg.fm_hop,
-                                               device=dev),
+            bitrec=self._bitrec_zero_state(),
+            audio_filt=(B.fft_filter_zero_state(cfg.fm_fft, cfg.fm_hop,
+                                                device=dev)
+                        if self.H_audio is not None else None),
             deemph=zero_c(),
             audio_decim=B.fir_zero_state(self.k_audio_decim.shape[0],
                                          device=dev),
             ramp_remaining=i32(cfg.working_rate // 2),
-            audio_up=None,
+            audio_up=(B.fir_zero_state(
+                (self.k_audio_up.shape[0] + up - 1) // up, device=dev)
+                if self.k_audio_up is not None else None),
             tone_index=i32(0),
-            rate_carry=None,
+            rate_carry=zero_c() if cfg.native_rate else None,
         )
 
+    def _recover_bits(self, z24: Tensor, bitrec_state, want_iq: bool):
+        """The selected bit decoder: (BitBlock, demod24, new state).  The
+        scan decoders write their bits compacted from inside the kernel, so
+        nothing here synchronises (JAX gathers with jnp.nonzero)."""
+        cfg = self.cfg
+        if cfg.rds == "block":
+            return recover_bits(z24, self.bitrec_cfg, bitrec_state)
+        bits, count, biq, iq, new = SD.decoder_block(
+            cfg.rds, z24, self.scan_cfg, bitrec_state, want_iq)
+        valid = torch.arange(bits.shape[0], device=z24.device) < count
+        return BitBlock(bits=bits, valid=valid, count=count, iq=biq), iq, new
+
     # ------------------------------------------------------------------
-    # Front end: 2.304 MS/s -> 192 kS/s, one launch of the fused kernel
+    # Front end: wire -> 192 kS/s
     # ------------------------------------------------------------------
     def _dc_update(self, rf_dc: Tensor, sub_mean: Tensor) -> Tensor:
         """One per-block DC-servo step from the stride-64 subsample mean."""
@@ -380,23 +463,61 @@ class Receiver:
 
     def front_end(self, state: ReceiverState, controls: Controls,
                   iq: Tensor, shard_axis: Optional[str] = None):
-        """Wire decode, gains, DC servo, LO mix and composite ÷12.  Returns
-        (v [block_fm] complex64, (dc_last, input_tail, tail1, tail2,
-        input_tap, rate_carry)) as the JAX front end does."""
+        """Wire decode, gains, (rate map), DC servo, LO mix, (input filter)
+        and ÷12.  Returns (v [block_fm] complex64, (dc_last, input_tail,
+        tail1, tail2, input_tap, rate_carry)) as the JAX front end does."""
         if shard_axis is not None:
             raise NotImplementedError("sharded front end is not ported yet "
                                       "(ROADMAP.md, queue 1: multi-GPU)")
         cfg = self.cfg
-        v, tail1, sub_mean = frontend(
-            iq, cfg.iq_format, state.band1, self.k_decim12,
-            controls.input_lgain, controls.input_rgain, state.rf_dc,
-            controls.lo_freq_hz, state.n0_mod, cfg.dc_remove, cfg.input_rate)
+        rate_carry = state.rate_carry
+        fmt, wire = cfg.iq_format, iq
+        lg, rg = controls.input_lgain, controls.input_rgain
+        if cfg.native_rate or not self.fused_frontend:
+            re, im = decode_wire(iq, cfg.iq_format)
+            x = torch.complex(re * lg, im * rg)
+            if cfg.native_rate:
+                num, den = cfg.rate_ratio
+                x, rate_carry = B.rate_map_linear(x, num, den, cfg.block_in,
+                                                  state.rate_carry)
+            # the kernel reads the mapped stream with unit gains
+            fmt, wire, lg, rg = "c64", x.contiguous(), self._unit, self._unit
+        if self.fused_frontend:
+            v, tail1, sub_mean = frontend(
+                wire, fmt, state.band1, self.k_decim12, lg, rg, state.rf_dc,
+                controls.lo_freq_hz, state.n0_mod, cfg.dc_remove,
+                cfg.input_rate)
+            tail2, input_tail, input_tap = state.band2, None, None
+        else:
+            # the input filter, the reference cascade or the input tap sit
+            # between the mix and the ÷12: torch ops, as XLA ops in JAX
+            sub_mean = None
+            if cfg.dc_remove:
+                lim = C.RF_DC_LIMIT
+                corr = torch.complex(state.rf_dc.real.clamp(-lim, lim),
+                                     state.rf_dc.imag.clamp(-lim, lim))
+                sub_mean = x[:: self.DC_SUBSAMPLE].mean()
+                x = x - corr
+            input_tap = x if (cfg.emit_taps and cfg.emit_input_tap) else None
+            x = B.mix_lo(x, controls.lo_freq_hz, cfg.input_rate,
+                         state.n0_mod)
+            input_tail = None
+            if cfg.input_filter:
+                x, input_tail = B.fft_filter_apply(x, self.H_input,
+                                                   cfg.input_hop,
+                                                   state.input_filt)
+            if cfg.frontend == "reference":
+                x, tail1 = B.fir_decimate(x, self._k_bands[0], 6, state.band1)
+                v, tail2 = B.fir_decimate(x, self._k_bands[1], 2, state.band2)
+            else:
+                v, tail1 = B.fir_decimate(x, self.k_decim12, 12, state.band1)
+                tail2 = state.band2
         if cfg.dc_remove:
             dc_last = self._dc_update(state.rf_dc, sub_mean)
         else:
             # setDCRemove(false): servo off, tracked DC reset to zero
             dc_last = torch.zeros_like(state.rf_dc)
-        return v, (dc_last, None, tail1, state.band2, None, None)
+        return v, (dc_last, input_tail, tail1, tail2, input_tap, rate_carry)
 
     # ------------------------------------------------------------------
     def step(self, state: ReceiverState, controls: Controls,
@@ -410,9 +531,10 @@ class Receiver:
         v, (dc_last, input_tail, tail1, tail2, input_tap, rate_carry) = \
             self.front_end(state, controls, iq)
         n0_mod = (state.n0_mod + cfg.block_in) % cfg.input_rate
-        fe_updates = dict(n0_mod=n0_mod, rf_dc=dc_last, input_filt=None,
-                          band1=tail1, band2=tail2, input_tap=None,
-                          rate_carry=None)
+        fe_updates = dict(n0_mod=n0_mod, rf_dc=dc_last,
+                          input_filt=input_tail if cfg.input_filter else None,
+                          band1=tail1, band2=tail2, input_tap=input_tap,
+                          rate_carry=rate_carry)
         return self.fm_chain(state, controls, v, fe_updates)
 
     # ------------------------------------------------------------------
@@ -426,10 +548,28 @@ class Receiver:
                                       "(ROADMAP.md, queue 1: multi-GPU)")
         cfg = self.cfg
         dev = v.device
+        taps = {} if cfg.emit_taps else None
+        if taps is not None:
+            if fe_updates.get("input_tap") is not None:
+                taps["input_dc"] = fe_updates["input_tap"]
+            taps["if_filtered"] = v
 
         # --- discriminator ---------------------------------------------------
-        demod, demod_state, _carrier = demodulate_block(
+        demod, demod_state, carrier = demodulate_block(
             v, state.demod, cfg.decoder, cfg.fm_rate)
+
+        # --- squelch ---------------------------------------------------------
+        squelch_state = state.squelch
+        if cfg.squelch == "nsq":
+            demod, squelch_state = noise_squelch(
+                demod, controls.squelch_level, self.squelch_cfg,
+                squelch_state)
+        elif cfg.squelch == "lsq":
+            demod, squelch_state = level_squelch(
+                demod, carrier, controls.squelch_level, self.squelch_cfg,
+                squelch_state)
+        if taps is not None:
+            taps["demod"] = demod           # post-squelch, as the reference
 
         # --- pilot recovery (+ the fused RDS 57 kHz bandpass) -----------------
         ys, filt_tail = B.fft_filter_apply_multi(
@@ -452,14 +592,24 @@ class Receiver:
             stereo_gate = pblock.locked
         else:
             stereo_gate = torch.ones_like(demod, dtype=torch.bool)
-        osc = torch.cos(base_phase - pss_off)
+        carrier_phase = base_phase - pss_off
+        test_sound = cfg.sound == "left_minus_right_test"
+        osc = torch.sin(carrier_phase) if test_sound \
+            else torch.cos(carrier_phase)
         lr_diff = torch.where(stereo_gate, 2.0 * osc * demod, 0.0) \
             * controls.pano
         left = lr_sum + lr_diff
         right = lr_sum - lr_diff
-        m = controls.sound_mix
-        audio = torch.complex(m[0, 0] * left + m[0, 1] * right,
-                              m[1, 0] * left + m[1, 1] * right)
+        if taps is not None:
+            taps["af_sum"] = lr_sum
+            taps["af_diff"] = lr_diff
+        if test_sound:
+            # diagnostic mode (sin-phase oscillator), static by design
+            audio = torch.complex(lr_diff, lr_diff)
+        else:
+            m = controls.sound_mix
+            audio = torch.complex(m[0, 0] * left + m[0, 1] * right,
+                                  m[1, 0] * left + m[1, 1] * right)
 
         # --- RDS tap ---------------------------------------------------------
         rds_out = None
@@ -478,15 +628,31 @@ class Receiver:
                                               -torch.sin(the_phase))
             z24, rds_decim_c = B.fir_decimate(rds_bb, self.k_rds_decim, 8,
                                               state.rds_decim)
-            rds_out, _demod24, bitrec_state = recover_bits(
-                z24, self.bitrec_cfg, state.bitrec)
+            if taps is not None:
+                taps["rds_baseband"] = z24
+                taps["rds_input"] = 20.0 * z24
+            rds_out, demod24, bitrec_state = self._recover_bits(
+                z24, state.bitrec, taps is not None)
+            if taps is not None:
+                taps["rds_demod"] = demod24
         else:
             phase_delay = state.phase_delay
 
-        # --- audio filter with the folded deemphasis -------------------------
-        audio, audio_filt = B.fft_filter_apply(audio, self.H_audio,
-                                               cfg.fm_hop, state.audio_filt)
-        deemph_last = state.deemph
+        # --- audio filter + deemphasis ---------------------------------------
+        audio_filt = state.audio_filt
+        if self.H_audio is not None:
+            audio, audio_filt = B.fft_filter_apply(audio, self.H_audio,
+                                                   cfg.fm_hop,
+                                                   state.audio_filt)
+        if self.deemph_folded:
+            deemph_last = state.deemph      # folded into H_audio above
+        else:
+            audio, deemph_last = B.ema_apply_complex(audio, self.deemph_alpha,
+                                                     state.deemph)
+        if taps is not None:
+            taps["af_left_filtered"] = audio.real
+            taps["af_right_filtered"] = audio.imag
+            taps["af_mono_filtered"] = audio.real + audio.imag
 
         # --- volume / balance ------------------------------------------------
         audio = torch.complex(
@@ -508,6 +674,22 @@ class Receiver:
         pcm = pcm * gain
         ramp_remaining = torch.clamp(state.ramp_remaining - Tw, min=0)
 
+        # --- test tone: 25 ms of 1 kHz at 0.9 every 2 s; the program is
+        # attenuated x0.1 for as long as the gate is on, between bursts too
+        # (the reference's insertTestTone) --------------------------------
+        tone_index = state.tone_index
+        if cfg.test_tone:
+            period = 2 * cfg.working_rate
+            dur = cfg.working_rate // 40
+            idx = (state.tone_index + torch.arange(
+                Tw, dtype=torch.int32, device=dev)) % period
+            tone = 0.9 * torch.sin((2.0 * math.pi * 1000.0 / cfg.working_rate)
+                                   * idx.to(torch.float32))
+            tone = torch.where(idx < dur, tone, 0.0) * controls.tone_gate
+            pcm = pcm * (1.0 - 0.9 * controls.tone_gate) \
+                + torch.complex(tone, tone)
+            tone_index = (state.tone_index + Tw) % period
+
         # --- peak meter ------------------------------------------------------
         peak_l = torch.max(torch.abs(pcm.real))
         peak_r = torch.max(torch.abs(pcm.imag))
@@ -515,6 +697,13 @@ class Receiver:
         def to_db(p):
             return torch.where(p > 0, 20.0 * torch.log10(
                 torch.clamp(p, min=1e-10)), -40.0)
+
+        # --- optional upsample to audioRate (the -m 192 kHz mode) -----------
+        audio_up_state = state.audio_up
+        if self.k_audio_up is not None:
+            pcm, audio_up_state = B.fir_interpolate(
+                pcm, self.k_audio_up, cfg.audio_rate // cfg.working_rate,
+                state.audio_up)
 
         meta = Meta(
             pilot_locked=pblock.locked[-1],
@@ -529,33 +718,48 @@ class Receiver:
         )
         new_state = ReceiverState(
             n0_mod=fe_updates["n0_mod"], rf_dc=fe_updates["rf_dc"],
-            input_filt=None, band1=fe_updates["band1"],
-            band2=fe_updates["band2"], demod=demod_state, squelch=None,
-            pilot=pilot_state, pss=pss_state, phase_delay=phase_delay,
-            rds57_filt=rds57_filt, rds_decim=rds_decim_c,
-            bitrec=bitrec_state, audio_filt=audio_filt, deemph=deemph_last,
-            audio_decim=audio_decim, ramp_remaining=ramp_remaining,
-            audio_up=None, tone_index=state.tone_index, rate_carry=None)
+            input_filt=fe_updates["input_filt"], band1=fe_updates["band1"],
+            band2=fe_updates["band2"], demod=demod_state,
+            squelch=squelch_state, pilot=pilot_state, pss=pss_state,
+            phase_delay=phase_delay, rds57_filt=rds57_filt,
+            rds_decim=rds_decim_c, bitrec=bitrec_state, audio_filt=audio_filt,
+            deemph=deemph_last, audio_decim=audio_decim,
+            ramp_remaining=ramp_remaining, audio_up=audio_up_state,
+            tone_index=tone_index, rate_carry=fe_updates.get("rate_carry"))
 
         out_audio = torch.stack([pcm.real, pcm.imag], dim=-1)
         count = (rds_out.count if rds_out is not None
                  else torch.full((), -1, dtype=torch.int32, device=dev))
         meta_vec = torch.stack([t.to(torch.float32) for t in meta]
                                + [count.to(torch.float32)])
-        out = Output(audio=out_audio, meta=meta, rds=rds_out, taps=None,
-                     meta_vec=meta_vec, audio_i16=None)
+        out = Output(audio=out_audio, meta=meta, rds=rds_out, taps=taps,
+                     meta_vec=meta_vec,
+                     audio_i16=(quantize_i16(out_audio)
+                                if cfg.emit_audio_i16 else None))
         return new_state, out
+
+    # ------------------------------------------------------------------
+    def request_rds_resync(self, state: ReceiverState) -> ReceiverState:
+        """Arm decoder 3's bit-clock re-acquisition for the next block (the
+        block synchronizer's >3 sync errors, fed back by the runner).  A
+        no-op for the other decoders, whose timing loops adapt
+        continuously."""
+        if self.cfg.rds != "scan3" or state.bitrec is None:
+            return state
+        return state._replace(bitrec=state.bitrec._replace(
+            need_resync=torch.ones((), dtype=torch.bool,
+                                   device=self.device)))
 
     # ------------------------------------------------------------------
     def retune_reset(self, state: ReceiverState) -> ReceiverState:
         """triggerFrequencyChange: a >=100 kHz retune fires the audio mute
-        ramp, resets the PSS adaptation and the RDS bit decoder."""
+        ramp, resets the PSS adaptation and the RDS bit decoder (block or
+        scan)."""
         s = state._replace(
             ramp_remaining=torch.tensor(self.cfg.working_rate // 2,
                                         dtype=torch.int32,
                                         device=self.device),
             pss=pss_zero_state(self.pss_cfg, device=self.device))
         if s.bitrec is not None:
-            s = s._replace(bitrec=bitrecovery_zero_state(self.bitrec_cfg,
-                                                         device=self.device))
+            s = s._replace(bitrec=self._bitrec_zero_state())
         return s

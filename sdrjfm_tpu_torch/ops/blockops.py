@@ -8,15 +8,18 @@ computation (the tests hold split blocks against the whole array):
                            real/imag planes (carry = last taps-1 inputs)
 - overlap-save filter   -> batched `torch.fft` convolution (carry = last
                            F-hop inputs), zero block latency
+- polyphase interpolation -> one `conv1d` with a channel per phase
 - one-pole trackers     -> the first-order recurrence scan kernel
                            (`kernels/linrec.py`), carry = last output
+- biquad cascades       -> `IIRSpec`: a short FIR numerator, then a bank of
+                           complex one-pole recurrences summed with their
+                           residues, in one call of the pole-bank kernel
 - lock counters         -> run length of true via `torch.cummax`
 - LO mix                -> exact integer NCO phase, base-512 int32 digits
+- rate conversion       -> linear interpolation at exact rational positions
 
-Only what the main path uses is ported; `fir_interpolate`, `iir_apply` /
-`IIRSpec` and `rate_map_linear` are listed in ROADMAP.md.  Nothing here
-synchronises with the host: scalars that vary at run time are 0-dim device
-tensors, and constants are Python numbers passed to the ops.
+Nothing here synchronises with the host: scalars that vary at run time are
+0-dim device tensors, and constants are Python numbers passed to the ops.
 """
 
 from __future__ import annotations
@@ -24,10 +27,11 @@ from __future__ import annotations
 import math
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..kernels.linrec import linrec
+from ..kernels.linrec import linrec, pole_bank
 
 Tensor = torch.Tensor
 
@@ -87,6 +91,28 @@ def fir_decimate(x: Tensor, kernel: Tensor, factor: int, carry: Tensor
     else:
         y = _conv_valid_real(xp, kernel, stride=factor)
     return y, new_carry
+
+
+def fir_interpolate(x: Tensor, kernel: Tensor, factor: int, carry: Tensor
+                    ) -> Tuple[Tensor, Tensor]:
+    """Polyphase interpolation by `factor` (zero-stuff + lowpass, gain
+    compensated): y[m*factor + p] = factor * sum_j kernel[p + j*factor]
+    x[m - j].  carry holds the last ceil(K/factor) - 1 inputs.  Returns
+    (y [T*factor], new_carry)."""
+    K = kernel.shape[0]
+    phases = (K + factor - 1) // factor
+    xp = torch.cat([carry.to(x.dtype), x])
+    new_carry = xp[-(phases - 1):] if phases > 1 else carry
+    k_pad = F.pad(kernel.to(torch.float32), (0, phases * factor - K))
+    # channel p holds branch p's taps, newest input last (a correlation)
+    w = k_pad.view(phases, factor).t().flip(1)[:, None, :].contiguous()
+    if xp.is_complex():
+        inp = torch.stack([xp.real, xp.imag])[:, None, :]   # [2, 1, T+ph-1]
+        out = F.conv1d(inp, w)                              # [2, factor, T]
+        y = torch.complex(out[0].t().reshape(-1), out[1].t().reshape(-1))
+    else:
+        y = F.conv1d(xp[None, None, :], w)[0].t().reshape(-1)
+    return y * factor, new_carry
 
 
 def fir_zero_state(kernel_len: int, device=None,
@@ -180,6 +206,22 @@ def ema_apply(x: Tensor, alpha: float, y0: Tensor) -> Tuple[Tensor, Tensor]:
     return linrec_apply(alpha * x, 1.0 - alpha, y0)
 
 
+def ema_apply_complex(x: Tensor, alpha: float, y0: Tensor
+                      ) -> Tuple[Tensor, Tensor]:
+    """ema_apply over a complex stream with a real decay: the real and
+    imaginary parts as two rows of ONE scan launch.  Returns (y [T]
+    complex64, y[T-1]).  alpha = 1 (deemphasis off) is the identity, with
+    no launch (the scan kernel takes decays in (0, 1])."""
+    if alpha >= 1.0:
+        x = x.to(torch.complex64)
+        return x, x[-1]
+    drive = torch.stack([alpha * x.real.to(torch.float32),
+                         alpha * x.imag.to(torch.float32)])
+    y0r = torch.stack([y0.real, y0.imag]).to(torch.float32)
+    y, last = linrec(drive, [1.0 - alpha] * 2, y0r)
+    return torch.complex(y[0], y[1]), torch.complex(last[0], last[1])
+
+
 def ema_apply_rows(xs: Sequence[Tensor], alphas: Sequence[float],
                    y0s: Sequence[Tensor]):
     """Several independent EMAs over equal-length blocks in ONE scan launch.
@@ -189,6 +231,91 @@ def ema_apply_rows(xs: Sequence[Tensor], alphas: Sequence[float],
     y0 = torch.stack([v.to(torch.float32) for v in y0s])
     y, last = linrec(drive, [1.0 - a for a in alphas], y0)
     return [(y[i], last[i]) for i in range(len(xs))]
+
+
+# ---------------------------------------------------------------------------
+# Biquad cascades as complex first-order recurrences
+# ---------------------------------------------------------------------------
+
+
+class IIRSpec:
+    """Frozen pole/zero form of a biquad cascade (host-side construction,
+    the JAX package's IIRSpec array for array): a real FIR numerator `num`
+    and complex one-pole recurrences `poles` whose outputs are summed with
+    the `residues` of 1/prod(1 - p_i z^-1)."""
+
+    def __init__(self, sos: np.ndarray):
+        from scipy import signal
+        sos = np.asarray(sos, dtype=np.float64)
+        z, p, k = signal.sos2zpk(sos)
+        # SOS padding introduces matched zero/pole pairs at the origin
+        # ((z-0)/(z-0) == 1); cancel them before partial fractions.
+        z = np.asarray(z, dtype=np.complex128)
+        p = np.asarray(p, dtype=np.complex128)
+        z0 = np.abs(z) < 1e-12
+        p0 = np.abs(p) < 1e-12
+        ncancel = min(z0.sum(), p0.sum())
+        if ncancel:
+            z = np.concatenate([z[~z0], z[z0][: z0.sum() - ncancel]])
+            p = np.concatenate([p[~p0], p[p0][: p0.sum() - ncancel]])
+        if np.any(np.abs(p) < 1e-12):
+            raise ValueError("IIRSpec: unmatched pole at the origin")
+        b = np.real(np.poly(z)) * k
+        self.num = b.astype(np.float32)          # [nz+1]
+        # perturb (near-)repeated poles so partial fractions stay finite
+        for i in range(len(p)):
+            for j in range(i):
+                if abs(p[i] - p[j]) < 1e-9:
+                    p[i] += 1e-6 * (1 + 1j)
+        self.poles = p.astype(np.complex64)      # [np]
+        res = []
+        for i, pi in enumerate(p):
+            others = np.prod([1.0 - (pj / pi)
+                              for j, pj in enumerate(p) if j != i])
+            res.append(1.0 / others)
+        self.residues = np.asarray(res, dtype=np.complex64)
+        self._num_dev = {}
+
+    def num_on(self, device) -> Tensor:
+        """The numerator taps on `device`, copied there once."""
+        key = str(torch.device(device))
+        t = self._num_dev.get(key)
+        if t is None:
+            t = self._num_dev[key] = torch.as_tensor(self.num, device=device)
+        return t
+
+    def zero_state(self, device=None):
+        return (torch.zeros(len(self.poles), dtype=torch.complex64,
+                            device=device),
+                torch.zeros(max(len(self.num) - 1, 0), dtype=torch.float32,
+                            device=device))
+
+
+def iir_apply_many(xs: Sequence[Tensor], specs: Sequence[IIRSpec], states
+                   ) -> list:
+    """Several biquad cascades over equal-length real blocks, their pole
+    banks in ONE call of the pole-bank kernel.  Each numerator FIR is a
+    conv1d (the JAX package runs it as an XLA conv too).  Returns
+    [(y [T] f32, (pole states [P] c64, numerator history [nz]))]."""
+    drives, carries = [], []
+    for x, spec, (_, fir_carry) in zip(xs, specs, states):
+        num = spec.num_on(x.device)
+        if num.shape[0] > 1:
+            xb, fir_carry = fir_apply(x.to(torch.float32), num, fir_carry)
+        else:
+            xb = x.to(torch.float32) * num[0]
+        drives.append(xb)
+        carries.append(fir_carry)
+    ys, wTs = pole_bank(torch.stack(drives), specs,
+                        [w0 for w0, _ in states])
+    return [(ys[i], (wTs[i], carries[i])) for i in range(len(xs))]
+
+
+def iir_apply(x: Tensor, spec: IIRSpec, state) -> Tuple[Tensor, tuple]:
+    """Apply a biquad cascade to a real block.  state = (pole states [P]
+    complex64, numerator input history [nz] f32).  Returns (y [T] f32, new
+    state); algebraically scipy's sosfilt of the same design."""
+    return tuple(iir_apply_many([x], [spec], [state])[0])
 
 
 # ---------------------------------------------------------------------------
@@ -250,3 +377,33 @@ def mix_lo(x: Tensor, freq_hz: Tensor, rate: int, n0_mod: Tensor) -> Tensor:
     ph = oscillator_phases(freq_hz, rate, n0_mod, x.shape[0])
     return x * torch.complex(torch.cos(ph), -torch.sin(ph))
 
+
+
+def wrap_pi(x: Tensor) -> Tensor:
+    """Wrap angles to (-pi, pi] (the PI_Constrain equivalent)."""
+    return x - 2.0 * math.pi * torch.round(x / (2.0 * math.pi))
+
+
+def rate_map_linear(x: Tensor, num: int, den: int, n_out: int,
+                    carry: Tensor) -> Tuple[Tensor, Tensor]:
+    """Linear-interpolation rate conversion: n_out outputs spanning
+    n_out*num/den inputs (the device zoo's mapTable converter).  out[j]
+    lerps between input samples at the exact rational position j*num/den
+    (integer positions, no phase drift); `carry` is the previous block's
+    last input sample, so consecutive blocks stitch exactly.  At num/den =
+    1/1 this is the stream delayed by one sample.  Returns (out [n_out],
+    new carry = x[-1])."""
+    T_in = x.shape[0]
+    if n_out * num != T_in * den:
+        raise ValueError(f"rate_map_linear: {n_out} * {num} != {T_in} * "
+                         f"{den}")
+    if n_out * num >= 2 ** 31:
+        raise ValueError("rate_map_linear: positions overflow int32")
+    j = torch.arange(n_out, dtype=torch.int64, device=x.device)
+    pos_num = j * num
+    base = pos_num // den
+    frac = (pos_num - base * den).to(torch.float32) / den
+    xx = torch.cat([carry.reshape(1).to(x.dtype), x])
+    a = xx[base]
+    b = xx[base + 1]
+    return a + (b - a) * frac, x[-1]

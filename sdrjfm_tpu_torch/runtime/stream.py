@@ -34,17 +34,25 @@ class StreamResult:
 
 def run_offline(rx: Receiver, iq: np.ndarray,
                 controls: Optional[Controls] = None,
+                drop_blocks: int = 0,
+                collect_taps: bool = False,
                 init_state=None,
                 rds_feedback=None) -> StreamResult:
     """Process a full IQ array (wire format: complex64 [T], or [T,2] int16 /
     uint8 / int8 per rx.cfg.iq_format) through the receiver.
 
-    init_state: a ReceiverState to start from (for example one carried
-    across with convert.state_from_numpy).  rds_feedback(bits) is called
-    with each block's recovered bits, in block order, once the run has
-    ended (the bits come back from the device in one transfer); its return
-    value is ignored, since the block bit decoder takes no resync
-    request."""
+    drop_blocks: leading blocks left out of the result (filter warm-up),
+    while the state still advances through them.  collect_taps: gather the
+    debug taps (cfg.emit_taps) per name.  init_state: a ReceiverState to
+    start from (for example one carried across with convert.state_from_numpy).
+
+    rds_feedback(bits) -> bool is the block synchronizer's feedback into the
+    bit decoder, called with each block's bits in block order.  With
+    decoder 3 (cfg.rds == "scan3") it runs after every block, and True arms
+    Receiver.request_rds_resync before the next one: one extra bit fetch a
+    block.  The other decoders take no resync request, so for them the
+    calls wait until the run has ended (the bits come back in one transfer)
+    and the return value is ignored: no added sync on their path."""
     cfg = rx.cfg
     controls = controls if controls is not None else rx.initial_controls()
     T = cfg.wire_len
@@ -56,27 +64,44 @@ def run_offline(rx: Receiver, iq: np.ndarray,
     if not wire.flags.writeable:      # a wav read straight from its buffer
         wire = wire.copy()
     wire_t = torch.from_numpy(wire)
+    per_block_feedback = rds_feedback is not None and cfg.rds == "scan3"
 
-    audio, metas, bits, biq, counts = [], [], [], [], []
+    audio, metas, bits, biq = [], [], [], []
+    fed, counts = [], []              # deferred feedback: every block's bits
+    taps: dict = {}
     for b in range(nblocks):
         blk = wire_t[b * T:(b + 1) * T].to(rx.device)
         state, out = rx.step(state, controls, blk)
         # the one device->host transfer per block
         meta, n = meta_dict_from_vec(out.meta_vec.cpu().numpy())
+        if per_block_feedback and out.rds is not None:
+            if rds_feedback(out.rds.bits[:n].cpu().numpy()):
+                state = rx.request_rds_resync(state)
+        elif rds_feedback is not None and out.rds is not None:
+            fed.append(out.rds.bits[:n])
+            counts.append(n)
+        if b < drop_blocks:
+            continue
         audio.append(out.audio)
         metas.append(meta)
         if out.rds is not None:
             bits.append(out.rds.bits[:n])
             biq.append(out.rds.iq[:n])
-            counts.append(n)
+        if collect_taps and out.taps:
+            for k, v in out.taps.items():
+                taps.setdefault(k, []).append(v)
 
-    res = StreamResult(audio=torch.cat(audio).cpu().numpy(), meta=metas,
-                       final_state=state)
+    res = StreamResult(audio=(torch.cat(audio).cpu().numpy() if audio
+                              else np.zeros((0, 2), np.float32)),
+                       meta=metas, final_state=state)
+    if taps:
+        res.taps = {k: torch.cat(v).cpu().numpy() for k, v in taps.items()}
     if bits:
         res.rds_bits = torch.cat(bits).cpu().numpy()
         res.rds_iq = torch.cat(biq).cpu().numpy()
-        if rds_feedback is not None:
-            edges = np.cumsum([0] + counts)
-            for i in range(len(counts)):
-                rds_feedback(res.rds_bits[edges[i]:edges[i + 1]])
+    if fed:
+        all_bits = torch.cat(fed).cpu().numpy()
+        edges = np.cumsum([0] + counts)
+        for i in range(len(counts)):
+            rds_feedback(all_bits[edges[i]:edges[i + 1]])
     return res

@@ -225,3 +225,88 @@ class TestScan:
         scale = float(np.abs(want).max())
         _close(y, want, rtol=0, atol=1e-6 * scale)
         _close(last, want[:, -1], rtol=0, atol=1e-6 * scale)
+
+
+class TestOptionPrimitives:
+    """The primitives of the receiver's options: the -m interpolator, the
+    native-rate map, the complex deemphasis EMA, wrap_pi and the complex
+    scan (pole bank) of the biquad cascades."""
+
+    @pytest.mark.parametrize("factor", [4, 2])
+    def test_fir_interpolate_matches_jax_split(self, factor):
+        rng = np.random.default_rng(11)
+        x = _c64(rng, 2048, 0.5)
+        k = design.polyphase_resampler_kernel(factor).astype(np.float32)
+        phases = (len(k) + factor - 1) // factor
+        carry0 = np.zeros(phases - 1, np.complex64)
+        yj, cj = JB.fir_interpolate(jnp.asarray(x), jnp.asarray(k), factor,
+                                    jnp.asarray(carry0))
+        y1, c1 = TB.fir_interpolate(_t(x[:1024]), _t(k), factor, _t(carry0))
+        y2, c2 = TB.fir_interpolate(_t(x[1024:]), _t(k), factor, c1)
+        _close(torch.cat([y1, y2]), yj)
+        np.testing.assert_array_equal(c2.numpy(), np.asarray(cj))
+
+    @pytest.mark.parametrize("num,den", [(625, 576), (25, 24), (1, 1)])
+    def test_rate_map_linear_matches_jax_split(self, num, den):
+        """625/576 is airspy's 2.5 MS/s, 25/24 rtl-sdr's 2.4 MS/s; at 1/1
+        the map is the stream delayed by one sample (the carry).  Exact:
+        both packages lerp in f32 at the same integer positions."""
+        rng = np.random.default_rng(12)
+        n_out = 576 * 8
+        T_in = n_out * num // den
+        x = _c64(rng, 2 * T_in)
+        carry = np.complex64(0.25 - 0.5j)
+        yj = []
+        cj = jnp.asarray(carry)
+        ct = torch.tensor(carry)
+        yt = []
+        for b in range(2):
+            blk = x[b * T_in:(b + 1) * T_in]
+            a, cj = JB.rate_map_linear(jnp.asarray(blk), num, den, n_out, cj)
+            t, ct = TB.rate_map_linear(_t(blk), num, den, n_out, ct)
+            yj.append(np.asarray(a))
+            yt.append(t.numpy())
+        np.testing.assert_array_equal(np.concatenate(yt), np.concatenate(yj))
+        assert complex(ct) == complex(cj)
+        if num == den:
+            np.testing.assert_array_equal(np.concatenate(yt)[1:], x[:-1])
+
+    def test_ema_complex_matches_jax_and_split(self):
+        rng = np.random.default_rng(13)
+        x = _c64(rng, 8192)
+        a = JC.deemphasis_alpha(50.0, JC.FM_RATE)
+        y0 = np.complex64(0.1 + 0.2j)
+        yj, lj = _j_ema(jnp.asarray(x), a, jnp.asarray(y0))
+        y1, l1 = TB.ema_apply_complex(_t(x[:4096]), a, torch.tensor(y0))
+        y2, l2 = TB.ema_apply_complex(_t(x[4096:]), a, l1)
+        # two f32 scans (chunked matmul vs associative scan) of an O(1)
+        # stream: a few ulps of the output scale
+        _close(torch.cat([y1, y2]), yj, rtol=5e-5, atol=5e-6)
+        _close(l2, lj, rtol=5e-5, atol=5e-6)
+        yi, li = TB.ema_apply_complex(_t(x), 1.0, torch.tensor(y0))
+        np.testing.assert_array_equal(yi.numpy(), x)     # deemphasis off
+
+    def test_wrap_pi_matches_jax(self):
+        x = np.linspace(-20, 20, 1001).astype(np.float32)
+        np.testing.assert_array_equal(TB.wrap_pi(_t(x)).numpy(),
+                                      np.asarray(JB.wrap_pi(jnp.asarray(x))))
+
+    @pytest.mark.parametrize("T", [KERNEL_CHUNK * 3 + 5, 100])
+    def test_complex_scan_plain_vs_float64(self, T):
+        """The plain complex scan (the pole bank's reference on the card)
+        within 2e-6 of the scale of a float64 recurrence, for decays near
+        the unit circle like the squelch's poles."""
+        from scipy.signal import lfilter
+        rng = np.random.default_rng(14)
+        g = np.asarray([0.98 * np.exp(0.3j), 0.995 * np.exp(-1.2j), 0.5 + 0j],
+                       np.complex64)
+        d = _c64(rng, 3 * T).reshape(3, T)
+        y0 = _c64(rng, 3)
+        y, last = linrec_plain(_t(d), list(g), _t(y0))
+        for r in range(3):
+            gr = np.complex128(g[r])
+            ref = lfilter([1.0], [1.0, -gr], d[r].astype(np.complex128),
+                          zi=[gr * np.complex128(y0[r])])[0]
+            scale = np.abs(ref).max()
+            assert np.abs(y[r].numpy() - ref).max() <= 2e-6 * scale
+            assert abs(complex(last[r]) - ref[-1]) <= 2e-6 * scale

@@ -58,15 +58,21 @@ def capture():
     return jsynth.iq_to_i16(iq)
 
 
-def test_design_constants_bit_equal_and_loadable():
-    jrx = JReceiver(JConfig(**_cfg_kw(block_fm=131072)))
-    trx = Receiver(ReceiverConfig(**_cfg_kw(block_fm=131072)), device="cpu")
+@pytest.mark.parametrize("kw", [
+    dict(), dict(squelch="nsq", rds="scan1", audio_rate=192_000,
+                 frontend="reference"), dict(rds="scan2")],
+    ids=["main", "squelch_scan1_up_reference", "scan2"])
+def test_design_constants_bit_equal_and_loadable(kw):
+    jrx = JReceiver(JConfig(**_cfg_kw(block_fm=131072, **kw)))
+    trx = Receiver(ReceiverConfig(**_cfg_kw(block_fm=131072, **kw)),
+                   device="cpu")
     jarr = {}
     for name in convert.CONSTANT_NAMES:
         obj = jrx
         for part in name.split("."):
-            obj = getattr(obj, part)
-        jarr[name] = np.asarray(obj)
+            obj = getattr(obj, part, None)
+        if obj is not None:                   # paths of other options
+            jarr[name] = np.asarray(obj)
     own = convert.constants_to_numpy(trx)
     assert set(own) == set(jarr)
     for name, a in jarr.items():
@@ -127,12 +133,17 @@ def test_step_parity_after_state_handover(capture, kw):
 
 @pytest.mark.parametrize("kw", [
     dict(frontend="reference"), dict(input_filter=True),
-    dict(native_rate=2_500_000), dict(squelch="nsq"), dict(rds="scan3"),
+    dict(native_rate=2_400_000), dict(squelch="nsq"), dict(rds="scan3"),
     dict(test_tone=True), dict(audio_rate=192_000), dict(emit_taps=True),
     dict(emit_audio_i16=True), dict(decoder="pll"), dict(audio_filter_hz=0)])
 def test_unported_options_raise(kw):
+    """Every option of the JAX ReceiverConfig builds now; only the sharded
+    paths (shard_axis) are unported, and they raise naming ROADMAP.md."""
+    rx = Receiver(ReceiverConfig(**_cfg_kw(**kw)), device="cpu")
+    st, ctl = rx.init_state(), rx.initial_controls()
+    v = torch.zeros(rx.cfg.block_fm, dtype=torch.complex64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Receiver(ReceiverConfig(**_cfg_kw(**kw)), device="cpu")
+        rx.fm_chain(st, ctl, v, {}, shard_axis="time")
 
 
 def test_default_device_is_cuda_and_never_falls_back():
