@@ -39,8 +39,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
              host cannot set the pace) and host time per wrapper call, its
              plain version's time, a one-call library yardstick where one
              exists (timed the same way), and the bound from bytes and
-             operations; for the sequential RDS decoders also the estimate
-             of their dependency chain.
+             operations; for the sequential RDS decoders also, on a line
+             of its own, a model of their dependency chain (assumed
+             latencies, not measured) beside their measured times.
 7. profile — torch.profiler over 5 steady steps: the device's busy share
              of the wall time, device ops per step, the top ops by device
              time; for the main path and for the heaviest option config.
@@ -662,6 +663,7 @@ def phase_option_kernels(dev="cuda"):
     kernels B1-B3 against their plain versions on chained segments."""
     from scipy.signal import lfilter
     from sdrjfm_tpu_torch.kernels.linrec import (POLE_CHUNK, pole_bank,
+                                                 pole_bank_constants,
                                                  pole_bank_plain)
     from sdrjfm_tpu_torch.rds import scan_decoders as SD
     from sdrjfm_tpu_torch.rds.bitrecovery import bit_capacity
@@ -679,9 +681,10 @@ def phase_option_kernels(dev="cuda"):
                                         + 1j * rng.standard_normal(10))
                                 ).astype(np.complex64)).to(dev)
               for _ in banks]
-        y, wT = pole_bank(x, banks, w0)
-        pol, res, _ = pole_bank.constants(banks, torch.device(dev))
-        yp, wTp = pole_bank_plain(x, pol, res, torch.stack(w0))
+        bank = pole_bank_constants(banks, dev)
+        y, wT = pole_bank(x, bank, w0)
+        yp, wTp = pole_bank_plain(x, bank.poles, bank.residues,
+                                  torch.stack(w0))
         torch.cuda.synchronize()
         row = {"banks": len(banks), "poles": 10, "T": T,
                "max_abs_err": float((y - yp).abs().max()),
@@ -714,13 +717,14 @@ def phase_option_kernels(dev="cuda"):
     b_err = {}
     for kind, (mk, zero, fn) in SD.DECODERS.items():
         cfg = mk()
+        consts = SD.kernel_constants(kind, cfg, dev)
         st = fn(z[:4800], cfg, zero(cfg), 300)[4]          # cpu: plain
         st_k = st_p = _to(st, dev)
         segs, err = [], 0.0
         for lo, hi in ((4800, 6800), (6800, 8800), (8800, 8800 + 16384)):
             seg = z[lo:hi].to(dev)
             cap = bit_capacity(hi - lo)
-            bk, ck, qk, ik, st_k = fn(seg, cfg, st_k, cap, True)
+            bk, ck, qk, ik, st_k = fn(seg, cfg, st_k, cap, True, consts)
             bp, cp, qp, ip, st_p = SD._PLAIN[int(kind[-1])](seg, cfg, st_p,
                                                             cap, True)
             torch.cuda.synchronize()
@@ -957,24 +961,42 @@ def _run_options(wav, dev, cmp_dev, tmp):
     return launches_by_kernel
 
 
+# A model, not a measurement: the latencies it assumes (cycles) for one
+# dependent step of the per-sample decoders' loops.  Nothing here checks
+# them on the card.
+CHAIN_MODEL = {"dependent_f32_add_or_mul": 4, "accurate_sinf_or_cosf": 40}
+
+
 def _chain_cycles(kind: str, cfg) -> int:
-    """Cycles a sample on a decoder's dependency chain: 4 cycles a dependent
-    f32 add or multiply (Hopper's FMA pipe latency), ~40 for an accurate
-    sinf/cosf, a FIR as one accumulator (taps dependent adds), the pole
-    states as 2 dependent ops each plus the residue sum."""
+    """Modelled cycles a sample on a decoder's dependency chain, from
+    CHAIN_MODEL's latencies: a FIR as one accumulator (taps dependent
+    adds), the pole states as 2 dependent ops each plus the residue sum."""
+    op, trig = (CHAIN_MODEL["dependent_f32_add_or_mul"],
+                CHAIN_MODEL["accurate_sinf_or_cosf"])
+    # each loop: a sin/cos, 8 dependent ops of the Costas update, 4 of the
+    # emit and differential logic, and the decoder's own stages
     if kind == "scan1":
         taps = len(cfg.lp21) + len(cfg.match) + len(cfg.sharp.num)
-        return 40 + 4 * 8 + 4 * taps + 4 * 2 * len(cfg.sharp.poles) + 16
+        return trig + op * (8 + taps + 2 * len(cfg.sharp.poles) + 4)
     if kind == "scan2":
-        return 4 * len(cfg.rrc) + 40 + 4 * 8 + 4 * 12 + 16
-    return 40 + 4 * 8 + 4 * len(cfg.lp21) + 40 + 4 * 4 + 16
+        return trig + op * (len(cfg.rrc) + 8 + 12 + 4)
+    return 2 * trig + op * (8 + len(cfg.lp21) + 4 + 4)
+
+
+# f32 operations a pole and sample of a complex one-pole over a real drive:
+# w = g*w + x is 4 multiplies and 3 adds, y += Re(r*w) 2 multiplies and 2
+# adds (how the kernel splits its passes is not the function's work)
+POLE_FLOPS = 7 + 4
 
 
 def _flops_per_sample(kind: str, cfg) -> int:
-    """f32 operations a sample, counting an accurate sinf/cosf as ~20."""
+    """f32 operations a sample, counting an accurate sinf/cosf as ~20:
+    a Costas step is ~12 besides its sin and cos, a real FIR 2 a tap, a
+    complex drive through real taps 4 a tap.  Decoder 2 runs its AGC (~20)
+    every sample but M&M and Costas (~52) once a symbol, ~20 samples."""
     if kind == "scan1":
         taps = len(cfg.lp21) + len(cfg.match) + len(cfg.sharp.num)
-        return 12 + 2 * 20 + 2 * taps + 12 * len(cfg.sharp.poles)
+        return 12 + 2 * 20 + 2 * taps + POLE_FLOPS * len(cfg.sharp.poles)
     if kind == "scan2":
         return 4 * len(cfg.rrc) + 8 + 12 + (12 + 40) // 20
     return 12 + 2 * 20 + 2 * len(cfg.lp21) + 20 + 4
@@ -989,25 +1011,29 @@ def _max_sm_clock_hz() -> float:
 
 def phase_option_times(a_err, b_err, launches, card):
     """The new kernels' device and host times at the path's shapes, their
-    plain versions', bounds and (B1-B3) dependency-chain estimates; the
-    heaviest option config's step time and profile."""
-    from sdrjfm_tpu_torch.kernels.linrec import pole_bank, pole_bank_plain
+    plain versions' and their bounds; then, on a line of its own, the
+    dependency-chain model of B1-B3 beside their measured times."""
+    from sdrjfm_tpu_torch.kernels.linrec import (pole_bank,
+                                                 pole_bank_constants,
+                                                 pole_bank_plain)
     from sdrjfm_tpu_torch.rds import scan_decoders as SD
     from sdrjfm_tpu_torch.rds.bitrecovery import bit_capacity
 
     dev = torch.device("cuda")
     M = BLOCK_FM
     specs = _squelch_specs()
+    bank = pole_bank_constants(specs, dev)
     x = torch.rand(2, M, device=dev) - 0.5
     w0 = [torch.zeros(10, dtype=torch.complex64, device=dev)
           for _ in specs]
-    a_ms, a_host = device_ms(lambda: pole_bank(x, specs, w0), "pole_bank")
-    pol, res, _ = pole_bank.constants(specs, dev)
-    a_plain = paced_ms(lambda: pole_bank_plain(x, pol, res, torch.stack(w0)),
+    a_ms, a_host = device_ms(lambda: pole_bank(x, bank, w0), "pole_bank")
+    a_plain = paced_ms(lambda: pole_bank_plain(x, bank.poles, bank.residues,
+                                               torch.stack(w0)),
                        reps=3, iters=3)
-    P, B = 10, 2
+    P, B = bank.poles.shape[1], len(specs)
+    # drive read and y written once; poles, residues, w0 and wT
     a_bytes = 2 * B * M * 4 + B * P * 8 * 4
-    a_flops = B * P * M * (8 + 8 + 4)     # two passes, residue sum
+    a_flops = B * P * M * POLE_FLOPS
     a_bound = max(a_bytes / HBM_BYTES_PER_S, a_flops / FP32_FLOP_PER_S)
     kernels = [{
         "name": "pole_bank", "route": "cuda",
@@ -1025,17 +1051,18 @@ def phase_option_times(a_err, b_err, launches, card):
     z = _rds_baseband(1.0).to(dev)[:M // 8]
     n = z.shape[0]
     cap = bit_capacity(n)
+    chains = []
     for kind, (mk, zero, fn) in SD.DECODERS.items():
         cfg = mk()
+        consts = SD.kernel_constants(kind, cfg, dev)
         st = zero(cfg, device=dev)
-        ms, host = device_ms(lambda: fn(z, cfg, st, cap), f"rds_{kind}",
-                             reps=3, iters=5)
+        ms, host = device_ms(lambda: fn(z, cfg, st, cap, False, consts),
+                             f"rds_{kind}", reps=3, iters=5)
         plain = paced_ms(lambda: SD._PLAIN[int(kind[-1])](z, cfg, st, cap),
                          reps=1, iters=1)
         nbytes = n * 8 + cap * 9 + 2 * 4 * SD.pack_state(st).numel()
         flops = n * _flops_per_sample(kind, cfg)
         bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S)
-        chain_ms = n * _chain_cycles(kind, cfg) / clock * 1e3
         kernels.append({
             "name": f"rds_decoder{kind[-1]}", "route": "cuda",
             "source": "sdrjfm_tpu_torch/csrc/rds_scan.cu",
@@ -1048,12 +1075,18 @@ def phase_option_times(a_err, b_err, launches, card):
             "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                          >= flops / FP32_FLOP_PER_S else "operations"),
             "library_ms": None, "host_us_per_call": host,
-            "chain_estimate_ms": chain_ms,
-            "chain_cycles_per_sample": _chain_cycles(kind, cfg),
-            "sm_clock_mhz": clock / 1e6,
             "shape": f"complex64 [{n}] per block, one thread"})
+        chains.append({"name": f"rds_decoder{kind[-1]}",
+                       "cycles_per_sample": _chain_cycles(kind, cfg),
+                       "model_ms": n * _chain_cycles(kind, cfg) / clock * 1e3,
+                       "measured_ms": ms})
     emit({"phase": "times", "what": "option kernels", "card": card,
           "kernels": kernels})
+    emit({"phase": "model", "what": "dependency-chain model of the RDS "
+          "decoders: assumed latencies at the maximum SM clock, not "
+          "measured", "assumed_cycles": CHAIN_MODEL,
+          "sm_clock_max_mhz": clock / 1e6, "samples": n,
+          "decoders": chains, "card": card})
     return kernels
 
 

@@ -151,12 +151,4 @@ def constants_from_numpy(rx, arrays: Dict[str, np.ndarray]) -> None:
         _set(rx, name, _leaf_to_tensor(value, rx.device)
              if isinstance(old, torch.Tensor) else np.array(value, copy=True))
     # device copies made from the host-side arrays are stale now
-    rx._k_bands = tuple(torch.as_tensor(k, device=rx.device)
-                        for k in (rx.k_band1, rx.k_band2))
-    for spec in (getattr(rx.squelch_cfg, "hp", None),
-                 getattr(rx.squelch_cfg, "lp", None),
-                 getattr(rx.scan_cfg, "sharp", None)):
-        if spec is not None:
-            spec._num_dev.clear()
-    for kernel in (SD.decoder1_scan, SD.decoder2_scan, SD.decoder3_scan):
-        kernel.forget_constants()
+    rx.build_device_constants()

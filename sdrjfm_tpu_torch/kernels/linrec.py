@@ -25,7 +25,7 @@ references on the card.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence, Tuple
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -202,19 +202,46 @@ def _pole_powers(poles: np.ndarray) -> np.ndarray:
                     axis=-1).astype(np.complex64)
 
 
+class PoleBank(NamedTuple):
+    """The kernel's device constants for B banks: poles, residues [B, P]
+    and the join powers [B, P, POLE_NPOW] complex64 (banks with fewer
+    poles padded with zero poles of zero residue, which add nothing), and
+    each bank's own pole count."""
+    poles: torch.Tensor
+    residues: torch.Tensor
+    powers: torch.Tensor
+    sizes: Tuple[int, ...]
+
+
+def pole_bank_constants(specs, device) -> PoleBank:
+    """A PoleBank on `device` from B objects with .poles/.residues
+    complex64 arrays.  Build it once and pass it to every call: a fresh
+    host-to-device copy per call would synchronise."""
+    P = max(len(s.poles) for s in specs)
+    if not 1 <= P <= POLE_MAXP:
+        raise ValueError(f"pole_bank: {P} poles, at most {POLE_MAXP}")
+    pol = np.zeros((len(specs), P), np.complex64)
+    res = np.zeros((len(specs), P), np.complex64)
+    for b, s in enumerate(specs):
+        pol[b, :len(s.poles)] = s.poles
+        res[b, :len(s.residues)] = s.residues
+    if np.any(np.abs(pol) > 1.0):
+        raise ValueError("pole_bank: a pole lies outside the unit circle")
+    return PoleBank(*(torch.as_tensor(a, device=device)
+                      for a in (pol, res, _pole_powers(pol))),
+                    sizes=tuple(len(s.poles) for s in specs))
+
+
 class PoleBankKernel:
     """Callable wrapper of kernel A with a launch counter (`launches`
     counts calls that launched the kernel pair; CPU calls do not count).
 
-    __call__(drive [B, T] f32, specs: B objects with .poles/.residues
-    complex64 arrays, w0s: B tensors [P_b] complex64) -> (y [B, T] f32,
-    [wT_b [P_b] complex64]).  Banks with fewer poles are padded with zero
-    poles of zero residue, which add nothing."""
+    __call__(drive [B, T] f32, bank: PoleBank of B banks, w0s: B tensors
+    [P_b] complex64) -> (y [B, T] f32, [wT_b [P_b] complex64])."""
 
     def __init__(self):
         self.launches = 0
         self._fn = None
-        self._consts: Dict[tuple, tuple] = {}
         self._scratch: Dict[torch.device, torch.Tensor] = {}
 
     def _entry(self):
@@ -230,44 +257,24 @@ class PoleBankKernel:
             self._fn = fn
         return self._fn
 
-    def constants(self, specs, dev):
-        """(poles, residues, powers) as padded device tensors, cached: a
-        fresh host-to-device copy per call would synchronise."""
-        key = (tuple((s.poles.tobytes(), s.residues.tobytes())
-                     for s in specs), str(dev))
-        t = self._consts.get(key)
-        if t is None:
-            P = max(len(s.poles) for s in specs)
-            if not 1 <= P <= POLE_MAXP:
-                raise ValueError(f"pole_bank: {P} poles, at most {POLE_MAXP}")
-            pol = np.zeros((len(specs), P), np.complex64)
-            res = np.zeros((len(specs), P), np.complex64)
-            for b, s in enumerate(specs):
-                pol[b, :len(s.poles)] = s.poles
-                res[b, :len(s.residues)] = s.residues
-            if np.any(np.abs(pol) > 1.0):
-                raise ValueError("pole_bank: a pole lies outside the unit "
-                                 "circle")
-            t = tuple(torch.as_tensor(a, device=dev)
-                      for a in (pol, res, _pole_powers(pol)))
-            self._consts[key] = t
-        return t
-
-    def __call__(self, drive: torch.Tensor, specs, w0s):
+    def __call__(self, drive: torch.Tensor, bank: PoleBank, w0s):
         dev = drive.device
         if dev.type not in ("cpu", "cuda"):
             raise ValueError(f"pole_bank: unsupported device {dev}")
         if drive.dtype != torch.float32 or drive.dim() != 2:
             raise TypeError("pole_bank: drive must be a [B, T] float32 tensor")
         B, T = drive.shape
-        if len(specs) != B or len(w0s) != B:
-            raise ValueError(f"pole_bank: {B} rows, {len(specs)} banks, "
-                             f"{len(w0s)} states")
-        pol, res, pw = self.constants(specs, dev)
+        if len(bank.sizes) != B or len(w0s) != B:
+            raise ValueError(f"pole_bank: {B} rows, {len(bank.sizes)} "
+                             f"banks, {len(w0s)} states")
+        pol, res, pw = bank.poles, bank.residues, bank.powers
+        if pol.device != dev:
+            raise ValueError("pole_bank: constants are not on the drive's "
+                             "device")
         P = pol.shape[1]
-        for s, w in zip(specs, w0s):
+        for n, w in zip(bank.sizes, w0s):
             if (w.dtype != torch.complex64 or w.device != dev
-                    or tuple(w.shape) != (len(s.poles),)):
+                    or tuple(w.shape) != (n,)):
                 raise ValueError("pole_bank: each state must be a [P_b] "
                                  "complex64 tensor on the drive's device")
         w0 = torch.stack([torch.nn.functional.pad(w, (0, P - w.shape[0]))
@@ -297,7 +304,7 @@ class PoleBankKernel:
                 raise RuntimeError(f"pole_bank kernel launch failed: CUDA "
                                    f"error {rc}")
             self.launches += 1
-        return y, [wT[b, :len(s.poles)] for b, s in enumerate(specs)]
+        return y, [wT[b, :n] for b, n in enumerate(bank.sizes)]
 
 
 pole_bank = PoleBankKernel()

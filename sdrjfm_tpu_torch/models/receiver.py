@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from .. import constants as C
-from ..kernels.frontend import decode_wire, frontend
+from ..kernels.frontend import DC_SUBSAMPLE, decode_wire, frontend
 from ..ops import blockops as B
 from ..ops import design
 from ..ops.demod import (DECODERS, DemodState, demod_zero_state,
@@ -43,7 +43,7 @@ from ..ops.pilot import PilotState, make_pilot_config, pilot_zero_state, \
     recover_pilot
 from ..ops.pss import PSSState, make_pss_config, pss_adapt, pss_zero_state
 from ..ops.squelch import (SquelchState, level_squelch, make_squelch_config,
-                           noise_squelch, squelch_zero_state)
+                           noise_squelch, squelch_bank, squelch_zero_state)
 from ..rds import scan_decoders as SD
 from ..rds.bitrecovery import (PHASE_SUB, BitBlock, BitRecoveryState,
                                bitrecovery_zero_state,
@@ -239,8 +239,6 @@ class Receiver:
     init_state/step.  `device=None` means CUDA; without CUDA that raises —
     pass device='cpu' to run the plain versions on the CPU."""
 
-    DC_SUBSAMPLE = 64
-
     def __init__(self, cfg: ReceiverConfig, device=None):
         if cfg.decoder not in DECODERS:
             raise ValueError(f"unknown decoder {cfg.decoder!r}")
@@ -279,7 +277,6 @@ class Receiver:
                                                ).astype(np.float32)
             self.k_band2 = design.lowpass_sinc(31, 110000.0, fs_in / 6
                                                ).astype(np.float32)
-        self._k_bands = (as_dev(self.k_band1), as_dev(self.k_band2))
         up2 = np.zeros(6 * (len(self.k_band2) - 1) + 1, np.float64)
         up2[::6] = self.k_band2
         self.k_decim12 = as_dev(np.convolve(
@@ -360,7 +357,23 @@ class Receiver:
         # unit input gains for the fused kernel after the rate map (the
         # gains were applied on the native wire; x1.0 is exact)
         self._unit = torch.ones((), dtype=torch.float32, device=dev)
+        self.build_device_constants()
         self._validate()
+
+    def build_device_constants(self) -> None:
+        """The device copies of the host-side design arrays that the block
+        path reads: the reference cascade's taps, the squelch filters' and
+        the scan decoder's constants.  Built once here (a copy per block
+        would synchronise); convert.constants_from_numpy calls this again
+        after it replaces those arrays."""
+        dev = self.device
+        self._k_bands = tuple(torch.as_tensor(k, device=dev)
+                              for k in (self.k_band1, self.k_band2))
+        self._squelch_bank = (squelch_bank(self.squelch_cfg, dev)
+                              if self.squelch_cfg is not None else None)
+        self._scan_consts = (SD.kernel_constants(self.cfg.rds, self.scan_cfg,
+                                                 dev)
+                             if self.scan_cfg is not None else None)
 
     def _validate(self):
         cfg = self.cfg
@@ -449,7 +462,8 @@ class Receiver:
         if cfg.rds == "block":
             return recover_bits(z24, self.bitrec_cfg, bitrec_state)
         bits, count, biq, iq, new = SD.decoder_block(
-            cfg.rds, z24, self.scan_cfg, bitrec_state, want_iq)
+            cfg.rds, z24, self.scan_cfg, bitrec_state, want_iq,
+            self._scan_consts)
         valid = torch.arange(bits.shape[0], device=z24.device) < count
         return BitBlock(bits=bits, valid=valid, count=count, iq=biq), iq, new
 
@@ -496,7 +510,7 @@ class Receiver:
                 lim = C.RF_DC_LIMIT
                 corr = torch.complex(state.rf_dc.real.clamp(-lim, lim),
                                      state.rf_dc.imag.clamp(-lim, lim))
-                sub_mean = x[:: self.DC_SUBSAMPLE].mean()
+                sub_mean = x[::DC_SUBSAMPLE].mean()
                 x = x - corr
             input_tap = x if (cfg.emit_taps and cfg.emit_input_tap) else None
             x = B.mix_lo(x, controls.lo_freq_hz, cfg.input_rate,
@@ -563,7 +577,7 @@ class Receiver:
         if cfg.squelch == "nsq":
             demod, squelch_state = noise_squelch(
                 demod, controls.squelch_level, self.squelch_cfg,
-                squelch_state)
+                squelch_state, self._squelch_bank)
         elif cfg.squelch == "lsq":
             demod, squelch_state = level_squelch(
                 demod, carrier, controls.squelch_level, self.squelch_cfg,

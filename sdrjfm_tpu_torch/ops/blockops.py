@@ -25,13 +25,14 @@ Nothing here synchronises with the host: scalars that vary at run time are
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..kernels.linrec import linrec, pole_bank
+from ..kernels.linrec import (PoleBank, linrec, pole_bank,
+                              pole_bank_constants)
 
 Tensor = torch.Tensor
 
@@ -215,11 +216,9 @@ def ema_apply_complex(x: Tensor, alpha: float, y0: Tensor
     if alpha >= 1.0:
         x = x.to(torch.complex64)
         return x, x[-1]
-    drive = torch.stack([alpha * x.real.to(torch.float32),
-                         alpha * x.imag.to(torch.float32)])
-    y0r = torch.stack([y0.real, y0.imag]).to(torch.float32)
-    y, last = linrec(drive, [1.0 - alpha] * 2, y0r)
-    return torch.complex(y[0], y[1]), torch.complex(last[0], last[1])
+    (yr, lr), (yi, li) = ema_apply_rows([x.real, x.imag], [alpha] * 2,
+                                        [y0.real, y0.imag])
+    return torch.complex(yr, yi), torch.complex(lr, li)
 
 
 def ema_apply_rows(xs: Sequence[Tensor], alphas: Sequence[float],
@@ -274,15 +273,6 @@ class IIRSpec:
                               for j, pj in enumerate(p) if j != i])
             res.append(1.0 / others)
         self.residues = np.asarray(res, dtype=np.complex64)
-        self._num_dev = {}
-
-    def num_on(self, device) -> Tensor:
-        """The numerator taps on `device`, copied there once."""
-        key = str(torch.device(device))
-        t = self._num_dev.get(key)
-        if t is None:
-            t = self._num_dev[key] = torch.as_tensor(self.num, device=device)
-        return t
 
     def zero_state(self, device=None):
         return (torch.zeros(len(self.poles), dtype=torch.complex64,
@@ -291,22 +281,34 @@ class IIRSpec:
                             device=device))
 
 
-def iir_apply_many(xs: Sequence[Tensor], specs: Sequence[IIRSpec], states
-                   ) -> list:
+class IIRBank(NamedTuple):
+    """Device copies of several cascades' constants, for iir_apply_many."""
+    nums: Tuple[Tensor, ...]  # each cascade's numerator taps
+    poles: PoleBank           # the pole-bank kernel's constants
+
+
+def iir_bank(specs: Sequence[IIRSpec], device) -> IIRBank:
+    """An IIRBank on `device`.  Build it once per design: a fresh
+    host-to-device copy per block would synchronise."""
+    return IIRBank(tuple(torch.as_tensor(s.num, device=device)
+                         for s in specs),
+                   pole_bank_constants(specs, device))
+
+
+def iir_apply_many(xs: Sequence[Tensor], bank: IIRBank, states) -> list:
     """Several biquad cascades over equal-length real blocks, their pole
     banks in ONE call of the pole-bank kernel.  Each numerator FIR is a
     conv1d (the JAX package runs it as an XLA conv too).  Returns
     [(y [T] f32, (pole states [P] c64, numerator history [nz]))]."""
     drives, carries = [], []
-    for x, spec, (_, fir_carry) in zip(xs, specs, states):
-        num = spec.num_on(x.device)
+    for x, num, (_, fir_carry) in zip(xs, bank.nums, states):
         if num.shape[0] > 1:
             xb, fir_carry = fir_apply(x.to(torch.float32), num, fir_carry)
         else:
             xb = x.to(torch.float32) * num[0]
         drives.append(xb)
         carries.append(fir_carry)
-    ys, wTs = pole_bank(torch.stack(drives), specs,
+    ys, wTs = pole_bank(torch.stack(drives), bank.poles,
                         [w0 for w0, _ in states])
     return [(ys[i], (wTs[i], carries[i])) for i in range(len(xs))]
 
@@ -314,8 +316,10 @@ def iir_apply_many(xs: Sequence[Tensor], specs: Sequence[IIRSpec], states
 def iir_apply(x: Tensor, spec: IIRSpec, state) -> Tuple[Tensor, tuple]:
     """Apply a biquad cascade to a real block.  state = (pole states [P]
     complex64, numerator input history [nz] f32).  Returns (y [T] f32, new
-    state); algebraically scipy's sosfilt of the same design."""
-    return tuple(iir_apply_many([x], [spec], [state])[0])
+    state); algebraically scipy's sosfilt of the same design.  Copies the
+    design to x's device on every call; a block loop builds an iir_bank
+    once and calls iir_apply_many."""
+    return tuple(iir_apply_many([x], iir_bank([spec], x.device), [state])[0])
 
 
 # ---------------------------------------------------------------------------

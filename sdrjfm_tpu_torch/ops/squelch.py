@@ -14,14 +14,15 @@ device tensors (16 hold periods a block at block_fm=131072): no host sync.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import constants as C
 from . import design
-from .blockops import IIRSpec, ema_apply_rows, iir_apply_many
+from .blockops import (IIRBank, IIRSpec, ema_apply_rows, iir_apply_many,
+                       iir_bank)
 
 Tensor = torch.Tensor
 
@@ -79,18 +80,28 @@ def _gate(x: Tensor, sups, H: int) -> Tensor:
     return (x.view(len(sups), H) * keep[:, None]).reshape(-1)
 
 
+def squelch_bank(cfg: SquelchConfig, device) -> IIRBank:
+    """The band filters' constants on `device`, for noise_squelch."""
+    return iir_bank([cfg.hp, cfg.lp], device)
+
+
 def noise_squelch(x: Tensor, level: Tensor, cfg: SquelchConfig,
-                  state: SquelchState) -> Tuple[Tensor, SquelchState]:
+                  state: SquelchState, bank: Optional[IIRBank] = None
+                  ) -> Tuple[Tensor, SquelchState]:
     """Noise squelch over a demod block.  level: 0-dim tensor 0..100 (the
     slider); threshold = 1 - level/100.  Decisions at the end of each hold
-    period of a block-aligned lattice."""
+    period of a block-aligned lattice.  bank: squelch_bank(cfg, x.device),
+    built once by a block loop; without it the filters are copied to the
+    device on this call."""
     T = x.shape[0]
     H = cfg.hold_period
     nper = _periods(T, H)
     thr = 1.0 - level.to(torch.float32) / 100.0
     w = 1.0 / (cfg.rate / 100.0)        # decayingAverage weight
+    if bank is None:
+        bank = squelch_bank(cfg, x.device)
     (v1, hp_state), (v2, lp_state) = iir_apply_many(
-        [x, x], [cfg.hp, cfg.lp], [state.hp_state, state.lp_state])
+        [x, x], bank, [state.hp_state, state.lp_state])
     (ah, ah_last), (al, al_last) = ema_apply_rows(
         [torch.abs(v1), torch.abs(v2)], [w, w],
         [state.avg_high, state.avg_low])

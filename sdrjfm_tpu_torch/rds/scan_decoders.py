@@ -490,7 +490,7 @@ def unpack_state(vec: Tensor, like):
     return out
 
 
-def _consts(which: int, cfg) -> np.ndarray:
+def _const_block(which: int, cfg) -> np.ndarray:
     """The constant block the kernel reads: the loops' float32 scalars
     (alpha, beta, limit, 2 pi, omega, sps, M&M gain, AGC rate, AGC
     reference), then the decoder's sizes, taps and poles."""
@@ -522,6 +522,16 @@ def _sizes_ok(which: int, cfg) -> bool:
     return len(cfg.lp21) <= MAX_TAPS and cfg.symbol_ceiling <= MAX_TAPS
 
 
+def kernel_constants(kind: str, cfg, device) -> Tensor:
+    """Decoder `kind`'s constant block on `device`, as its kernel reads it.
+    Build it once per config: a fresh host-to-device copy per block would
+    synchronise."""
+    which = int(kind[-1])
+    if not _sizes_ok(which, cfg):
+        raise ValueError("rds_scan: a filter exceeds the kernel's maxima")
+    return torch.as_tensor(_const_block(which, cfg), device=device)
+
+
 _PLAIN = {1: decoder1_plain, 2: decoder2_plain, 3: decoder3_plain}
 
 
@@ -529,14 +539,15 @@ class RdsScanKernel:
     """Wrapper of one decoder's kernel with a launch counter (`launches`
     counts kernel launches only; CPU calls of the plain version do not).
 
-    __call__(z [T] complex64, cfg, state, cap, want_iq) -> (bits [cap] int8,
-    count int32, iq [cap] complex64, iq stream [T] or None, new state)."""
+    __call__(z [T] complex64, cfg, state, cap, want_iq, consts) -> (bits
+    [cap] int8, count int32, iq [cap] complex64, iq stream [T] or None, new
+    state).  consts: kernel_constants(kind, cfg, z.device); without it the
+    call copies them to the device itself."""
 
     def __init__(self, which: int):
         self.which = which
         self.launches = 0
         self._fn = None
-        self._c = {}
 
     def _entry(self):
         if self._fn is None:
@@ -554,24 +565,8 @@ class RdsScanKernel:
             self._fn = fn
         return self._fn
 
-    def forget_constants(self) -> None:
-        """Drop the cached constant blocks (after a config's arrays were
-        replaced in place)."""
-        self._c.clear()
-
-    def _const_tensor(self, cfg, dev):
-        key = (id(cfg), str(dev))
-        hit = self._c.get(key)
-        if hit is None or hit[0] is not cfg:
-            if not _sizes_ok(self.which, cfg):
-                raise ValueError("rds_scan: a filter exceeds the kernel's "
-                                 "maxima")
-            hit = (cfg, torch.as_tensor(_consts(self.which, cfg), device=dev))
-            self._c[key] = hit
-        return hit[1]
-
     def __call__(self, z: Tensor, cfg, state, cap: int,
-                 want_iq: bool = False):
+                 want_iq: bool = False, consts: Optional[Tensor] = None):
         dev = z.device
         if dev.type == "cpu":
             return _PLAIN[self.which](z, cfg, state, cap, want_iq)
@@ -583,7 +578,10 @@ class RdsScanKernel:
         T = z.shape[0]
         if not (1 <= T < 2 ** 31 and 1 <= cap < 2 ** 31):
             raise ValueError(f"rds_scan: T={T}, cap={cap} out of range")
-        consts = self._const_tensor(cfg, dev)
+        if consts is None:
+            consts = kernel_constants(f"scan{self.which}", cfg, dev)
+        if consts.device != dev:
+            raise ValueError("rds_scan: constants are not on z's device")
         st_in = pack_state(state)
         if st_in.device != dev:
             raise ValueError("rds_scan: state is not on z's device")
@@ -616,9 +614,10 @@ DECODERS = {"scan1": (make_decoder1_config, decoder1_zero_state, decoder1_scan),
             "scan3": (make_decoder3_config, decoder3_zero_state, decoder3_scan)}
 
 
-def decoder_block(kind: str, z: Tensor, cfg, state, want_iq: bool = False):
+def decoder_block(kind: str, z: Tensor, cfg, state, want_iq: bool = False,
+                  consts: Optional[Tensor] = None):
     """One block through decoder `kind` ("scan1" | "scan2" | "scan3") with
-    the receiver's bit capacity.  Returns (bits, count, iq [cap], iq
-    stream or None, new state)."""
+    the receiver's bit capacity; consts as the wrappers take them.  Returns
+    (bits, count, iq [cap], iq stream or None, new state)."""
     return DECODERS[kind][2](z.to(torch.complex64).contiguous(), cfg, state,
-                             bit_capacity(z.shape[0]), want_iq)
+                             bit_capacity(z.shape[0]), want_iq, consts)

@@ -12,11 +12,12 @@ import numpy as np
 import pytest
 import torch
 
+from sdrjfm_tpu_torch import convert
 from sdrjfm_tpu_torch.io.pcmout import quantize_pcm16
 from sdrjfm_tpu_torch.models.receiver import Receiver, ReceiverConfig
 
 from test_torch_receiver_options import BASE, _run  # noqa: F401
-from torch_parity import station_iq
+from torch_parity import Pair, station_iq, tree_np
 
 torch.set_num_threads(2)
 
@@ -65,6 +66,46 @@ def test_audio_i16_is_the_host_quantizer(capture):
     from sdrjfm_tpu_torch.models.receiver import quantize_i16
     np.testing.assert_array_equal(quantize_i16(edge).numpy(),
                                   quantize_pcm16(edge.numpy()))
+
+
+def test_run_offline_drop_blocks_taps_and_feedback_match_jax(capture):
+    """runtime.stream.run_offline against the JAX runner: 4 blocks after a
+    state handed across from 4 JAX blocks, the first 2 dropped from the
+    result (the state still advances through them), the taps collected,
+    and decoder 3 fed back per block through each package's
+    LiveRDSDecoder."""
+    from sdrjfm_tpu.rds.live import LiveRDSDecoder as JLive
+    from sdrjfm_tpu.runtime.stream import run_offline as j_run
+    from sdrjfm_tpu_torch.rds.live import LiveRDSDecoder as TLive
+    from sdrjfm_tpu_torch.runtime.stream import run_offline as t_run
+    p = Pair(**dict(BASE, rds="scan3", emit_taps=True))
+    T = p.trx.cfg.wire_len
+    warm = j_run(p.jrx, capture[:4 * T], p.jctl)
+    ts = convert.state_from_numpy(tree_np(warm.final_state), "cpu")
+    iq = capture[4 * T:8 * T]
+    jlive, tlive = JLive(), TLive()
+    rj = j_run(p.jrx, iq, p.jctl, drop_blocks=2, collect_taps=True,
+               init_state=warm.final_state, rds_feedback=jlive.feed)
+    rt = t_run(p.trx, iq, p.tctl, drop_blocks=2, collect_taps=True,
+               init_state=ts, rds_feedback=tlive.feed)
+    assert rt.audio.shape == rj.audio.shape == (2 * p.trx.cfg.block_working,
+                                                2)
+    np.testing.assert_allclose(rt.audio, rj.audio, rtol=0, atol=2e-4)
+    assert len(rt.meta) == len(rj.meta) == 2
+    for mt, mj in zip(rt.meta, rj.meta):
+        assert mt.keys() == mj.keys()
+        np.testing.assert_allclose([float(mt[k]) for k in mj],
+                                   [float(mj[k]) for k in mj],
+                                   rtol=1e-4, atol=1e-3)
+    np.testing.assert_array_equal(rt.rds_bits, rj.rds_bits)
+    assert rt.taps.keys() == rj.taps.keys() and rt.taps
+    for k, v in rj.taps.items():
+        assert rt.taps[k].shape == v.shape, k
+        np.testing.assert_allclose(rt.taps[k], v, rtol=0,
+                                   atol=2e-4 * max(1.0, np.abs(v).max()),
+                                   err_msg=k)
+    assert tlive.resyncs_requested == jlive.resyncs_requested
+    assert tlive.sync.groups_decoded == jlive.sync.groups_decoded
 
 
 def test_shard_axis_is_the_only_unported_path():
