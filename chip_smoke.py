@@ -15,7 +15,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
              and the real scan; the complex pole bank (kernel A) also
              against the float64 recurrence, at the squelch's shapes and on
              ragged rows; the RDS decoders 1-3 (kernels B1-B3) on chained
-             segments of a clean baseband from a warmed-up state.
+             segments of a clean baseband from a warmed-up state, and the
+             FIR pre-pass stages of B1 and B2 bit for bit against
+             fir_in_order.
 4. main    — synthesises an 8 s stereo+RDS capture and drives it through
              `python -m sdrjfm_tpu_torch.app rx` (in process) on cuda at
              block_fm=131072 with the int16 wire: PI/PS/RT back at BER 0,
@@ -30,7 +32,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
              the test tone, the taps and dumps, a raw u8 capture at 2.4
              MS/s, and 2.5 MS/s refused with exit 2): each run's checks,
              each kernel's launch count over the run (counts set to 0 just
-             before it), and its first two blocks of audio against the same
+             before it; a decoder call launches each of its stages once),
+             and its first two blocks of audio against the same
              run on the CPU; emit_audio_i16 against the host quantizer.
 6. times   — per-block step time and real-time factor (the main path, and
              the heaviest option config: input filter + nsq + scan2); each
@@ -39,9 +42,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
              host cannot set the pace) and host time per wrapper call, its
              plain version's time, a one-call library yardstick where one
              exists (timed the same way), and the bound from bytes and
-             operations; for the sequential RDS decoders also, on a line
-             of its own, a model of their dependency chain (assumed
-             latencies, not measured) beside their measured times.
+             operations; B1's and B2's stages one line each; the
+             latencies of dependent f32 add, multiply, IEEE division,
+             sincosf and hypotf on one thread (a microkernel timed by
+             clock64), and from them, on a line of its own, each
+             sequential stage's latency floor beside its time.
 7. profile — torch.profiler over 5 steady steps: the device's busy share
              of the wall time, device ops per step, the top ops by device
              time; for the main path and for the heaviest option config.
@@ -86,8 +91,9 @@ POLE_RTOL = 1e-6                   # of max_n sum_p |r_p||w_p[n]| (the sum's
                                    # kernel vs plain and vs float64; both sit
                                    # near 1e-7 of it
 RDS_IQ_ATOL = 1e-4                 # constellation points O(1-10) after f32
-                                   # Costas loops fed by differently summed
-                                   # FIRs; bits and emit counts must be equal
+                                   # Costas loops whose sin/cos come from two
+                                   # libraries (B3: also differently summed
+                                   # FIRs); bits and emit counts must be equal
 OPT_AUDIO_ATOL = 1e-3              # cuda vs cpu audio of an option run (as
                                    # phase reference; the wav is PCM16)
 
@@ -581,6 +587,11 @@ def phase_times(rx, wav, fe_err, sc_err, launches, card):
     return kernels
 
 
+# substrings of the hand kernels' names in a profile (csrc/*.cu)
+HAND_KERNELS = ("frontend", "linrec", "pole_", "costas_", "fir_kernel",
+                "poles_emit", "mm_core", "decoder3")
+
+
 def phase_profile(rx, wav, card, what: str = "main path"):
     """torch.profiler over a steady window of steps: the device's busy
     share of the wall time and the ops that take the device time."""
@@ -623,8 +634,7 @@ def phase_profile(rx, wav, card, what: str = "main path"):
           "hand_kernels": [{"op": k[:80], "us_per_call": us / c,
                             "calls_per_step": c / nstep}
                            for us, k, c in rows
-                           if any(n in k for n in ("frontend", "linrec",
-                                                   "pole_", "decoder"))],
+                           if any(n in k for n in HAND_KERNELS)],
           "top_device_ops": [{"op": k[:80], "us_per_step": us / nstep,
                               "calls_per_step": c / nstep}
                              for us, k, c in rows[:12]]})
@@ -724,6 +734,7 @@ def phase_option_kernels(dev="cuda"):
         for lo, hi in ((4800, 6800), (6800, 8800), (8800, 8800 + 16384)):
             seg = z[lo:hi].to(dev)
             cap = bit_capacity(hi - lo)
+            st_prev = st_k
             bk, ck, qk, ik, st_k = fn(seg, cfg, st_k, cap, True, consts)
             bp, cp, qp, ip, st_p = SD._PLAIN[int(kind[-1])](seg, cfg, st_p,
                                                             cap, True)
@@ -735,15 +746,52 @@ def phase_option_kernels(dev="cuda"):
                  "stream_err": float((ik - ip).abs().max()),
                  "state_err": float((SD.pack_state(st_k)
                                      - SD.pack_state(st_p)).abs().max())}
+            if kind != "scan3":
+                r["fir_prepass_bit_equal"] = _check_prepass(
+                    fn, seg, cfg, st_prev, cap, consts)
             segs.append(r)
             err = max(err, r["iq_err"], r["stream_err"])
             need(int(ck) == n and r["bits_equal"] and n > 0.9 * (hi - lo)
-                 / SD.SPS and max(r["iq_err"], r["stream_err"]) <= RDS_IQ_ATOL,
+                 / SD.SPS and max(r["iq_err"], r["stream_err"]) <= RDS_IQ_ATOL
+                 and r.get("fir_prepass_bit_equal", True),
                  f"rds {kind}: {r}")
         b_err[kind] = err
         emit({"phase": "kernels", "kernel": f"rds_{kind}",
+              "stages": list(SD.STAGES[int(kind[-1])]),
               "iq_atol": RDS_IQ_ATOL, "max_abs_err": err, "segments": segs})
     return a_err, b_err
+
+
+def _check_prepass(fn, seg, cfg, state, cap, consts) -> bool:
+    """Decoders 1 and 2: one call's stages launched from a plan, then each
+    FIR stage's output and new history against fir_in_order on the card
+    (torch ops, one rounding per multiply and add) from the same stage
+    inputs: equal bit for bit."""
+    from sdrjfm_tpu_torch.rds import scan_decoders as SD
+    p = fn.plan(seg, cfg, state, cap, True, consts)
+    for _, launch in p.stages:
+        launch()
+    new = SD.unpack_state(p.st_out, state)
+    t = lambda a: torch.as_tensor(a, device=seg.device)  # noqa: E731
+    if fn.which == 2:
+        taps = t(cfg.rrc)
+        yr, hr = SD.fir_in_order(state.mf_buf.real, seg.real, taps)
+        yi, hi = SD.fir_in_order(state.mf_buf.imag, seg.imag, taps)
+        v = p.work["v"]
+        pairs = [(v.real, yr), (v.imag, yi),
+                 (new.mf_buf, torch.complex(hr, hi))]
+    else:
+        xv = p.work["xv"]
+        v1, h1 = SD.fir_in_order(state.lp_buf, p.work["iq4"].real,
+                                 t(cfg.lp21))
+        v2, h2 = SD.fir_in_order(state.match_buf, p.work["v1"],
+                                 t(cfg.match))
+        xb, h3 = SD.fir_in_order(state.sharp_fir, xv[:, 1] * xv[:, 1],
+                                 t(cfg.sharp.num))
+        pairs = [(p.work["v1"], v1), (xv[:, 1], v2), (xv[:, 0], xb),
+                 (new.lp_buf, h1), (new.match_buf, h2), (new.sharp_fir, h3)]
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in pairs)
 
 
 def _write_u8_capture(wav, path, seconds: float):
@@ -864,18 +912,23 @@ def _run_options(wav, dev, cmp_dev, tmp):
     for k in caps:
         _head(caps[k], heads[k], 2, raw_blk if k == "raw" else 0)
     counters = _counters()
+    decoders = {k: c for k, c in counters.items() if k.startswith("rds_")}
     results, launches_by_kernel = [], {}
     for name, cap, flags, per_block, check in OPTION_RUNS:
         fl = [f.format(tmp=tmp) for f in flags]
         audio, rep = tmp / f"{name}.wav", tmp / f"{name}.json"
         for c in counters.values():
             c.launches = 0
+        for c in decoders.values():
+            c.stage_launches = dict.fromkeys(c.stage_launches, 0)
         t0 = time.perf_counter()
         rc = app.main(["rx", "--iq", str(caps[cap]), "--audio", str(audio),
                        "--report", str(rep), "--block-fm", str(BLOCK_FM),
                        "--device", dev, *fl])
         secs = time.perf_counter() - t0
         launches = {k: c.launches for k, c in counters.items()}
+        stage_launches = {k: dict(c.stage_launches)
+                          for k, c in decoders.items() if c.launches}
         need(rc == 0, f"option {name}: rx exited {rc}")
         r = json.loads(rep.read_text())
         blocks = r["blocks"]
@@ -885,9 +938,15 @@ def _run_options(wav, dev, cmp_dev, tmp):
         row = {"option": name, "flags": fl, "blocks": blocks,
                "launches": launches, "rx_s": secs,
                "audio_rate": info.rate, "audio_rms_2nd_half": rms}
+        if stage_launches:
+            row["stage_launches"] = stage_launches
         want = {k: per_block.get(k, 0) * blocks for k in counters}
         need(launches == want, f"option {name}: launches {launches} != "
                                f"{want}")
+        # a decoder call launches each of its stages once
+        need(all(v == launches[k] for k, st in stage_launches.items()
+                 for v in st.values()),
+             f"option {name}: stage launches {stage_launches}")
         for k, v in launches.items():
             if v:
                 launches_by_kernel.setdefault(k, {})[name] = v
@@ -961,26 +1020,87 @@ def _run_options(wav, dev, cmp_dev, tmp):
     return launches_by_kernel
 
 
-# A model, not a measurement: the latencies it assumes (cycles) for one
-# dependent step of the per-sample decoders' loops.  Nothing here checks
-# them on the card.
-CHAIN_MODEL = {"dependent_f32_add_or_mul": 4, "accurate_sinf_or_cosf": 40}
+# The latency microkernel (csrc/rds_scan.cu sdr_rds_latency, built with the
+# decoders' flags): op code, dependent steps, and the second operand y.
+LATENCY_OPS = {"add": (0, 1 << 19, 1e-7), "mul": (1, 1 << 19, 1.0000001),
+               "div": (2, 1 << 17, 1.0000001), "sincosf": (3, 1 << 15, 0.0),
+               "hypotf": (4, 1 << 16, 1e-3)}
+
+# Dependent operations on each sequential stage's chain, per sample and per
+# emitted symbol (the latencies come from LATENCY_OPS' measurement).
+# Costas step: sincosf, then a = zr c + zi s (mul, add), err = a b (mul),
+# freq += beta err (mul, add), the limit test (2), phase += freq (add),
+# += alpha err (add), rint(phase / 2 pi) (div, 1), 2 pi * that (mul), the
+# subtraction (add).
+COSTAS_CHAIN = {"sincosf": 1, "div": 1, "mul": 4, "add": 8}
+# decoder 1's pole stage: w = (g_re w_re - g_im w_im) + xb
+POLE_CHAIN = {"mul": 1, "add": 2}
+# decoder 2's AGC: out = v gain, gain += rate (ref - hypotf(out))
+AGC_CHAIN = {"hypotf": 1, "mul": 2, "add": 2}
+STAGE_CHAINS = {
+    ("rds_decoder1", "costas"): (COSTAS_CHAIN, {}),
+    ("rds_decoder1", "poles_emit"): (POLE_CHAIN, {}),
+    ("rds_decoder2", "mm_core"): (AGC_CHAIN, COSTAS_CHAIN),
+    # decoder 3 (one kernel): the Costas step, its 21-tap ring as one
+    # accumulator, and the bit clock's sinf (fmodf not counted)
+    ("rds_decoder3", "scan"): ({"sincosf": 2, "div": 1, "mul": 4,
+                                "add": 8 + 21 + 4}, {}),
+}
 
 
-def _chain_cycles(kind: str, cfg) -> int:
-    """Modelled cycles a sample on a decoder's dependency chain, from
-    CHAIN_MODEL's latencies: a FIR as one accumulator (taps dependent
-    adds), the pole states as 2 dependent ops each plus the residue sum."""
-    op, trig = (CHAIN_MODEL["dependent_f32_add_or_mul"],
-                CHAIN_MODEL["accurate_sinf_or_cosf"])
-    # each loop: a sin/cos, 8 dependent ops of the Costas update, 4 of the
-    # emit and differential logic, and the decoder's own stages
-    if kind == "scan1":
-        taps = len(cfg.lp21) + len(cfg.match) + len(cfg.sharp.num)
-        return trig + op * (8 + taps + 2 * len(cfg.sharp.poles) + 4)
-    if kind == "scan2":
-        return trig + op * (len(cfg.rrc) + 8 + 12 + 4)
-    return 2 * trig + op * (8 + len(cfg.lp21) + 4 + 4)
+def phase_latency(card):
+    """Cycles of one dependent f32 operation on one thread, each from a
+    chain of n steps timed by clock64 on the card, and the SM clock
+    during the add chain (its cycles over its CUDA-event time)."""
+    import ctypes
+    from sdrjfm_tpu_torch.kernels import build
+    from sdrjfm_tpu_torch.rds.scan_decoders import SOURCE
+    fn = build.load(SOURCE).sdr_rds_latency
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cycles, clocks = {}, {}
+    for name, (op, n, y) in LATENCY_OPS.items():
+        inp = torch.tensor([0.5, y], dtype=torch.float32, device=dev)
+        out = torch.empty(1, dtype=torch.float32, device=dev)
+        cyc = torch.empty(1, dtype=torch.int64, device=dev)
+        for _ in range(2):                       # the second call counts
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            rc = fn(op, n, inp.data_ptr(), out.data_ptr(), cyc.data_ptr(),
+                    stream)
+            b.record()
+            torch.cuda.synchronize()
+            need(rc == 0, f"latency {name}: launch failed, CUDA error {rc}")
+        need(bool(torch.isfinite(out).all()), f"latency {name}: {out}")
+        cycles[name] = int(cyc) / n
+        clocks[name] = int(cyc) / (a.elapsed_time(b) / 1e3)
+    # the sincosf chain is x = sin x + cos x: take the add off
+    cycles["sincosf_plus_add"] = cycles["sincosf"]
+    cycles["sincosf"] -= cycles["add"]
+    clock = clocks["add"]
+    emit({"phase": "latency", "what": "cycles of one dependent f32 "
+          "operation on one thread (clock64 over a chain; built with "
+          "-fmad=false, no fast math)", "cycles": cycles,
+          "steps": {k: v[1] for k, v in LATENCY_OPS.items()},
+          "sm_clock_mhz_measured": clock / 1e6,
+          "sm_clock_mhz_per_op": {k: v / 1e6 for k, v in clocks.items()},
+          "card": card})
+    return cycles, clock
+
+
+def _chain_cycles(chain, cycles) -> float:
+    return sum(n * cycles[op] for op, n in chain.items())
+
+
+def _floor_ms(key, samples: int, symbols: int, cycles, clock) -> float:
+    """A sequential stage's latency floor: its dependent chain a sample
+    (and a symbol) at the measured latencies, over the measured clock."""
+    per_sample, per_symbol = STAGE_CHAINS[key]
+    return ((samples * _chain_cycles(per_sample, cycles)
+             + symbols * _chain_cycles(per_symbol, cycles)) / clock * 1e3)
 
 
 # f32 operations a pole and sample of a complex one-pole over a real drive:
@@ -1002,17 +1122,29 @@ def _flops_per_sample(kind: str, cfg) -> int:
     return 12 + 2 * 20 + 2 * len(cfg.lp21) + 20 + 4
 
 
-def _max_sm_clock_hz() -> float:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                          "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True, check=True).stdout
-    return float(out.strip().splitlines()[0]) * 1e6
+def _bound_ms(nbytes: float, flops: float):
+    """(bound ms, what bounds it) on the data sheet's HBM and FP32 rates."""
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def _fir_stage_bound(name: str, cfg, n: int):
+    """A FIR stage's bound: its n x components inputs read and outputs
+    written once, the taps and histories; 2 flops a tap and output."""
+    if name == "fir_rrc":
+        K, nc = len(cfg.rrc), 2
+    else:
+        K, nc = len({"fir_lp21": cfg.lp21, "fir_match": cfg.match,
+                     "fir_sharp_num": cfg.sharp.num}[name]), 1
+    nbytes = 2 * n * nc * 4 + K * 4 + 2 * (K - 1) * nc * 4
+    return _bound_ms(nbytes, 2 * K * n * nc)
 
 
 def phase_option_times(a_err, b_err, launches, card):
-    """The new kernels' device and host times at the path's shapes, their
-    plain versions' and their bounds; then, on a line of its own, the
-    dependency-chain model of B1-B3 beside their measured times."""
+    """The option kernels' device and host times at the path's shapes,
+    their plain versions' and their bounds; for decoders 1 and 2 each
+    stage's device time on a line of its own; then the measured latency
+    floors of the sequential stages beside their times."""
     from sdrjfm_tpu_torch.kernels.linrec import (pole_bank,
                                                  pole_bank_constants,
                                                  pole_bank_plain)
@@ -1032,61 +1164,79 @@ def phase_option_times(a_err, b_err, launches, card):
                        reps=3, iters=3)
     P, B = bank.poles.shape[1], len(specs)
     # drive read and y written once; poles, residues, w0 and wT
-    a_bytes = 2 * B * M * 4 + B * P * 8 * 4
-    a_flops = B * P * M * POLE_FLOPS
-    a_bound = max(a_bytes / HBM_BYTES_PER_S, a_flops / FP32_FLOP_PER_S)
+    a_bound, a_by = _bound_ms(2 * B * M * 4 + B * P * 8 * 4,
+                              B * P * M * POLE_FLOPS)
     kernels = [{
         "name": "pole_bank", "route": "cuda",
         "source": "sdrjfm_tpu_torch/csrc/linrec.cu",
         "replaces": "sdrjfm_tpu/ops/blockops.py:378",
         "launches": launches.get("pole_bank", {}).get("nsq_station", 0),
         "max_abs_err": a_err, "ms": a_ms, "plain_ms": a_plain,
-        "bound_ms": a_bound * 1e3,
-        "bound_by": ("bytes" if a_bytes / HBM_BYTES_PER_S
-                     >= a_flops / FP32_FLOP_PER_S else "operations"),
+        "bound_ms": a_bound, "bound_by": a_by,
         "library_ms": None, "host_us_per_call": a_host,
         "shape": f"2 banks x 10 poles x {M} float32 (the squelch's, per "
                  f"block; two launches a call)"}]
-    clock = _max_sm_clock_hz()
+    cycles, clock = phase_latency(card)
     z = _rds_baseband(1.0).to(dev)[:M // 8]
     n = z.shape[0]
     cap = bit_capacity(n)
-    chains = []
+    floors = []
     for kind, (mk, zero, fn) in SD.DECODERS.items():
         cfg = mk()
+        name = f"rds_decoder{kind[-1]}"
         consts = SD.kernel_constants(kind, cfg, dev)
         st = zero(cfg, device=dev)
         ms, host = device_ms(lambda: fn(z, cfg, st, cap, False, consts),
                              f"rds_{kind}", reps=3, iters=5)
         plain = paced_ms(lambda: SD._PLAIN[int(kind[-1])](z, cfg, st, cap),
                          reps=1, iters=1)
+        symbols = int(fn(z, cfg, st, cap, False, consts)[1])
         nbytes = n * 8 + cap * 9 + 2 * 4 * SD.pack_state(st).numel()
-        flops = n * _flops_per_sample(kind, cfg)
-        bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S)
+        bound, by = _bound_ms(nbytes, n * _flops_per_sample(kind, cfg))
+        plan = fn.plan(z, cfg, st, cap, False, consts)
+        stage_ms = {}
+        for sname, launch in plan.stages:
+            s_ms, s_host = device_ms(launch, f"{name} {sname}", reps=3,
+                                     iters=5)
+            stage_ms[sname] = s_ms
+            line = {"phase": "times", "what": "stage", "kernel": name,
+                    "stage": sname, "ms": s_ms, "host_us_per_call": s_host,
+                    "samples": n, "card": card}
+            if (name, sname) in STAGE_CHAINS:
+                line["latency_floor_ms"] = _floor_ms(
+                    (name, sname), n, symbols, cycles, clock)
+                floors.append({"kernel": name, "stage": sname, "ms": s_ms,
+                               "latency_floor_ms": line["latency_floor_ms"],
+                               "share_of_floor": line["latency_floor_ms"]
+                               / s_ms})
+            else:
+                line["bound_ms"], line["bound_by"] = _fir_stage_bound(
+                    sname, cfg, n)
+            emit(line)
         kernels.append({
-            "name": f"rds_decoder{kind[-1]}", "route": "cuda",
+            "name": name, "route": "cuda",
             "source": "sdrjfm_tpu_torch/csrc/rds_scan.cu",
             "replaces": "sdrjfm_tpu/rds/scan_decoders.py:"
                         + {"scan1": "108", "scan2": "191",
                            "scan3": "313"}[kind],
             "launches": launches.get(f"rds_{kind}", {}).get(kind, 0),
             "max_abs_err": b_err[kind], "ms": ms, "plain_ms": plain,
-            "bound_ms": bound * 1e3,
-            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                         >= flops / FP32_FLOP_PER_S else "operations"),
+            "bound_ms": bound, "bound_by": by,
             "library_ms": None, "host_us_per_call": host,
-            "shape": f"complex64 [{n}] per block, one thread"})
-        chains.append({"name": f"rds_decoder{kind[-1]}",
-                       "cycles_per_sample": _chain_cycles(kind, cfg),
-                       "model_ms": n * _chain_cycles(kind, cfg) / clock * 1e3,
-                       "measured_ms": ms})
+            "stage_ms": stage_ms,
+            "shape": f"complex64 [{n}] per block, {len(plan.stages)} "
+                     f"launch(es) a call"})
     emit({"phase": "times", "what": "option kernels", "card": card,
           "kernels": kernels})
-    emit({"phase": "model", "what": "dependency-chain model of the RDS "
-          "decoders: assumed latencies at the maximum SM clock, not "
-          "measured", "assumed_cycles": CHAIN_MODEL,
-          "sm_clock_max_mhz": clock / 1e6, "samples": n,
-          "decoders": chains, "card": card})
+    emit({"phase": "model", "what": "latency floors of the sequential "
+          "stages: their dependent chains (STAGE_CHAINS) at the latencies "
+          "measured on this card by the latency microkernel, over the "
+          "measured SM clock", "measured": True, "cycles": cycles,
+          "sm_clock_mhz": clock / 1e6, "samples": n,
+          "chains": {f"{k[0]}/{k[1]}": {"per_sample": v[0],
+                                         "per_symbol": v[1]}
+                     for k, v in STAGE_CHAINS.items()},
+          "stages": floors, "card": card})
     return kernels
 
 

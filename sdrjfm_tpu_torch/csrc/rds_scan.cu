@@ -1,10 +1,9 @@
-// Per-sample RDS bit decoders 1, 2 and 3 for Hopper (sm_90a), one thread a
-// stream.
+// Per-sample RDS bit decoders 1, 2 and 3 for Hopper (sm_90a).
 //
 // They replace the JAX package's lax.scan decoders (no Pallas counterpart):
-//   decoder1_kernel  <- sdrjfm_tpu/rds/scan_decoders.py:108 decoder1_block
-//   decoder2_kernel  <- sdrjfm_tpu/rds/scan_decoders.py:191 decoder2_block
-//   decoder3_kernel  <- sdrjfm_tpu/rds/scan_decoders.py:313 decoder3_block
+//   decoder 1  <- sdrjfm_tpu/rds/scan_decoders.py:108 decoder1_block
+//   decoder 2  <- sdrjfm_tpu/rds/scan_decoders.py:191 decoder2_block
+//   decoder 3  <- sdrjfm_tpu/rds/scan_decoders.py:313 decoder3_block
 // Each runs one block of the 24 kS/s RDS baseband (16384 samples at
 // block_fm=131072) through the decoder's feedback loops in sample order,
 // reads its state from `st_in` and writes the new state to `st_out` (out of
@@ -13,20 +12,48 @@
 // and bits/iq from count to cap are zeroed), and, when `iqs` is not null,
 // the per-sample 24 kHz iq stream (the RDS_DEMOD scope tap).
 //
-// What bounds them on an H100: the recursion.  Every sample's Costas phase,
-// AGC gain, timing phase and pole states depend on the previous sample's,
-// so a block is a chain of 16384 dependent steps; bytes (128 KB in) and
-// flops (~300 a sample) are negligible.  The time is the dependency chain:
-// per sample an accurate sinf/cosf pair (~40-60 cycles each), then the FIR
-// sums (21 + 43 + 9 taps for decoder 1, accumulated in sequence) and the
-// 8 complex poles.  chip_smoke.py reports this chain estimate beside the
-// roofline bound.  Design: a single thread keeps the state in registers and
-// the FIR histories in doubled ring buffers (a contiguous window per sample
-// without a modulo).  The source builds without FMA contraction
-// (-fmad=false, kernels/build.py) and without fast math, so each multiply
-// and add rounds on its own, as in the plain versions' float32 host loops:
-// a contracted FMA moves the Costas phase or the M&M floor(mu), and the
-// bit stream shifts from there.  Measured: PERF.md (chip_smoke.py).
+// Decoders 1 and 2 run in stages, one launch each on the caller's stream;
+// the wrapper (rds/scan_decoders.py) launches them in order, owns the
+// scratch between them and places every history and state run in the
+// packed state:
+//   decoder 1: costas_kernel      one thread: the Costas loop; writes 4r
+//              fir_kernel x 3     parallel, one output a thread: the 21-tap
+//                                 lowpass of Re(4r), the bi-phase match, the
+//                                 bandpass numerator on v2^2
+//              poles_emit_kernel  one warp: a lane for each of the 8
+//                                 complex poles, then the residue sum and
+//                                 slope / emit / differential 32 samples
+//                                 at a time
+//   decoder 2: fir_kernel         parallel: the 45-tap RRC, re and im apart
+//              mm_core_kernel     one thread: AGC, M&M timing, Costas
+// Only the feedback recursions stay on one thread: no FIR feeds back into
+// them, so the FIRs are a parallel pre-pass between the sequential stages.
+//
+// What bounds each stage on an H100.  The sequential stages: the
+// recursion's dependency chain on one thread, not bytes (128 KB a block)
+// or flops.  Per sample the Costas loop chains an accurate sincosf, an IEEE
+// division and about 12 dependent f32 operations; the AGC a multiply, an
+// accurate hypotf and 3 operations (M&M and Costas once a symbol, ~20
+// samples); each pole 3 operations.  chip_smoke.py measures those
+// latencies on the card and prints each stage's floor beside its time.
+// The FIR stages: their launch (16384 outputs of 21-45 taps is far below a
+// microsecond of the card's bandwidth or flops).  Design: a sequential
+// stage keeps its state in registers (no array is indexed at run time, so
+// nothing lives in local memory; decoder 1's pole count is a template
+// parameter, a lane a pole) and reads its input from shared memory,
+// staged one chunk ahead by the whole block with cp.async (a ring of two
+// chunks of STAGE_CHUNK samples; any T >= 1).  Its stores go straight out.
+// A FIR stage stages its window and taps in shared memory and sums each
+// output in the order of the sequential ring it replaces.
+//
+// Decoder 3 (decoder3_kernel) is still one thread a stream with its FIR ring
+// in local memory; its redesign is next (ROADMAP.md queue 2).
+//
+// The source builds without FMA contraction (-fmad=false, kernels/build.py)
+// and without fast math, so each multiply and add rounds on its own, as in
+// the plain versions' float32 host loops and torch ops: a contracted FMA
+// moves the Costas phase or the M&M floor(mu), and the bit stream shifts
+// from there.  Measured: PERF.md (chip_smoke.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,9 +61,11 @@
 namespace {
 
 constexpr int MAX_TAPS = 64;
-constexpr int MAX_POLES = 16;
+constexpr int STAGE_CHUNK = 1024;   // samples of a staged input chunk
+constexpr int STAGE_THREADS = 128;  // block of a sequential stage
+constexpr int FIR_TILE = 256;       // outputs (and threads) of a FIR block
 
-// scalar head of the constant block (rds/scan_decoders.py _consts)
+// scalar head of the constant block (rds/scan_decoders.py _const_parts)
 struct Head {
   float alpha, beta, limit, two_pi, omega, sps, mm_alpha, agc_rate, agc_ref;
 };
@@ -110,165 +139,362 @@ struct Emitter {
   }
 };
 
-__global__ void decoder1_kernel(const float2* __restrict__ z, int T,
-                                const float* __restrict__ c,
-                                const float* __restrict__ si,
-                                float* __restrict__ so, Emitter em,
-                                int* __restrict__ count,
-                                float2* __restrict__ iqs) {
-  const Head H = read_head(c);
-  const int Ll = (int)c[HEAD], Lm = (int)c[HEAD + 1], Ln = (int)c[HEAD + 2];
-  const int P = (int)c[HEAD + 3];
-  const float* lp = c + HEAD + 4;
-  const float* mk = lp + Ll;
-  const float* num = mk + Lm;
-  const float* pol = num + Ln;
-  const float* res = pol + 2 * P;
-  // state layout: freq, phase, lp_buf, match_buf, sharp_w (re, im),
-  // sharp_fir, last_sync, last_sync_slope, last_data, prev_bit
-  Costas cs{si[0], si[1]};
-  int o = 2;
-  Ring rl, rm, rn;
-  rl.init(si + o, Ll);
-  o += Ll - 1;
-  rm.init(si + o, Lm);
-  o += Lm - 1;
-  float wr[MAX_POLES], wi[MAX_POLES];
-  for (int p = 0; p < P; ++p) {
-    wr[p] = si[o + 2 * p];
-    wi[p] = si[o + 2 * p + 1];
-  }
-  const int o_w = o;
-  o += 2 * P;
-  rn.init(si + o, Ln);
-  const int o_fir = o;
-  o += Ln - 1;
-  float last_sync = si[o], last_slope = si[o + 1], last_data = si[o + 2];
-  bool prev_bit = si[o + 3] != 0.0f;
+// ---------------------------------------------------------------------------
+// input staging of the sequential stages
+// ---------------------------------------------------------------------------
 
-  for (int n = 0; n < T; ++n) {
-    const float2 zi = z[n];
-    const float2 r = cs.step(zi.x, zi.y, H, H.alpha, H.beta);
-    const float v = r.x * 4.0f;
-    const float v1 = rl.push(v, lp);
-    const float v2 = rm.push(v1, mk);
-    const float xb = rn.push(v2 * v2, num);
-    float mag = 0.0f;
-    for (int p = 0; p < P; ++p) {
-      const float gr = pol[2 * p], gi = pol[2 * p + 1];
-      const float nr = (gr * wr[p] - gi * wi[p]) + xb;
-      const float ni = gr * wi[p] + gi * wr[p];
-      wr[p] = nr;
-      wi[p] = ni;
-      mag = mag + (res[2 * p] * nr - res[2 * p + 1] * ni);
-    }
-    const float slope = mag - last_sync;
-    const bool emit = slope < 0.0f && last_slope >= 0.0f;
-    const bool the_bit = last_data >= 0.0f;
-    const float2 iq = make_float2(r.x * 4.0f, r.y * 4.0f);
-    if (emit) {
-      em.emit(the_bit != prev_bit, iq);
-      prev_bit = the_bit;
-    }
-    last_sync = mag;
-    last_slope = slope;
-    last_data = v2;
-    if (iqs) iqs[n] = iq;
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// NS input streams of float2, staged chunk by chunk into a shared ring of
+// two slots: chunk c holds samples [c*STAGE_CHUNK, min(T, (c+1)*STAGE_CHUNK))
+// in slot c & 1.  The stage's loop, for chunks k = 0..nch-1:
+//   wait for this thread's copies; barrier (chunk k has landed everywhere,
+//   and thread 0 is done with chunk k-1, whose slot chunk k+1 takes);
+//   issue chunk k+1; thread 0 runs the recursion over chunk k.
+template <int NS>
+struct Staging {
+  float2 (*ring)[NS][STAGE_CHUNK];
+  const float2* src[NS];
+  int T;
+  __device__ int len(int c) const {
+    return min(STAGE_CHUNK, T - c * STAGE_CHUNK);
   }
-  so[0] = cs.freq;
-  so[1] = cs.phase;
-  rl.save(so + 2);
-  rm.save(so + 2 + Ll - 1);
-  for (int p = 0; p < P; ++p) {
-    so[o_w + 2 * p] = wr[p];
-    so[o_w + 2 * p + 1] = wi[p];
+  __device__ void issue(int c) const {  // every thread, its share of chunk c
+    const int base = c * STAGE_CHUNK, n = len(c);
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+        cp_async8(&ring[c & 1][s][i], src[s] + base + i);
+    }
+    cp_async_commit();
   }
-  rn.save(so + o_fir);
-  so[o] = last_sync;
-  so[o + 1] = last_slope;
-  so[o + 2] = last_data;
-  so[o + 3] = prev_bit ? 1.0f : 0.0f;
-  em.finish(count);
+};
+
+// bits and points from `count` to cap are zeroed by the whole block
+__device__ void zero_tail(const Emitter& em, int count) {
+  for (int i = count + (int)threadIdx.x; i < em.cap; i += blockDim.x) {
+    em.bits[i] = 0;
+    em.biq[i] = make_float2(0.0f, 0.0f);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// decoder 1, stage 1: the Costas loop (sequential)
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(STAGE_THREADS)
+    costas_kernel(const float2* __restrict__ z, int T, int nch,
+                  const float* __restrict__ c,
+                  const float* __restrict__ cs_in,  // freq, phase
+                  float* __restrict__ cs_out, float2* __restrict__ iq4) {
+  __shared__ float2 ring[2][1][STAGE_CHUNK];
+  const Staging<1> st{ring, {z}, T};
+  const Head H = read_head(c);
+  Costas cs{cs_in[0], cs_in[1]};
+  st.issue(0);
+  for (int k = 0; k < nch; ++k) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (k + 1 < nch) st.issue(k + 1);
+    if (threadIdx.x == 0) {
+      const float2* s = ring[k & 1][0];
+      float2* out = iq4 + k * STAGE_CHUNK;
+      const int n = st.len(k);
+#pragma unroll 4
+      for (int i = 0; i < n; ++i) {
+        const float2 r = cs.step(s[i].x, s[i].y, H, H.alpha, H.beta);
+        out[i] = make_float2(r.x * 4.0f, r.y * 4.0f);
+      }
+    }
+  }
+  if (threadIdx.x == 0) {
+    cs_out[0] = cs.freq;
+    cs_out[1] = cs.phase;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the FIR pre-pass (parallel): decoder 1's three FIRs, decoder 2's RRC
+// ---------------------------------------------------------------------------
+
+// y[n] = sum_k taps[k] * in(n - k), summed k = 0..K-1 from 0.0f as
+// Ring::push sums it, for NC interleaved components (decoder 2's re and im
+// apart).  The input stream is the history `hist` (K-1 values a component,
+// oldest first) followed by x[j * xstride + c] for j = 0..T-1, squared
+// first when SQUARE (the history already holds squares).  One output a
+// thread; block 0 also writes the new history, the last K-1 inputs.
+template <int NC, bool SQUARE>
+__global__ void __launch_bounds__(FIR_TILE)
+    fir_kernel(const float* __restrict__ hist, float* __restrict__ hist_out,
+               const float* __restrict__ x, int xstride, int T,
+               const float* __restrict__ taps, int K, float* __restrict__ y,
+               int ystride) {
+  __shared__ float tp[MAX_TAPS];
+  __shared__ float win[NC][FIR_TILE + MAX_TAPS - 1];
+  auto input = [&](int j, int c) -> float {
+    if (j < 0) return hist[(j + K - 1) * NC + c];
+    if (j >= T) return 0.0f;
+    const float v = x[(size_t)j * xstride + c];
+    return SQUARE ? v * v : v;
+  };
+  const int n0 = blockIdx.x * FIR_TILE;
+  for (int k = threadIdx.x; k < K; k += blockDim.x) tp[k] = taps[k];
+  for (int i = threadIdx.x; i < FIR_TILE + K - 1; i += blockDim.x) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) win[c][i] = input(n0 - (K - 1) + i, c);
+  }
+  if (blockIdx.x == 0) {
+    for (int i = threadIdx.x; i < K - 1; i += blockDim.x) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        hist_out[i * NC + c] = input(T - (K - 1) + i, c);
+    }
+  }
+  __syncthreads();
+  const int n = n0 + threadIdx.x;
+  if (n >= T) return;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const float* w = win[c] + threadIdx.x + K - 1;  // w[-k] = in(n - k)
+    float acc = 0.0f;
+#pragma unroll 8
+    for (int k = 0; k < K; ++k) acc = acc + tp[k] * w[-k];
+    y[(size_t)n * ystride + c] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// decoder 1, stage 3: the bit-clock pole bank and the emit logic
+// ---------------------------------------------------------------------------
+
+// The same function as this sequential loop, in which only the pole states
+// w feed back (3 dependent operations a sample):
+//   mag = 0; for p < P: w[p] = g[p] w[p] + xb (as (gr wr - gi wi) + xb, gr wi
+//   + gi wr); mag = mag + (rr nr - ri ni)
+//   slope = mag - last_sync; emit = slope < 0 && last_slope >= 0;
+//   the_bit = last_data >= 0; on emit: emit bit the_bit != prev_bit and
+//   the point 4r, prev_bit = the_bit; last_sync = mag; last_slope = slope;
+//   last_data = v2.
+// One warp runs it, a sub-block of POLE_SUB samples at a time: lane p < P
+// runs pole p's recursion and writes its residue term; then each lane sums
+// one sample's P terms in the order p = 0..P-1 and the warp decides 32
+// samples' emits at once (the carried values by shuffles, the emit slots and
+// the differential bit's previous emit by ballots).  Every operation and
+// its order are the loop's, so the results are equal bit for bit.
+constexpr int POLE_SUB = 256;
+
+// xv: (xb, v2) a sample, from the FIR pre-pass; iq4: the Costas stage's 4r.
+// pr: the P poles, then the P residues (re, im).  tail: last_sync,
+// last_sync_slope, last_data, prev_bit.
+template <int P>
+__global__ void __launch_bounds__(STAGE_THREADS)
+    poles_emit_kernel(const float2* __restrict__ xv,
+                      const float2* __restrict__ iq4, int T, int nch,
+                      const float* __restrict__ pr,
+                      const float* __restrict__ w_in,
+                      float* __restrict__ w_out,
+                      const float* __restrict__ tail_in,
+                      float* __restrict__ tail_out, Emitter em,
+                      int* __restrict__ count) {
+  static_assert(P <= 32, "one lane a pole");
+  __shared__ float2 ring[2][2][STAGE_CHUNK];
+  __shared__ float term[P][POLE_SUB + 1];  // +1: the P lanes' stores
+                                           // fall in P banks
+  __shared__ int s_count;
+  const Staging<2> st{ring, {xv, iq4}, T};
+  const int lane = threadIdx.x;             // meaningful in warp 0
+  const int p = lane < P ? lane : 0;        // lane p's pole
+  const float gr = pr[2 * p], gi = pr[2 * p + 1];
+  const float rr = pr[2 * P + 2 * p], ri = pr[2 * P + 2 * p + 1];
+  float wr = w_in[2 * p], wi = w_in[2 * p + 1];
+  float last_sync = tail_in[0], last_slope = tail_in[1],
+        last_data = tail_in[2];
+  bool prev_bit = tail_in[3] != 0.0f;
+  int cnt = 0;
+  st.issue(0);
+  for (int k = 0; k < nch; ++k) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (k + 1 < nch) st.issue(k + 1);
+    if (threadIdx.x >= 32) continue;
+    const float2* a = ring[k & 1][0];
+    const float2* q = ring[k & 1][1];
+    const int n = st.len(k);
+    for (int s0 = 0; s0 < n; s0 += POLE_SUB) {
+      const int m = min(POLE_SUB, n - s0);
+      if (lane < P) {
+        // xb three samples ahead: a shared load outlasts the 3-op chain
+        const float* x = &a[s0].x;
+        float x0 = x[0], x1 = x[2 * min(1, m - 1)], x2 = x[2 * min(2, m - 1)];
+#pragma unroll 4
+        for (int i = 0; i < m; ++i) {
+          const float x3 = x[2 * min(i + 3, m - 1)];
+          const float nr = (gr * wr - gi * wi) + x0;
+          const float ni = gr * wi + gi * wr;
+          wr = nr;
+          wi = ni;
+          term[p][i] = rr * nr - ri * ni;
+          x0 = x1;
+          x1 = x2;
+          x2 = x3;
+        }
+      }
+      __syncwarp();
+      for (int g = 0; g < m; g += 32) {
+        const int i = g + lane;
+        const int valid = min(32, m - g);   // lanes holding a sample
+        const bool ok = lane < valid;
+        float mag = 0.0f;
+        if (ok) {
+#pragma unroll
+          for (int pp = 0; pp < P; ++pp) mag = mag + term[pp][i];
+        }
+        const float v2 = ok ? a[s0 + i].y : 0.0f;
+        // sample i - 1's mag, slope and v2 (lane 0: the carried ones)
+        const float up_mag = __shfl_up_sync(0xffffffffu, mag, 1);
+        const float before = lane == 0 ? last_sync : up_mag;
+        const float slope = mag - before;
+        const float up_slope = __shfl_up_sync(0xffffffffu, slope, 1);
+        const float up_v2 = __shfl_up_sync(0xffffffffu, v2, 1);
+        const float prev_slope = lane == 0 ? last_slope : up_slope;
+        const float prev_data = lane == 0 ? last_data : up_v2;
+        const bool emit = ok && slope < 0.0f && prev_slope >= 0.0f;
+        const bool the_bit = prev_data >= 0.0f;
+        const unsigned mask = __ballot_sync(0xffffffffu, emit);
+        const unsigned bitmask = __ballot_sync(0xffffffffu, the_bit);
+        const unsigned below = mask & ((1u << lane) - 1u);
+        // the held bit: the_bit at the last emit before this sample
+        const bool held = below ? ((bitmask >> (31 - __clz(below))) & 1u)
+                                : prev_bit;
+        if (emit) {
+          const int slot = cnt + __popc(below);
+          if (slot < em.cap) {
+            em.bits[slot] = (the_bit != held) ? 1 : 0;
+            em.biq[slot] = q[s0 + i];
+          }
+        }
+        cnt += __popc(mask);
+        if (mask) prev_bit = (bitmask >> (31 - __clz(mask))) & 1u;
+        last_sync = __shfl_sync(0xffffffffu, mag, valid - 1);
+        last_slope = __shfl_sync(0xffffffffu, slope, valid - 1);
+        last_data = __shfl_sync(0xffffffffu, v2, valid - 1);
+      }
+      __syncwarp();
+    }
+  }
+  if (threadIdx.x < P) {
+    w_out[2 * p] = wr;
+    w_out[2 * p + 1] = wi;
+  }
+  if (threadIdx.x == 0) {
+    tail_out[0] = last_sync;
+    tail_out[1] = last_slope;
+    tail_out[2] = last_data;
+    tail_out[3] = prev_bit ? 1.0f : 0.0f;
+    *count = cnt;
+    s_count = cnt;
+  }
+  __syncthreads();
+  zero_tail(em, s_count);
 }
 
 __device__ __forceinline__ float rail(float x) { return x > 0.0f ? 1.0f : -1.0f; }
 
-__global__ void decoder2_kernel(const float2* __restrict__ z, int T,
-                                const float* __restrict__ c,
-                                const float* __restrict__ si,
-                                float* __restrict__ so, Emitter em,
-                                int* __restrict__ count,
-                                float2* __restrict__ iqs) {
-  const Head H = read_head(c);
-  const int K = (int)c[HEAD];
-  const float* rrc = c + HEAD + 1;
-  // state layout: mf_buf (re, im), agc_gain, freq, phase, s0, s1, s2
-  // (re, im), count, skip, mu, prev_bit, last_iq (re, im)
-  float hr[MAX_TAPS], hi[MAX_TAPS];
-  for (int j = 0; j < K - 1; ++j) {
-    hr[j] = si[2 * j];
-    hi[j] = si[2 * j + 1];
-  }
-  Ring rr_, ri_;
-  rr_.init(hr, K);
-  ri_.init(hi, K);
-  int o = 2 * (K - 1);
-  float gain = si[o];
-  Costas cs{si[o + 1], si[o + 2]};
-  float s0r = si[o + 3], s0i = si[o + 4], s1r = si[o + 5], s1i = si[o + 6];
-  float s2r = si[o + 7], s2i = si[o + 8];
-  int cnt = (int)si[o + 9], skip = (int)si[o + 10];
-  float mu = si[o + 11];
-  bool prev_bit = si[o + 12] != 0.0f;
-  float lr = si[o + 13], li = si[o + 14];
+// ---------------------------------------------------------------------------
+// decoder 2, stage 2: AGC, Mueller & Muller timing and Costas (sequential)
+// ---------------------------------------------------------------------------
 
-  for (int n = 0; n < T; ++n) {
-    const float2 zi = z[n];
-    const float vr = rr_.push(zi.x, rrc);
-    const float vi = ri_.push(zi.y, rrc);
-    const float outr = vr * gain, outi = vi * gain;
-    gain = gain + H.agc_rate * (H.agc_ref - hypotf(outr, outi));
-    s0r = s1r; s0i = s1i;
-    s1r = s2r; s1i = s2i;
-    s2r = outr; s2i = outi;
-    ++cnt;
-    if (cnt >= skip) {
-      const float x = (rail(s2r) - rail(s0r)) * s1r
-                      + (rail(s2i) - rail(s0i)) * s1i;
-      const float y = (s2r - s0r) * rail(s1r) + (s2i - s0i) * rail(s1i);
-      mu = mu + H.sps + H.mm_alpha * (y - x);
-      skip = (int)floorf(mu);
-      mu = mu - (float)skip;
-      const float2 r = cs.step(s2r, s2i, H, H.alpha, H.beta);
-      const bool the_bit = r.x >= 0.0f;
-      em.emit(the_bit != prev_bit, r);
-      prev_bit = the_bit;
-      lr = r.x;
-      li = r.y;
-      cnt = 0;
+// v: the RRC output.  si / so: agc_gain, freq, phase, s0, s1, s2 (re, im),
+// count, skip, mu, prev_bit, last_iq (re, im).
+__global__ void __launch_bounds__(STAGE_THREADS)
+    mm_core_kernel(const float2* __restrict__ v, int T, int nch,
+                   const float* __restrict__ c, const float* __restrict__ si,
+                   float* __restrict__ so, Emitter em,
+                   int* __restrict__ count, float2* __restrict__ iqs) {
+  __shared__ float2 ring[2][1][STAGE_CHUNK];
+  __shared__ int s_count;
+  const Staging<1> st{ring, {v}, T};
+  const Head H = read_head(c);
+  float gain = si[0];
+  Costas cs{si[1], si[2]};
+  float s0r = si[3], s0i = si[4], s1r = si[5], s1i = si[6];
+  float s2r = si[7], s2i = si[8];
+  int cnt = (int)si[9], skip = (int)si[10];
+  float mu = si[11];
+  bool prev_bit = si[12] != 0.0f;
+  float lr = si[13], li = si[14];
+  st.issue(0);
+  for (int k = 0; k < nch; ++k) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (k + 1 < nch) st.issue(k + 1);
+    if (threadIdx.x == 0) {
+      const float2* s = ring[k & 1][0];
+      const int base = k * STAGE_CHUNK, n = st.len(k);
+      float2 cur = s[0];
+#pragma unroll 4
+      for (int i = 0; i < n; ++i) {
+        const float2 nxt = s[min(i + 1, n - 1)];  // loads ahead of the chain
+        const float outr = cur.x * gain, outi = cur.y * gain;
+        cur = nxt;
+        gain = gain + H.agc_rate * (H.agc_ref - hypotf(outr, outi));
+        s0r = s1r; s0i = s1i;
+        s1r = s2r; s1i = s2i;
+        s2r = outr; s2i = outi;
+        ++cnt;
+        if (cnt >= skip) {
+          const float x = (rail(s2r) - rail(s0r)) * s1r
+                          + (rail(s2i) - rail(s0i)) * s1i;
+          const float y = (s2r - s0r) * rail(s1r) + (s2i - s0i) * rail(s1i);
+          mu = mu + H.sps + H.mm_alpha * (y - x);
+          skip = (int)floorf(mu);
+          mu = mu - (float)skip;
+          const float2 r = cs.step(s2r, s2i, H, H.alpha, H.beta);
+          const bool the_bit = r.x >= 0.0f;
+          em.emit(the_bit != prev_bit, r);
+          prev_bit = the_bit;
+          lr = r.x;
+          li = r.y;
+          cnt = 0;
+        }
+        if (iqs) iqs[base + i] = make_float2(lr, li);
+      }
     }
-    if (iqs) iqs[n] = make_float2(lr, li);
   }
-  rr_.save(hr);
-  ri_.save(hi);
-  for (int j = 0; j < K - 1; ++j) {
-    so[2 * j] = hr[j];
-    so[2 * j + 1] = hi[j];
+  if (threadIdx.x == 0) {
+    so[0] = gain;
+    so[1] = cs.freq;
+    so[2] = cs.phase;
+    so[3] = s0r; so[4] = s0i;
+    so[5] = s1r; so[6] = s1i;
+    so[7] = s2r; so[8] = s2i;
+    so[9] = (float)cnt;
+    so[10] = (float)skip;
+    so[11] = mu;
+    so[12] = prev_bit ? 1.0f : 0.0f;
+    so[13] = lr;
+    so[14] = li;
+    *count = em.count;
+    s_count = em.count;
   }
-  so[o] = gain;
-  so[o + 1] = cs.freq;
-  so[o + 2] = cs.phase;
-  so[o + 3] = s0r; so[o + 4] = s0i;
-  so[o + 5] = s1r; so[o + 6] = s1i;
-  so[o + 7] = s2r; so[o + 8] = s2i;
-  so[o + 9] = (float)cnt;
-  so[o + 10] = (float)skip;
-  so[o + 11] = mu;
-  so[o + 12] = prev_bit ? 1.0f : 0.0f;
-  so[o + 13] = lr;
-  so[o + 14] = li;
-  em.finish(count);
+  __syncthreads();
+  zero_tail(em, s_count);
 }
+
+// ---------------------------------------------------------------------------
+// decoder 3 (one thread a stream)
+// ---------------------------------------------------------------------------
 
 // jnp.mod(x, 2 pi) in float32
 __device__ __forceinline__ float mod_2pi(float x, float two_pi) {
@@ -348,47 +574,164 @@ __global__ void decoder3_kernel(const float2* __restrict__ z, int T,
   em.finish(count);
 }
 
+// ---------------------------------------------------------------------------
+// latency microkernel: n dependent applications of one operation on one
+// thread, timed by the SM's cycle counter (built with the decoders' flags)
+// ---------------------------------------------------------------------------
+
+__global__ void latency_kernel(int op, int n, const float* __restrict__ in,
+                               float* __restrict__ out,
+                               long long* __restrict__ cycles) {
+  float x = in[0];
+  const float y = in[1];
+  const long long t0 = clock64();
+  switch (op) {
+    case 0:
+#pragma unroll 16
+      for (int i = 0; i < n; ++i) x = x + y;
+      break;
+    case 1:
+#pragma unroll 16
+      for (int i = 0; i < n; ++i) x = x * y;
+      break;
+    case 2:
+#pragma unroll 16
+      for (int i = 0; i < n; ++i) x = x / y;
+      break;
+    case 3:
+#pragma unroll 4
+      for (int i = 0; i < n; ++i) {
+        float s, c;
+        sincosf(x, &s, &c);
+        x = s + c;
+      }
+      break;
+    default:
+#pragma unroll 4
+      for (int i = 0; i < n; ++i) x = hypotf(x, y);
+      break;
+  }
+  const long long t1 = clock64();
+  out[0] = x;
+  cycles[0] = t1 - t0;
+}
+
+bool chunks_ok(int T, int nch) {
+  return T >= 1 && nch >= 1 && (long long)nch * STAGE_CHUNK >= T
+         && (long long)(nch - 1) * STAGE_CHUNK < T;
+}
+
 }  // namespace
 
 extern "C" {
 
-// which: 1, 2 or 3.  z: [T] complex64; consts: the decoder's constant
-// block; st_in / st_out: the packed state (nstate floats, distinct buffers);
-// bits [cap] int8, biq [cap] complex64, count: one int32; iqs: [T]
-// complex64 or null.  All device pointers; one launch of one thread on
-// `stream`.  Returns cudaGetLastError().
-int sdr_rds_decoder(int which, const void* z, int T, const void* consts,
-                    const void* st_in, void* st_out, int nstate, void* bits,
-                    void* biq, void* count, int cap, void* iqs,
-                    void* stream) {
+// Every entry point takes device pointers and launches on `stream` without
+// synchronising; it returns cudaGetLastError() (cudaErrorInvalidValue for
+// arguments it refuses, without launching).  T: samples in the block; nch:
+// its staging chunks, ceil(T / STAGE_CHUNK); tiles: its FIR blocks,
+// ceil(T / FIR_TILE).  bits [cap] int8, biq [cap] complex64, count: one
+// int32.
+
+// decoder 1 stage 1.  z [T] complex64; head: the constant block; cs_in /
+// cs_out: (freq, phase); iq4 [T] complex64 out (4r, the iq stream).
+int sdr_rds_costas(const void* z, int T, int nch, const void* head,
+                   const void* cs_in, void* cs_out, void* iq4, void* stream) {
+  if (!chunks_ok(T, nch) || cs_in == cs_out) return (int)cudaErrorInvalidValue;
+  costas_kernel<<<1, STAGE_THREADS, 0, (cudaStream_t)stream>>>(
+      (const float2*)z, T, nch, (const float*)head, (const float*)cs_in,
+      (float*)cs_out, (float2*)iq4);
+  return (int)cudaGetLastError();
+}
+
+// a FIR stage.  hist / hist_out: (K-1) x nc floats; x: input floats with
+// stride xstride; y: output floats with stride ystride (nc components
+// interleaved in each); square: the input is squared (nc == 1 only).
+int sdr_rds_fir(const void* hist, void* hist_out, const void* x, int xstride,
+                int T, const void* taps, int K, int nc, int square, void* y,
+                int ystride, int tiles, void* stream) {
+  if (T < 1 || K < 2 || K > MAX_TAPS || hist == hist_out || xstride < nc
+      || ystride < nc || (long long)tiles * FIR_TILE < T
+      || (long long)(tiles - 1) * FIR_TILE >= T)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* h = (const float*)hist;
+  const float* xx = (const float*)x;
+  const float* tp = (const float*)taps;
+  if (nc == 1 && !square)
+    fir_kernel<1, false><<<tiles, FIR_TILE, 0, s>>>(
+        h, (float*)hist_out, xx, xstride, T, tp, K, (float*)y, ystride);
+  else if (nc == 1)
+    fir_kernel<1, true><<<tiles, FIR_TILE, 0, s>>>(
+        h, (float*)hist_out, xx, xstride, T, tp, K, (float*)y, ystride);
+  else if (nc == 2 && !square)
+    fir_kernel<2, false><<<tiles, FIR_TILE, 0, s>>>(
+        h, (float*)hist_out, xx, xstride, T, tp, K, (float*)y, ystride);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// decoder 1 stage 3.  xv [T] (xb, v2) pairs; iq4 [T] complex64; pr: P poles
+// then P residues (complex); w_in / w_out: the P pole states; tail_in /
+// tail_out: last_sync, last_sync_slope, last_data, prev_bit.  P must be 8.
+int sdr_rds_poles_emit(const void* xv, const void* iq4, int T, int nch,
+                       const void* pr, int P, const void* w_in, void* w_out,
+                       const void* tail_in, void* tail_out, void* bits,
+                       void* biq, void* count, int cap, void* stream) {
+  if (!chunks_ok(T, nch) || P != 8 || cap < 1 || w_in == w_out
+      || tail_in == tail_out)
+    return (int)cudaErrorInvalidValue;
+  Emitter em{(int8_t*)bits, (float2*)biq, cap, 0};
+  poles_emit_kernel<8><<<1, STAGE_THREADS, 0, (cudaStream_t)stream>>>(
+      (const float2*)xv, (const float2*)iq4, T, nch, (const float*)pr,
+      (const float*)w_in, (float*)w_out, (const float*)tail_in,
+      (float*)tail_out, em, (int*)count);
+  return (int)cudaGetLastError();
+}
+
+// decoder 2 stage 2.  v [T] complex64 (the RRC output); head: the constant
+// block; st_in / st_out: the 15 floats from agc_gain to last_iq; iqs [T]
+// complex64 or null.
+int sdr_rds_mm_core(const void* v, int T, int nch, const void* head,
+                    const void* st_in, void* st_out, void* bits, void* biq,
+                    void* count, int cap, void* iqs, void* stream) {
+  if (!chunks_ok(T, nch) || cap < 1 || st_in == st_out)
+    return (int)cudaErrorInvalidValue;
+  Emitter em{(int8_t*)bits, (float2*)biq, cap, 0};
+  mm_core_kernel<<<1, STAGE_THREADS, 0, (cudaStream_t)stream>>>(
+      (const float2*)v, T, nch, (const float*)head, (const float*)st_in,
+      (float*)st_out, em, (int*)count, (float2*)iqs);
+  return (int)cudaGetLastError();
+}
+
+// decoder 3.  z [T] complex64; consts: its constant block; st_in / st_out:
+// the packed state (nstate floats, distinct buffers); iqs [T] or null.
+int sdr_rds_decoder3(const void* z, int T, const void* consts,
+                     const void* st_in, void* st_out, int nstate, void* bits,
+                     void* biq, void* count, int cap, void* iqs,
+                     void* stream) {
   if (T < 1 || cap < 1 || nstate < 1 || st_in == st_out)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   Emitter em{(int8_t*)bits, (float2*)biq, cap, 0};
-  const float2* zz = (const float2*)z;
-  const float* c = (const float*)consts;
-  const float* si = (const float*)st_in;
-  float* so = (float*)st_out;
-  switch (which) {
-    case 1:
-      decoder1_kernel<<<1, 1, 0, s>>>(zz, T, c, si, so, em, (int*)count,
-                                      (float2*)iqs);
-      break;
-    case 2:
-      decoder2_kernel<<<1, 1, 0, s>>>(zz, T, c, si, so, em, (int*)count,
-                                      (float2*)iqs);
-      break;
-    case 3:
-      decoder3_kernel<<<1, 1, 0, s>>>(zz, T, c, si, so, em, (int*)count,
-                                      (float2*)iqs);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  decoder3_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
+      (const float2*)z, T, (const float*)consts, (const float*)st_in,
+      (float*)st_out, em, (int*)count, (float2*)iqs);
+  return (int)cudaGetLastError();
+}
+
+// op: 0 add, 1 multiply, 2 IEEE division (x = x op in[1]), 3 sincosf (x =
+// sin x + cos x), 4 hypotf (x = hypotf(x, in[1])); n >= 1 steps from x =
+// in[0].  out: the final x; cycles: one int64, clock64 around the loop.
+int sdr_rds_latency(int op, int n, const void* in, void* out, void* cycles,
+                    void* stream) {
+  if (op < 0 || op > 4 || n < 1) return (int)cudaErrorInvalidValue;
+  latency_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
+      op, n, (const float*)in, (float*)out, (long long*)cycles);
   return (int)cudaGetLastError();
 }
 
 int sdr_rds_max_taps() { return MAX_TAPS; }
-int sdr_rds_max_poles() { return MAX_POLES; }
+int sdr_rds_stage_chunk() { return STAGE_CHUNK; }
+int sdr_rds_fir_tile() { return FIR_TILE; }
 
 }  // extern "C"

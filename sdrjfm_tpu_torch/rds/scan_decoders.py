@@ -13,13 +13,20 @@ version beside it.
 
 The JAX package runs each as a `lax.scan` over the 24 kS/s samples (16,384
 steps a block at block_fm=131072); PyTorch has no scan, so each decoder is
-a sequential CUDA kernel (`csrc/rds_scan.cu`, one thread a stream), and
-`decoder1_scan` / `decoder2_scan` / `decoder3_scan` are its wrappers.  On a
-CPU tensor a wrapper runs the plain version: the linear stages (FIRs, the
-bit-clock bandpass, the emit and differential logic) in torch ops, and only
-the per-sample feedback recursion (Costas, AGC and M&M timing, clock phase
-and integrate-and-dump) as a host loop over float32 scalars, one rounding
-per operation as in the kernel (built without FMA contraction).
+CUDA kernels (`csrc/rds_scan.cu`), and `decoder1_scan` / `decoder2_scan` /
+`decoder3_scan` are their wrappers.  Decoders 1 and 2 run in stages: the
+feedback recursions on one thread each, the FIRs, which feed nothing back,
+as a parallel pre-pass between them (STAGES names them in launch order);
+the wrapper places every history and state run in the packed state
+(`state_offsets`) and owns the scratch between the stages.  Decoder 3 is
+one sequential kernel.  On a CPU tensor a wrapper runs the plain version:
+the linear stages (FIRs, the bit-clock bandpass, the emit and differential
+logic) in torch ops, and only the per-sample feedback recursion (Costas,
+AGC and M&M timing, clock phase and integrate-and-dump) as a host loop over
+float32 scalars, one rounding per operation as in the kernels (built
+without FMA contraction).  Decoders 1 and 2 sum their FIRs in the kernels'
+order (`fir_in_order`), so their FIR outputs equal the kernels' bit for
+bit.
 
 Unlike the JAX functions, which return per-sample bits and an emit mask for
 the receiver to compact with `jnp.nonzero`, every decoder here writes its
@@ -34,7 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,7 +49,7 @@ import torch
 from .. import constants as C
 from ..kernels import build
 from ..ops import design
-from ..ops.blockops import IIRSpec, _conv_complex, fir_apply
+from ..ops.blockops import IIRSpec, fir_apply
 from ..kernels.linrec import pole_bank_plain
 from .bitrecovery import bit_capacity
 
@@ -55,9 +62,11 @@ TWO_PI = _F(2.0 * math.pi)
 COSTAS_LIMIT = _F(2 * math.pi * 10.0 / C.RDS_RATE)
 OMEGA = _F(2.0 * math.pi * C.RDS_BITCLK_HZ / C.RDS_RATE)
 
-# csrc/rds_scan.cu's fixed maxima (checked by the wrappers)
+# csrc/rds_scan.cu's compile-time sizes (checked against the library)
 MAX_TAPS = 64
-MAX_POLES = 16
+STAGE_CHUNK = 1024        # samples a sequential stage stages at a time
+FIR_TILE = 256            # outputs a block of the FIR pre-pass
+POLES = 8                 # decoder 1's bandpass poles (a template parameter)
 
 
 # --------------------------------------------------------------------------
@@ -214,6 +223,31 @@ def _mod_2pi(x):
 
 
 # --------------------------------------------------------------------------
+# the FIR stages
+# --------------------------------------------------------------------------
+
+
+def fir_in_order(hist: Tensor, x: Tensor, taps: Tensor
+                 ) -> Tuple[Tensor, Tensor]:
+    """A FIR stage over its input stream, the carried history (the last K-1
+    inputs, oldest first) followed by the block x: y[n] = sum_k taps[k] *
+    in[n-k], accumulated from 0 for k = 0..K-1 with one rounding per
+    multiply and per add — the order in which csrc/rds_scan.cu's fir_kernel
+    (and the sequential ring it replaced) sums each output, so the two
+    agree bit for bit.  Returns (y [T] float32, the new history: the last
+    K-1 values of the stream, some of the old history when T < K-1)."""
+    K, T = taps.shape[0], x.shape[0]
+    if hist.shape[0] != K - 1:
+        raise ValueError(f"fir_in_order: {hist.shape[0]} history values "
+                         f"for {K} taps")
+    w = torch.cat([hist.to(torch.float32), x.to(torch.float32)])
+    acc = torch.zeros(T, dtype=torch.float32, device=x.device)
+    for k in range(K):
+        acc = acc + taps[k] * w[K - 1 - k:K - 1 - k + T]
+    return acc, w[T:]
+
+
+# --------------------------------------------------------------------------
 # plain versions
 # --------------------------------------------------------------------------
 
@@ -286,13 +320,12 @@ def decoder1_plain(z: Tensor, cfg: Decoder1Config, state: Decoder1State,
                                   1.0 / 16.0, 0.02 / 16.0)
     r = torch.complex(torch.from_numpy(rr), torch.from_numpy(ri)).to(dev)
     v = r.real * 4.0
-    v1, lp_buf = fir_apply(v, torch.as_tensor(cfg.lp21, device=dev),
-                           state.lp_buf)
-    v2, match_buf = fir_apply(v1, torch.as_tensor(cfg.match, device=dev),
-                              state.match_buf)
-    xb, sharp_fir = fir_apply(v2 * v2, torch.as_tensor(cfg.sharp.num,
-                                                       device=dev),
-                              state.sharp_fir)
+    v1, lp_buf = fir_in_order(state.lp_buf, v,
+                              torch.as_tensor(cfg.lp21, device=dev))
+    v2, match_buf = fir_in_order(state.match_buf, v1,
+                                 torch.as_tensor(cfg.match, device=dev))
+    xb, sharp_fir = fir_in_order(state.sharp_fir, v2 * v2,
+                                 torch.as_tensor(cfg.sharp.num, device=dev))
     mag, wT = pole_bank_plain(
         xb[None], torch.as_tensor(cfg.sharp.poles, device=dev)[None],
         torch.as_tensor(cfg.sharp.residues, device=dev)[None],
@@ -315,11 +348,13 @@ def decoder2_plain(z: Tensor, cfg: Decoder2Config, state: Decoder2State,
     """decoder2_block: the RRC matched filter in torch, then the AGC, M&M
     timing and Costas recursion as a host loop."""
     dev = z.device
-    K = len(cfg.rrc)
-    xp = torch.cat([state.mf_buf, z.to(torch.complex64)])
-    v = _conv_complex(xp, torch.as_tensor(cfg.rrc, device=dev), 1)
-    mf_buf = xp[-(K - 1):]
-    vr, vi = _host(v.real), _host(v.imag)
+    rrc = torch.as_tensor(cfg.rrc, device=dev)
+    z = z.to(torch.complex64)
+    # re and im summed apart, as the kernel's pre-pass sums them
+    vr, hr = fir_in_order(state.mf_buf.real, z.real, rrc)
+    vi, hi = fir_in_order(state.mf_buf.imag, z.imag, rrc)
+    mf_buf = torch.complex(hr, hi)
+    vr, vi = _host(vr), _host(vi)
     T = len(vr)
     gain = _F(_host(state.agc_gain))
     freq, phase = _F(_host(state.costas.freq)), _F(_host(state.costas.phase))
@@ -490,54 +525,156 @@ def unpack_state(vec: Tensor, like):
     return out
 
 
-def _const_block(which: int, cfg) -> np.ndarray:
-    """The constant block the kernel reads: the loops' float32 scalars
-    (alpha, beta, limit, 2 pi, omega, sps, M&M gain, AGC rate, AGC
-    reference), then the decoder's sizes, taps and poles."""
+def state_offsets(state) -> Dict[str, Tuple[int, int]]:
+    """Where each leaf of `state` sits in pack_state's vector: its field name
+    ('costas.freq' for a nested one) -> (offset, number of floats)."""
+    out: Dict[str, Tuple[int, int]] = {}
+    off = 0
+
+    def walk(tpl, prefix):
+        nonlocal off
+        for name, v in zip(tpl._fields, tpl):
+            if isinstance(v, tuple):
+                walk(v, f"{prefix}{name}.")
+                continue
+            n = v.numel() * (2 if v.is_complex() else 1)
+            out[prefix + name] = (off, n)
+            off += n
+    walk(state, "")
+    return out
+
+
+# the runs of state fields that a stage's kernel reads and writes as one
+# array, in the order it takes them (csrc/rds_scan.cu)
+COSTAS_RUN = ("costas.freq", "costas.phase")
+EMIT1_RUN = ("last_sync", "last_sync_slope", "last_data", "prev_bit")
+CORE2_RUN = ("agc_gain", "costas.freq", "costas.phase", "s0", "s1", "s2",
+             "count", "skip", "mu", "prev_bit", "last_iq")
+
+
+def run_offset(offsets: Dict[str, Tuple[int, int]], run: Tuple[str, ...]
+               ) -> Tuple[int, int]:
+    """(offset, floats) of a run of fields that must lie back to back in
+    the packed state in the run's order; raises if they do not."""
+    first = at = offsets[run[0]][0]
+    for name in run:
+        off, n = offsets[name]
+        if off != at:
+            raise ValueError(f"rds_scan: state field {name} sits at {off}, "
+                             f"the kernel reads it at {at}")
+        at += n
+    return first, at - first
+
+
+def _const_parts(which: int, cfg) -> List[Tuple[str, np.ndarray]]:
+    """The constant block the kernels read, part by part: the loops'
+    float32 scalars (alpha, beta, limit, 2 pi, omega, sps, M&M gain, AGC
+    rate, AGC reference), then the decoder's sizes, taps and poles."""
     alpha, beta = (1.0, 0.02) if which == 2 else (1.0 / 16.0, 0.02 / 16.0)
-    head = np.asarray([alpha, beta, COSTAS_LIMIT, TWO_PI, OMEGA, SPS, 0.01,
-                       2e-3, 0.38], np.float32)
+    head = [alpha, beta, COSTAS_LIMIT, TWO_PI, OMEGA, SPS, 0.01, 2e-3, 0.38]
     if which == 1:
         sh = cfg.sharp
-        body = [np.asarray([len(cfg.lp21), len(cfg.match), len(sh.num),
-                            len(sh.poles)], np.float32),
-                cfg.lp21, cfg.match, sh.num, sh.poles.view(np.float32),
-                sh.residues.view(np.float32)]
+        body = [("sizes", [len(cfg.lp21), len(cfg.match), len(sh.num),
+                           len(sh.poles)]),
+                ("lp21", cfg.lp21), ("match", cfg.match), ("num", sh.num),
+                ("poles", sh.poles.view(np.float32)),
+                ("residues", sh.residues.view(np.float32))]
     elif which == 2:
-        body = [np.asarray([len(cfg.rrc)], np.float32), cfg.rrc]
+        body = [("sizes", [len(cfg.rrc)]), ("rrc", cfg.rrc)]
     else:
         fl = int(np.floor(C.RDS_RATE / C.RDS_BITCLK_HZ))
-        body = [np.asarray([len(cfg.lp21), cfg.symbol_ceiling, fl],
-                           np.float32),
-                cfg.lp21, _fold_index(cfg.symbol_ceiling).astype(np.float32)]
-    return np.concatenate([head] + body).astype(np.float32)
+        body = [("sizes", [len(cfg.lp21), cfg.symbol_ceiling, fl]),
+                ("lp21", cfg.lp21),
+                ("fold", _fold_index(cfg.symbol_ceiling))]
+    return [(name, np.asarray(a, np.float32).reshape(-1))
+            for name, a in [("head", head)] + body]
+
+
+def _const_block(which: int, cfg) -> np.ndarray:
+    return np.concatenate([a for _, a in _const_parts(which, cfg)])
+
+
+def const_offsets(which: int, cfg) -> Dict[str, int]:
+    """Where each part of decoder `which`'s constant block starts (floats)."""
+    out, off = {}, 0
+    for name, a in _const_parts(which, cfg):
+        out[name] = off
+        off += a.size
+    return out
 
 
 def _sizes_ok(which: int, cfg) -> bool:
     if which == 1:
-        return (max(len(cfg.lp21), len(cfg.match), len(cfg.sharp.num))
-                <= MAX_TAPS and len(cfg.sharp.poles) <= MAX_POLES)
+        taps = (len(cfg.lp21), len(cfg.match), len(cfg.sharp.num))
+        return (2 <= min(taps) and max(taps) <= MAX_TAPS
+                and len(cfg.sharp.poles) == POLES)
     if which == 2:
-        return len(cfg.rrc) <= MAX_TAPS
+        return 2 <= len(cfg.rrc) <= MAX_TAPS
     return len(cfg.lp21) <= MAX_TAPS and cfg.symbol_ceiling <= MAX_TAPS
 
 
 def kernel_constants(kind: str, cfg, device) -> Tensor:
-    """Decoder `kind`'s constant block on `device`, as its kernel reads it.
+    """Decoder `kind`'s constant block on `device`, as its kernels read it.
     Build it once per config: a fresh host-to-device copy per block would
     synchronise."""
     which = int(kind[-1])
     if not _sizes_ok(which, cfg):
-        raise ValueError("rds_scan: a filter exceeds the kernel's maxima")
+        raise ValueError("rds_scan: a filter does not fit the kernels' sizes")
     return torch.as_tensor(_const_block(which, cfg), device=device)
+
+
+def stage_chunks(T: int) -> List[Tuple[int, int]]:
+    """The chunks in which a sequential stage stages its input in shared
+    memory, in order: (first sample, length), covering [0, T).  The kernel
+    takes their count and cuts them the same way."""
+    if T < 1:
+        raise ValueError(f"stage_chunks: T={T}")
+    return [(b, min(STAGE_CHUNK, T - b)) for b in range(0, T, STAGE_CHUNK)]
+
+
+def fir_tiles(T: int) -> int:
+    """Blocks of a FIR stage over T outputs, FIR_TILE outputs each."""
+    return -(-T // FIR_TILE)
 
 
 _PLAIN = {1: decoder1_plain, 2: decoder2_plain, 3: decoder3_plain}
 
+# each decoder's kernels, in launch order
+STAGES = {1: ("costas", "fir_lp21", "fir_match", "fir_sharp_num",
+              "poles_emit"),
+          2: ("fir_rrc", "mm_core"),
+          3: ("scan",)}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ENTRIES = {
+    "sdr_rds_costas": [_P, _I, _I, _P, _P, _P, _P, _P],
+    "sdr_rds_fir": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P, _I, _I, _P],
+    "sdr_rds_poles_emit": [_P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P,
+                           _P, _I, _P],
+    "sdr_rds_mm_core": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P],
+    "sdr_rds_decoder3": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P],
+}
+
+
+class StagePlan(NamedTuple):
+    """One decoder call on the card, allocated but not launched: `stages`,
+    (name, launch) in launch order, each launch() running one kernel; the
+    call's outputs; the packed new state; and `work`, every buffer the
+    launches read or write (the inputs and the scratch between stages),
+    held here so that they live as long as the plan."""
+    stages: Tuple[Tuple[str, Callable[[], None]], ...]
+    bits: Tensor
+    count: Tensor
+    biq: Tensor
+    iq: Optional[Tensor]
+    st_out: Tensor
+    work: Dict[str, Tensor]
+
 
 class RdsScanKernel:
-    """Wrapper of one decoder's kernel with a launch counter (`launches`
-    counts kernel launches only; CPU calls of the plain version do not).
+    """Wrapper of one decoder's kernels with launch counters: `launches`
+    counts decoder calls on the card, `stage_launches` each stage's kernel
+    launches (CPU calls of the plain version count in neither).
 
     __call__(z [T] complex64, cfg, state, cap, want_iq, consts) -> (bits
     [cap] int8, count int32, iq [cap] complex64, iq stream [T] or None, new
@@ -547,29 +684,39 @@ class RdsScanKernel:
     def __init__(self, which: int):
         self.which = which
         self.launches = 0
-        self._fn = None
+        self.stage_launches = dict.fromkeys(STAGES[which], 0)
+        self._lib = None
 
-    def _entry(self):
-        if self._fn is None:
+    def _library(self):
+        if self._lib is None:
             lib = build.load(SOURCE)
-            fn = lib.sdr_rds_decoder
-            fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            if (lib.sdr_rds_max_taps() != MAX_TAPS
-                    or lib.sdr_rds_max_poles() != MAX_POLES):
-                raise RuntimeError("rds_scan: csrc maxima != wrapper's")
-            self._fn = fn
-        return self._fn
+            for name, args in _ENTRIES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            sizes = (lib.sdr_rds_max_taps(), lib.sdr_rds_stage_chunk(),
+                     lib.sdr_rds_fir_tile())
+            if sizes != (MAX_TAPS, STAGE_CHUNK, FIR_TILE):
+                raise RuntimeError(f"rds_scan: csrc sizes {sizes} != the "
+                                   f"wrapper's")
+            self._lib = lib
+        return self._lib
 
-    def __call__(self, z: Tensor, cfg, state, cap: int,
-                 want_iq: bool = False, consts: Optional[Tensor] = None):
+    def _stage(self, dev, name: str, fn, args):
+        def launch():
+            with torch.cuda.device(dev):
+                rc = fn(*args)
+            if rc != 0:
+                raise RuntimeError(f"rds_scan decoder {self.which} stage "
+                                   f"{name}: launch failed, CUDA error {rc}")
+            self.stage_launches[name] += 1
+        return name, launch
+
+    def plan(self, z: Tensor, cfg, state, cap: int, want_iq: bool = False,
+             consts: Optional[Tensor] = None) -> StagePlan:
+        """Check the arguments and allocate one call on z's CUDA device;
+        launches nothing."""
         dev = z.device
-        if dev.type == "cpu":
-            return _PLAIN[self.which](z, cfg, state, cap, want_iq)
         if dev.type != "cuda":
             raise ValueError(f"rds_scan: unsupported device {dev}")
         if z.dtype != torch.complex64 or z.dim() != 1 or not z.is_contiguous():
@@ -585,24 +732,94 @@ class RdsScanKernel:
         st_in = pack_state(state)
         if st_in.device != dev:
             raise ValueError("rds_scan: state is not on z's device")
+        lib = self._library()
         st_out = torch.empty_like(st_in)
         bits = torch.empty(cap, dtype=torch.int8, device=dev)
         biq = torch.empty(cap, dtype=torch.complex64, device=dev)
         count = torch.empty((), dtype=torch.int32, device=dev)
         iq = (torch.empty(T, dtype=torch.complex64, device=dev) if want_iq
               else None)
-        with torch.cuda.device(dev):
-            rc = self._entry()(
-                self.which, z.data_ptr(), T, consts.data_ptr(),
-                st_in.data_ptr(), st_out.data_ptr(), st_in.numel(),
-                bits.data_ptr(), biq.data_ptr(), count.data_ptr(), cap,
-                None if iq is None else iq.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"rds_scan decoder {self.which} launch failed: "
-                               f"CUDA error {rc}")
+        work = {"z": z, "consts": consts, "st_in": st_in}
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        so = state_offsets(state)
+        co = const_offsets(self.which, cfg)
+        si, sO, c0 = st_in.data_ptr(), st_out.data_ptr(), consts.data_ptr()
+        nch, tiles = len(stage_chunks(T)), fir_tiles(T)
+        outs = (bits.data_ptr(), biq.data_ptr(), count.data_ptr(), cap)
+        iqp = None if iq is None else iq.data_ptr()
+
+        def field(name, floats):
+            off, n = so[name]
+            if n != floats:
+                raise ValueError(f"rds_scan: state field {name} holds {n} "
+                                 f"floats, the kernel takes {floats}")
+            return si + 4 * off, sO + 4 * off
+
+        def run(names, floats):
+            off, n = run_offset(so, names)
+            if n != floats:
+                raise ValueError(f"rds_scan: {names} hold {n} floats, the "
+                                 f"kernel takes {floats}")
+            return si + 4 * off, sO + 4 * off
+
+        def taps(part):
+            return c0 + 4 * co[part]
+
+        if self.which == 1:
+            fir = lib.sdr_rds_fir
+            Ll, Lm, Ln = len(cfg.lp21), len(cfg.match), len(cfg.sharp.num)
+            iq4 = iq if iq is not None else torch.empty_like(z)
+            v1 = torch.empty(T, dtype=torch.float32, device=dev)
+            xv = torch.empty(T, 2, dtype=torch.float32, device=dev)  # xb, v2
+            x_b, v_2 = xv.data_ptr(), xv.data_ptr() + 4
+            work.update(iq4=iq4, v1=v1, xv=xv)
+            stages = (
+                self._stage(dev, "costas", lib.sdr_rds_costas,
+                            (z.data_ptr(), T, nch, c0, *run(COSTAS_RUN, 2),
+                             iq4.data_ptr(), stream)),
+                self._stage(dev, "fir_lp21", fir,
+                            (*field("lp_buf", Ll - 1), iq4.data_ptr(), 2, T,
+                             taps("lp21"), Ll, 1, 0, v1.data_ptr(), 1, tiles,
+                             stream)),
+                self._stage(dev, "fir_match", fir,
+                            (*field("match_buf", Lm - 1), v1.data_ptr(), 1,
+                             T, taps("match"), Lm, 1, 0, v_2, 2, tiles,
+                             stream)),
+                self._stage(dev, "fir_sharp_num", fir,
+                            (*field("sharp_fir", Ln - 1), v_2, 2, T,
+                             taps("num"), Ln, 1, 1, x_b, 2, tiles, stream)),
+                self._stage(dev, "poles_emit", lib.sdr_rds_poles_emit,
+                            (x_b, iq4.data_ptr(), T, nch, taps("poles"),
+                             POLES, *field("sharp_w", 2 * POLES),
+                             *run(EMIT1_RUN, 4), *outs, stream)))
+        elif self.which == 2:
+            K = len(cfg.rrc)
+            v = torch.empty_like(z)
+            work.update(v=v)
+            stages = (
+                self._stage(dev, "fir_rrc", lib.sdr_rds_fir,
+                            (*field("mf_buf", 2 * (K - 1)), z.data_ptr(), 2,
+                             T, taps("rrc"), K, 2, 0, v.data_ptr(), 2, tiles,
+                             stream)),
+                self._stage(dev, "mm_core", lib.sdr_rds_mm_core,
+                            (v.data_ptr(), T, nch, c0, *run(CORE2_RUN, 15),
+                             *outs, iqp, stream)))
+        else:
+            stages = (
+                self._stage(dev, "scan", lib.sdr_rds_decoder3,
+                            (z.data_ptr(), T, c0, si, sO, st_in.numel(),
+                             *outs, iqp, stream)),)
+        return StagePlan(stages, bits, count, biq, iq, st_out, work)
+
+    def __call__(self, z: Tensor, cfg, state, cap: int,
+                 want_iq: bool = False, consts: Optional[Tensor] = None):
+        if z.device.type == "cpu":
+            return _PLAIN[self.which](z, cfg, state, cap, want_iq)
+        p = self.plan(z, cfg, state, cap, want_iq, consts)
+        for _, launch in p.stages:
+            launch()
         self.launches += 1
-        return bits, count, biq, iq, unpack_state(st_out, state)
+        return p.bits, p.count, p.biq, p.iq, unpack_state(p.st_out, state)
 
 
 decoder1_scan = RdsScanKernel(1)

@@ -173,3 +173,216 @@ def test_request_rds_resync_only_arms_decoder3():
     # retune_reset restores the scan decoder's zero state
     s = rx3.retune_reset(st)
     assert bool(s.bitrec.need_resync)
+
+
+# --------------------------------------------------------------------------
+# the host side of the staged kernels (decoders 1 and 2): state and
+# constant layout, the FIR stages' input and histories, the staging chunks
+# --------------------------------------------------------------------------
+
+
+def _distinct_state(kind):
+    """Decoder `kind`'s state with a distinct value in every packed float."""
+    mk, zero, _ = SD.DECODERS[kind]
+    like = zero(mk())
+    n = SD.pack_state(like).numel()
+    return SD.unpack_state(torch.arange(1, n + 1, dtype=torch.float32), like)
+
+
+@pytest.mark.parametrize("kind", ["scan1", "scan2", "scan3"])
+def test_state_offsets_locate_every_field(kind):
+    st = _distinct_state(kind)
+    packed = SD.pack_state(st)
+    offs = SD.state_offsets(st)
+    at = 0
+    for (name, (off, n)), leaf in zip(offs.items(), SD._leaves(st)):
+        assert off == at, name
+        np.testing.assert_array_equal(packed[off:off + n].numpy(),
+                                      SD._flat(leaf).numpy())
+        at += n
+    assert at == packed.numel()
+
+
+def test_state_runs_are_what_the_kernels_read():
+    o1 = SD.state_offsets(_distinct_state("scan1"))
+    cfg1 = SD.make_decoder1_config()
+    assert SD.run_offset(o1, SD.COSTAS_RUN) == (0, 2)
+    assert o1["lp_buf"] == (2, len(cfg1.lp21) - 1)
+    assert o1["match_buf"][1] == len(cfg1.match) - 1
+    assert o1["sharp_w"][1] == 2 * SD.POLES
+    assert o1["sharp_fir"][1] == len(cfg1.sharp.num) - 1
+    off, n = SD.run_offset(o1, SD.EMIT1_RUN)
+    assert n == 4 and off + n == SD.pack_state(
+        _distinct_state("scan1")).numel()
+    o2 = SD.state_offsets(_distinct_state("scan2"))
+    K = len(SD.make_decoder2_config().rrc)
+    assert o2["mf_buf"] == (0, 2 * (K - 1))
+    assert SD.run_offset(o2, SD.CORE2_RUN) == (2 * (K - 1), 15)
+    with pytest.raises(ValueError):
+        SD.run_offset(o1, ("last_sync", "last_data"))
+
+
+@pytest.mark.parametrize("which", [1, 2, 3])
+def test_const_offsets_locate_every_part(which):
+    cfg = SD.DECODERS[f"scan{which}"][0]()
+    block = SD._const_block(which, cfg)
+    offs = SD.const_offsets(which, cfg)
+    parts = dict(SD._const_parts(which, cfg))
+    assert list(offs) == list(parts) and offs["head"] == 0
+    for name, a in parts.items():
+        np.testing.assert_array_equal(block[offs[name]:offs[name] + a.size],
+                                      a)
+    if which == 1:
+        # the pole stage reads the residues right after the poles
+        P = len(cfg.sharp.poles)
+        assert P == SD.POLES
+        assert offs["residues"] == offs["poles"] + 2 * P
+        np.testing.assert_array_equal(
+            block[offs["poles"]:offs["poles"] + 2 * P].view(np.complex64),
+            cfg.sharp.poles)
+
+
+def _ring_loop(hist, x, taps):
+    """Ring::push as a float32 scalar loop: acc = 0, acc += taps[k] *
+    in[n-k] for k = 0..K-1, one rounding per operation."""
+    w = np.concatenate([hist, x]).astype(np.float32)
+    K = len(taps)
+    y = np.empty(len(x), np.float32)
+    for n in range(len(x)):
+        acc = np.float32(0.0)
+        for k in range(K):
+            acc = np.float32(acc + np.float32(taps[k] * w[n + K - 1 - k]))
+        y[n] = acc
+    return y
+
+
+def _fir_taps(name):
+    if name == "rrc":
+        return SD.make_decoder2_config().rrc
+    cfg = SD.make_decoder1_config()
+    return {"lp21": cfg.lp21, "match": cfg.match,
+            "num": cfg.sharp.num}[name]
+
+
+@pytest.mark.parametrize("name", ["lp21", "match", "num", "rrc"])
+def test_fir_in_order_is_the_ring_sum(name):
+    taps = _fir_taps(name)
+    rng = np.random.default_rng(11)
+    hist = rng.standard_normal(len(taps) - 1).astype(np.float32)
+    x = rng.standard_normal(300).astype(np.float32)
+    y, _ = SD.fir_in_order(torch.from_numpy(hist), torch.from_numpy(x),
+                           torch.from_numpy(taps))
+    np.testing.assert_array_equal(y.numpy(), _ring_loop(hist, x, taps))
+
+
+@pytest.mark.parametrize("T", [1, 5, SD.STAGE_CHUNK - 1, SD.STAGE_CHUNK + 1,
+                               16384])
+@pytest.mark.parametrize("name", ["lp21", "match", "num", "rrc"])
+def test_fir_in_order_matches_fir_apply(name, T):
+    """The FIR stage's input (history, then the block) and new history
+    against fir_apply, ragged T included (T < K-1 keeps part of the old
+    history)."""
+    from sdrjfm_tpu_torch.ops.blockops import fir_apply
+    taps = torch.from_numpy(_fir_taps(name))
+    rng = np.random.default_rng(T)
+    hist = torch.from_numpy(rng.standard_normal(taps.shape[0] - 1)
+                            .astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal(T).astype(np.float32))
+    y, h = SD.fir_in_order(hist, x, taps)
+    yr, hr = fir_apply(x, taps, hist)
+    w = torch.cat([hist, x])
+    assert torch.equal(h, hr) and torch.equal(h, w[-hist.shape[0]:])
+    scale = float(taps.abs().sum()) * float(w.abs().max())
+    np.testing.assert_allclose(y.numpy(), yr.numpy(), rtol=0,
+                               atol=2e-7 * scale)
+
+
+@pytest.mark.parametrize("T", [1, SD.STAGE_CHUNK - 1, SD.STAGE_CHUNK,
+                               SD.STAGE_CHUNK + 1, 16384, 16385])
+def test_stage_chunks_cover_the_block_in_order(T):
+    chunks = SD.stage_chunks(T)
+    assert len(chunks) == -(-T // SD.STAGE_CHUNK)
+    at = 0
+    for c, (base, n) in enumerate(chunks):
+        assert base == at == c * SD.STAGE_CHUNK and 1 <= n <= SD.STAGE_CHUNK
+        at += n
+    assert at == T
+    tiles = SD.fir_tiles(T)
+    assert (tiles - 1) * SD.FIR_TILE < T <= tiles * SD.FIR_TILE
+
+
+def test_stage_chunks_refuse_an_empty_block():
+    with pytest.raises(ValueError):
+        SD.stage_chunks(0)
+
+
+@pytest.mark.parametrize("which", ["1", "2"])
+def test_fir_stages_from_packed_state_match_jax(baseband24k, which):
+    """After a JAX warm-up and hand-over, the FIR stages as the kernels
+    assemble them — each history sliced from the packed state at
+    state_offsets, then the block — give the histories of JAX's next
+    state."""
+    z = baseband24k
+    _, jst, jblock = _jax_decoder(which)
+    warm = int(0.5 * JC.RDS_RATE)
+    _, _, _, jst = jblock(jnp.asarray(z[:warm]), jst)
+    cls = {"1": SD.Decoder1State, "2": SD.Decoder2State}[which]
+    st = convert._convert(cls, jax.tree.map(np.asarray, jst), "cpu")
+    packed, offs = SD.pack_state(st), SD.state_offsets(st)
+
+    def hist(name):
+        off, n = offs[name]
+        return packed[off:off + n]
+
+    blk = z[warm:warm + int(0.25 * JC.RDS_RATE)]
+    _, _, _, jnew = jblock(jnp.asarray(blk), jst)
+    cfg = SD.DECODERS[f"scan{which}"][0]()
+    if which == "2":
+        taps = torch.from_numpy(cfg.rrc)
+        h = hist("mf_buf").reshape(-1, 2)
+        zt = torch.from_numpy(blk)
+        _, hr = SD.fir_in_order(h[:, 0], zt.real, taps)
+        _, hi = SD.fir_in_order(h[:, 1], zt.imag, taps)
+        np.testing.assert_array_equal(torch.complex(hr, hi).numpy(),
+                                      np.asarray(jnew.mf_buf))
+        return
+    zt = torch.from_numpy(blk)
+    rr, _, _, _ = SD._costas(zt.real.numpy(), zt.imag.numpy(),
+                             st.costas.freq.numpy(), st.costas.phase.numpy(),
+                             1.0 / 16.0, 0.02 / 16.0)
+    v = torch.from_numpy(rr) * 4.0
+    v1, h1 = SD.fir_in_order(hist("lp_buf"), v, torch.from_numpy(cfg.lp21))
+    v2, h2 = SD.fir_in_order(hist("match_buf"), v1,
+                             torch.from_numpy(cfg.match))
+    _, h3 = SD.fir_in_order(hist("sharp_fir"), v2 * v2,
+                            torch.from_numpy(cfg.sharp.num))
+    for got, want in ((h1, jnew.lp_buf), (h2, jnew.match_buf),
+                      (h3, jnew.sharp_fir)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-4 * float(np.abs(want).max()))
+
+
+def test_plan_launches_only_on_cuda():
+    """plan() is the CUDA route: a CPU tensor is refused there (the call
+    itself takes the plain version), nothing falls back."""
+    cfg = SD.make_decoder2_config()
+    st = SD.decoder2_zero_state(cfg)
+    z = torch.zeros(64, dtype=torch.complex64)
+    with pytest.raises(ValueError, match="unsupported device"):
+        SD.decoder2_scan.plan(z, cfg, st, 8)
+    launches = SD.decoder2_scan.launches
+    SD.decoder2_scan(z, cfg, st, 8)
+    assert SD.decoder2_scan.launches == launches
+
+
+def test_kernel_constants_hold_decoder1_to_its_pole_count():
+    """Decoder 1's pole stage is compiled for POLES poles (a lane each)."""
+    from sdrjfm_tpu_torch.ops import design
+    from sdrjfm_tpu_torch.ops.blockops import IIRSpec
+    cfg = SD.make_decoder1_config()
+    SD.kernel_constants("scan1", cfg, "cpu")
+    other = cfg._replace(sharp=IIRSpec(design.bandpass_butter_sos(
+        3, JC.RDS_BITCLK_HZ - 6.0, JC.RDS_BITCLK_HZ + 6.0, JC.RDS_RATE)))
+    assert len(other.sharp.poles) != SD.POLES
+    with pytest.raises(ValueError):
+        SD.kernel_constants("scan1", other, "cpu")
