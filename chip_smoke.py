@@ -14,10 +14,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
              main path's shapes, with the tolerance stated: the front end
              and the real scan; the complex pole bank (kernel A) also
              against the float64 recurrence, at the squelch's shapes and on
-             ragged rows; the RDS decoders 1-3 (kernels B1-B3) on chained
-             segments of a clean baseband from a warmed-up state, and the
-             FIR pre-pass stages of B1 and B2 bit for bit against
-             fir_in_order.
+             ragged rows (T = 1, a last chunk of one sample, more than 32
+             chunks a row, two calls back to back on the same look-back
+             words); the RDS decoders 1-3 (kernels B1-B3) on chained
+             segments of a clean baseband from a warmed-up state (B3's first
+             with a resync), the FIR pre-pass stages of B1 and B2 and B3's
+             lowpass outputs, history and clock phase chain bit for bit
+             against their host functions.
 4. main    — synthesises an 8 s stereo+RDS capture and drives it through
              `python -m sdrjfm_tpu_torch.app rx` (in process) on cuda at
              block_fm=131072 with the int16 wire: PI/PS/RT back at BER 0,
@@ -35,21 +38,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
              before it; a decoder call launches each of its stages once),
              and its first two blocks of audio against the same
              run on the CPU; emit_audio_i16 against the host quantizer.
-6. times   — per-block step time and real-time factor (the main path, and
-             the heaviest option config: input filter + nsq + scan2); each
+6. times   — per-block step time and real-time factor (the main path, the
+             heaviest option config: input filter + nsq + scan2, and the
+             main path with RDS decoder 3); each
              kernel's
              device time (its calls queued behind a device sleep, so the
              host cannot set the pace) and host time per wrapper call, its
              plain version's time, a one-call library yardstick where one
              exists (timed the same way), and the bound from bytes and
-             operations; B1's and B2's stages one line each; the
-             latencies of dependent f32 add, multiply, IEEE division,
-             sincosf and hypotf on one thread (a microkernel timed by
-             clock64), and from them, on a line of its own, each
-             sequential stage's latency floor beside its time.
+             operations; each decoder's stages one line each, kernel A's
+             launch on its own; the latencies of dependent f32 add,
+             multiply, IEEE division, sincosf, hypotf and decoder 3's clock
+             phase step on one thread (a microkernel timed by clock64), and
+             from them, on a line of its own, each sequential stage's
+             latency floor beside its time.
 7. profile — torch.profiler over 5 steady steps: the device's busy share
              of the wall time, device ops per step, the top ops by device
-             time; for the main path and for the heaviest option config.
+             time; for the main path, for the heaviest option config and
+             for the main path with RDS decoder 3 (each after its step
+             time).
 
 Then one line {"kernels": [...]}, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}.  Outputs go to
@@ -92,8 +99,8 @@ POLE_RTOL = 1e-6                   # of max_n sum_p |r_p||w_p[n]| (the sum's
                                    # near 1e-7 of it
 RDS_IQ_ATOL = 1e-4                 # constellation points O(1-10) after f32
                                    # Costas loops whose sin/cos come from two
-                                   # libraries (B3: also differently summed
-                                   # FIRs); bits and emit counts must be equal
+                                   # libraries; bits and emit counts must be
+                                   # equal
 OPT_AUDIO_ATOL = 1e-3              # cuda vs cpu audio of an option run (as
                                    # phase reference; the wav is PCM16)
 
@@ -589,7 +596,7 @@ def phase_times(rx, wav, fe_err, sc_err, launches, card):
 
 # substrings of the hand kernels' names in a profile (csrc/*.cu)
 HAND_KERNELS = ("frontend", "linrec", "pole_", "costas_", "fir_kernel",
-                "poles_emit", "mm_core", "decoder3")
+                "poles_emit", "mm_core", "clock_kernel")
 
 
 def phase_profile(rx, wav, card, what: str = "main path"):
@@ -672,7 +679,8 @@ def phase_option_kernels(dev="cuda"):
     """Kernel A against its plain version and the float64 recurrence;
     kernels B1-B3 against their plain versions on chained segments."""
     from scipy.signal import lfilter
-    from sdrjfm_tpu_torch.kernels.linrec import (POLE_CHUNK, pole_bank,
+    from sdrjfm_tpu_torch.kernels.linrec import (POLE_CHUNK, POLE_LOOK,
+                                                 pole_bank,
                                                  pole_bank_constants,
                                                  pole_bank_plain)
     from sdrjfm_tpu_torch.rds import scan_decoders as SD
@@ -682,9 +690,14 @@ def phase_option_kernels(dev="cuda"):
     specs = _squelch_specs()
     rows, a_err = [], 0.0
     # the squelch's shapes (2 banks x 10 poles x 131072), then ragged rows:
-    # one bank, a chunk plus one, and under one chunk
-    for T, banks in ((BLOCK_FM, specs), (BLOCK_FM, specs[1:]),
-                     (POLE_CHUNK + 1, specs), (1000, specs[:1])):
+    # one bank, a last chunk of one sample (after one chunk, and after more
+    # than POLE_LOOK: the look-back's second step), under one chunk, one
+    # sample
+    cases = ((BLOCK_FM, specs), (BLOCK_FM, specs[1:]),
+             (POLE_CHUNK + 1, specs),
+             ((POLE_LOOK + 8) * POLE_CHUNK + 1, specs),
+             (1000, specs[:1]), (1, specs), (BLOCK_FM, specs))
+    for case, (T, banks) in enumerate(cases):
         x = torch.from_numpy((0.3 * rng.standard_normal((len(banks), T))
                               ).astype(np.float32)).to(dev)
         w0 = [torch.from_numpy((0.05 * (rng.standard_normal(10)
@@ -693,6 +706,15 @@ def phase_option_kernels(dev="cuda"):
               for _ in banks]
         bank = pole_bank_constants(banks, dev)
         y, wT = pole_bank(x, bank, w0)
+        if case == len(cases) - 1:
+            # a second call queued right behind the first on the same
+            # look-back words: it must not read the first's prefixes
+            y_first, wT_first = y, wT
+            x1 = x.flip(1).contiguous()
+            y, wT = pole_bank(x1, bank, w0)
+            yp1, wTp1 = pole_bank_plain(x, bank.poles, bank.residues,
+                                        torch.stack(w0))
+            x = x1
         yp, wTp = pole_bank_plain(x, bank.poles, bank.residues,
                                   torch.stack(w0))
         torch.cuda.synchronize()
@@ -715,6 +737,16 @@ def phase_option_kernels(dev="cuda"):
             row[f"bank{b}_kernel_vs_f64_of_scale"] = k64
             row[f"bank{b}_kernel_vs_plain_of_scale"] = kp
             need(k64 <= POLE_RTOL and kp <= POLE_RTOL, f"pole_bank: {row}")
+        # the end states, each within 10 POLE_RTOL of the largest
+        need(row["state_err"] <= 10 * POLE_RTOL * float(wTp.abs().max()),
+             f"pole_bank state: {row}")
+        if case == len(cases) - 1:
+            first = float((y_first - yp1).abs().max())
+            row["back_to_back_first_call_err"] = first
+            need(first <= POLE_RTOL * row["bank0_scale"]
+                 and float((torch.stack(wT_first) - wTp1).abs().max())
+                 <= 10 * POLE_RTOL * float(wTp1.abs().max()),
+                 f"pole_bank back to back: {row}")
         a_err = max(a_err, row["max_abs_err"])
         rows.append(row)
     emit({"phase": "kernels", "kernel": "pole_bank", "rtol_of_scale": POLE_RTOL,
@@ -729,6 +761,8 @@ def phase_option_kernels(dev="cuda"):
         cfg = mk()
         consts = SD.kernel_constants(kind, cfg, dev)
         st = fn(z[:4800], cfg, zero(cfg), 300)[4]          # cpu: plain
+        if kind == "scan3":                 # the first segment resyncs
+            st = st._replace(need_resync=torch.tensor(True))
         st_k = st_p = _to(st, dev)
         segs, err = [], 0.0
         for lo, hi in ((4800, 6800), (6800, 8800), (8800, 8800 + 16384)):
@@ -746,14 +780,19 @@ def phase_option_kernels(dev="cuda"):
                  "stream_err": float((ik - ip).abs().max()),
                  "state_err": float((SD.pack_state(st_k)
                                      - SD.pack_state(st_p)).abs().max())}
-            if kind != "scan3":
+            if kind == "scan3":
+                r["need_resync"] = bool(st_prev.need_resync)
+                r["clock_stage_bit_equal"] = _check_clock_stage(
+                    fn, seg, cfg, st_prev, cap, consts)
+            else:
                 r["fir_prepass_bit_equal"] = _check_prepass(
                     fn, seg, cfg, st_prev, cap, consts)
             segs.append(r)
             err = max(err, r["iq_err"], r["stream_err"])
             need(int(ck) == n and r["bits_equal"] and n > 0.9 * (hi - lo)
                  / SD.SPS and max(r["iq_err"], r["stream_err"]) <= RDS_IQ_ATOL
-                 and r.get("fir_prepass_bit_equal", True),
+                 and r.get("fir_prepass_bit_equal", True)
+                 and r.get("clock_stage_bit_equal", True),
                  f"rds {kind}: {r}")
         b_err[kind] = err
         emit({"phase": "kernels", "kernel": f"rds_{kind}",
@@ -792,6 +831,42 @@ def _check_prepass(fn, seg, cfg, state, cap, consts) -> bool:
                  (new.lp_buf, h1), (new.match_buf, h2), (new.sharp_fir, h3)]
     torch.cuda.synchronize()
     return all(torch.equal(a, b) for a, b in pairs)
+
+
+def _check_clock_stage(fn, seg, cfg, state, cap, consts) -> bool:
+    """Decoder 3: one call's stages launched from a plan, then the clock
+    stage's writes from the Costas stage's own output: the new sync_buf,
+    lp_buf and p against lowpass_outputs (torch ops in fir_in_order's
+    order), and the Costas stage's phase chain (every phase, and the one
+    after the block in the new state) against clock_phases (the host
+    chain, from the state's phase or the resync's): equal bit for bit."""
+    from sdrjfm_tpu_torch.rds import scan_decoders as SD
+    p = fn.plan(seg, cfg, state, cap, True, consts)
+    for _, launch in p.stages:
+        launch()
+    new = SD.unpack_state(p.st_out, state)
+    n = cfg.symbol_ceiling
+    T = seg.shape[0]
+    v = p.work["iq4"].real.contiguous()
+    f0, last, lp_buf = SD.lowpass_outputs(
+        state.lp_buf, v, torch.as_tensor(cfg.lp21, device=seg.device), n)
+    p0 = int(state.p)
+    ring = state.sync_buf.clone()
+    m = min(T, n)
+    ring[(p0 + torch.arange(T - m, T, device=seg.device)) % n] = last
+    ph0 = state.bit_clk_phase
+    if bool(state.need_resync):
+        # on the host: its index_add_ sums in order, as the kernel does
+        buf0 = state.sync_buf.cpu().clone()
+        buf0[p0] = f0.cpu()
+        ph0 = SD.sync_bit_clock(buf0, torch.tensor((p0 + 1) % n), cfg)
+    ph = torch.from_numpy(SD.clock_phases(ph0.cpu().numpy(), T))
+    torch.cuda.synchronize()
+    return (torch.equal(new.sync_buf, ring) and torch.equal(new.lp_buf, lp_buf)
+            and int(new.p) == (p0 + T) % n
+            and torch.equal(p.work["ph"][:T + 1].cpu(), ph)
+            and float(new.bit_clk_phase) == float(ph[T])
+            and not bool(new.need_resync))
 
 
 def _write_u8_capture(wav, path, seconds: float):
@@ -1024,7 +1099,7 @@ def _run_options(wav, dev, cmp_dev, tmp):
 # decoders' flags): op code, dependent steps, and the second operand y.
 LATENCY_OPS = {"add": (0, 1 << 19, 1e-7), "mul": (1, 1 << 19, 1.0000001),
                "div": (2, 1 << 17, 1.0000001), "sincosf": (3, 1 << 15, 0.0),
-               "hypotf": (4, 1 << 16, 1e-3)}
+               "hypotf": (4, 1 << 16, 1e-3), "clock_step": (5, 1 << 19, 0.3)}
 
 # Dependent operations on each sequential stage's chain, per sample and per
 # emitted symbol (the latencies come from LATENCY_OPS' measurement).
@@ -1037,14 +1112,15 @@ COSTAS_CHAIN = {"sincosf": 1, "div": 1, "mul": 4, "add": 8}
 POLE_CHAIN = {"mul": 1, "add": 2}
 # decoder 2's AGC: out = v gain, gain += rate (ref - hypotf(out))
 AGC_CHAIN = {"hypotf": 1, "mul": 2, "add": 2}
+# decoder 3's clock phase chain, x = ph + omega, less 2 pi where x reaches
+# it (measured whole as "clock_step"), on a warp of the Costas stage beside
+# the Costas thread (so that stage's floor is the Costas chain's)
+CLOCK_CHAIN = {"clock_step": 1}
 STAGE_CHAINS = {
     ("rds_decoder1", "costas"): (COSTAS_CHAIN, {}),
     ("rds_decoder1", "poles_emit"): (POLE_CHAIN, {}),
     ("rds_decoder2", "mm_core"): (AGC_CHAIN, COSTAS_CHAIN),
-    # decoder 3 (one kernel): the Costas step, its 21-tap ring as one
-    # accumulator, and the bit clock's sinf (fmodf not counted)
-    ("rds_decoder3", "scan"): ({"sincosf": 2, "div": 1, "mul": 4,
-                                "add": 8 + 21 + 4}, {}),
+    ("rds_decoder3", "costas"): (COSTAS_CHAIN, {}),
 }
 
 
@@ -1119,7 +1195,9 @@ def _flops_per_sample(kind: str, cfg) -> int:
         return 12 + 2 * 20 + 2 * taps + POLE_FLOPS * len(cfg.sharp.poles)
     if kind == "scan2":
         return 4 * len(cfg.rrc) + 8 + 12 + (12 + 40) // 20
-    return 12 + 2 * 20 + 2 * len(cfg.lp21) + 20 + 4
+    # decoder 3: the Costas step, the clock phase step, its sinf and the
+    # integrator (its lowpass only at ~N+1 outputs a block: not counted)
+    return 12 + 2 * 20 + 2 + 20 + 2
 
 
 def _bound_ms(nbytes: float, flops: float):
@@ -1128,9 +1206,17 @@ def _bound_ms(nbytes: float, flops: float):
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
-def _fir_stage_bound(name: str, cfg, n: int):
-    """A FIR stage's bound: its n x components inputs read and outputs
-    written once, the taps and histories; 2 flops a tap and output."""
+def _stage_bound(name: str, cfg, n: int, cap: int):
+    """A parallel stage's bound.  A FIR stage: its n x components inputs
+    read and outputs written once, the taps and histories; 2 flops a tap
+    and output.  Decoder 3's clock stage: 4r and the phases read, the bits
+    and points written, its state run twice; a sinf (~20 flops) and the
+    integrator (2) a sample, the lowpass at N+1 outputs."""
+    if name == "clock":
+        K, N = len(cfg.lp21), cfg.symbol_ceiling
+        run = K - 1 + N + 6
+        return _bound_ms(n * 8 + (n + 1) * 4 + cap * 9 + 2 * run * 4,
+                         22 * n + 2 * K * (N + 1))
     if name == "fir_rrc":
         K, nc = len(cfg.rrc), 2
     else:
@@ -1175,7 +1261,10 @@ def phase_option_times(a_err, b_err, launches, card):
         "bound_ms": a_bound, "bound_by": a_by,
         "library_ms": None, "host_us_per_call": a_host,
         "shape": f"2 banks x 10 poles x {M} float32 (the squelch's, per "
-                 f"block; two launches a call)"}]
+                 f"block; one launch a call)"}]
+    emit({"phase": "times", "what": "launch", "kernel": "pole_bank",
+          "stage": "pole_bank_kernel", "ms": a_ms, "host_us_per_call": a_host,
+          "bound_ms": a_bound, "bound_by": a_by, "card": card})
     cycles, clock = phase_latency(card)
     z = _rds_baseband(1.0).to(dev)[:M // 8]
     n = z.shape[0]
@@ -1202,6 +1291,9 @@ def phase_option_times(a_err, b_err, launches, card):
             line = {"phase": "times", "what": "stage", "kernel": name,
                     "stage": sname, "ms": s_ms, "host_us_per_call": s_host,
                     "samples": n, "card": card}
+            if (name, sname) == ("rds_decoder3", "costas"):
+                line["clock_chain_floor_ms"] = (
+                    n * _chain_cycles(CLOCK_CHAIN, cycles) / clock * 1e3)
             if (name, sname) in STAGE_CHAINS:
                 line["latency_floor_ms"] = _floor_ms(
                     (name, sname), n, symbols, cycles, clock)
@@ -1210,8 +1302,8 @@ def phase_option_times(a_err, b_err, launches, card):
                                "share_of_floor": line["latency_floor_ms"]
                                / s_ms})
             else:
-                line["bound_ms"], line["bound_by"] = _fir_stage_bound(
-                    sname, cfg, n)
+                line["bound_ms"], line["bound_by"] = _stage_bound(
+                    sname, cfg, n, cap)
             emit(line)
         kernels.append({
             "name": name, "route": "cuda",
@@ -1240,19 +1332,14 @@ def phase_option_times(a_err, b_err, launches, card):
     return kernels
 
 
-def _heavy_rx():
-    from sdrjfm_tpu_torch.models.receiver import Receiver, ReceiverConfig
-    return Receiver(ReceiverConfig(block_fm=BLOCK_FM, rds="scan2",
-                                   squelch="nsq", input_filter=True,
-                                   audio_filter_hz=15000, iq_format="i16"),
-                    device="cuda")
-
-
-def phase_heavy_step(wav, card):
-    """Step time and real-time factor of the heaviest option config."""
+def phase_config_step(wav, card, what: str, **options):
+    """Step time and real-time factor of an option config: the main path's
+    ReceiverConfig with `options` on top."""
     from sdrjfm_tpu_torch import constants as C
     from sdrjfm_tpu_torch.io.wavio import read_iq_wav_raw
-    rx = _heavy_rx()
+    from sdrjfm_tpu_torch.models.receiver import Receiver, ReceiverConfig
+    rx = Receiver(ReceiverConfig(block_fm=BLOCK_FM, audio_filter_hz=15000,
+                                 iq_format="i16", **options), device="cuda")
     T = rx.cfg.block_in
     iq, _ = read_iq_wav_raw(str(wav))
     blocks = [torch.from_numpy(np.array(iq[b * T:(b + 1) * T])).to("cuda")
@@ -1272,8 +1359,8 @@ def phase_heavy_step(wav, card):
         torch.cuda.synchronize()
         steps.append(a.elapsed_time(e) / len(blocks))
     step_ms = statistics.median(steps)
-    emit({"phase": "times", "what": "step, input filter + nsq + scan2",
-          "block_fm": BLOCK_FM, "step_ms": step_ms, "step_ms_all": steps,
+    emit({"phase": "times", "what": f"step, {what}", "block_fm": BLOCK_FM,
+          "step_ms": step_ms, "step_ms_all": steps,
           "fm_stereo_rds_realtime_x": T / C.INPUT_RATE / (step_ms / 1e3),
           "card": card})
     return rx
@@ -1297,8 +1384,12 @@ def main() -> int:
     kernels = phase_times(rx, wav, fe_err, sc_err, launches, card)
     kernels += phase_option_times(a_err, b_err, opt_launches, card)
     phase_profile(rx, wav, card)
-    heavy = phase_heavy_step(wav, card)
-    phase_profile(heavy, wav, card, "input filter + nsq + scan2")
+    for what, options in (("input filter + nsq + scan2",
+                           dict(rds="scan2", squelch="nsq",
+                                input_filter=True)),
+                          ("scan3", dict(rds="scan3"))):
+        phase_profile(phase_config_step(wav, card, what, **options), wav,
+                      card, what)
     wav.unlink()                      # 74 MB: keep the output folder small
     (OUT / "kernels.json").write_text(json.dumps({"card": card,
                                                    "kernels": kernels},

@@ -211,35 +211,61 @@ int sdr_linrec_chunk() { return CHUNK; }
 // poles over 131072 samples a block.
 //
 // What bounds it on an H100: it reads B*T floats and writes B*T floats
-// (2 MB a block for the squelch, under 1 us at 3.35 TB/s) and does 8 flops
-// per pole and sample twice over (0.04 GFLOP, under 1 us at 67 TFLOP/s):
-// latency-bound, like the real scan.  Design, reduce-then-scan in two
-// launches over chunks of 4096 samples (grid chunks x banks, 256 threads,
-// 16 consecutive samples a thread):
-//   * pole_agg_kernel: each chunk's zero-carry-in end state per pole (a
-//     thread runs its 16 samples in sequence, a shuffle tree and the block
-//     join the segments);
-//   * pole_scan_kernel: each chunk takes its carry-in from w0 and its
-//     predecessors' aggregates in sequence (at most T/4096 complex FMAs a
-//     pole), then a shuffle scan gives each thread its carry-in, and the
-//     thread reruns its 16 samples from it, summing Re(r w) over the poles
-//     in registers: the [P, T] pole states never reach device memory.
-// Every join of segments multiplies by a power g^(16 * 2^k) computed in
-// float64 on the host and rounded once (a power formed as exp(n log g) in
-// f32 would lose ~n * 1e-7 rad of phase), so each join costs at most a few
-// f32 roundings; inside a segment the recurrence runs exactly as written.
-// Deterministic: no atomics, no look-back.  Measured: PERF.md (chip_smoke.py
-// phases kernels and times).
+// (2 MB a block for the squelch, under 1 us at 3.35 TB/s) and does 11
+// flops per pole and sample (0.03 GFLOP, under 1 us at 67 TFLOP/s):
+// latency-bound, like the real scan.  Design, one launch and a single
+// pass, as the real scan above:
+//   * grid: one block a chunk of CHUNK = 2048 samples of one bank (128
+//     blocks for the squelch's 2 x 131072), 256 threads of SEG = 8
+//     consecutive samples (on the card, 2048-sample chunks beat 1024: the
+//     look-back spans fewer chunks); blocks take their chunk from a ticket
+//     counter in the order they start, so a chunk waits only on chunks
+//     already running;
+//   * the chunk is staged in shared memory by coalesced loads (padded, so
+//     that a thread's 8 samples sit in 8 banks) and each sample is read
+//     once: per pole, the thread runs the zero-carry recurrence over its
+//     segment and accumulates y_loc[i] = Re sum_p r_p w_loc_p[i] in
+//     registers; a warp scan and the block's walk over its 4 warps join the
+//     segments' ends; the table is staged with every load in flight;
+//   * the chunk's carry-in, P complex values, comes from a decoupled
+//     look-back: each chunk publishes its aggregate (the zero-carry state at
+//     its end), then its inclusive prefix, into payload arrays, and only
+//     then release-stores the flag word (the call's epoch and the state), so
+//     a reader that acquire-loads a ready flag finds the payload.  Warp 0
+//     reads LOOK = 64 predecessors' flags at a time (two a lane: one step
+//     covers a 131072-sample row) until one holds a prefix, and sums the
+//     payloads in between with their powers (a warp reduction a pole);
+//   * no rerun: y[i] = y_loc[i] + Re sum_p (r_p g_p^(i+1)) C_p, with C_p the
+//     state just before the thread's segment, and the state at T-1 is
+//     w_loc + g^(i+1) C.
+// Every power (the warp scan's g^(SEG 2^k), g^(SEG lane), g^(SEG 32),
+// g^(CHUNK m), the correction's r g^(i+1) and g^(i+1)) is computed in
+// float64 on the host and rounded once (kernels/linrec.py pole_table): a
+// power formed in f32 would lose ~n * 1e-7 rad of phase.  Rounding of the
+// look-back sum depends on which predecessors had published their prefix,
+// so results may differ in the last bits between runs.  Measured: PERF.md
+// (chip_smoke.py phases kernels and times).
 // ---------------------------------------------------------------------------
 
 namespace poles {
 
 constexpr int THREADS = 256;
-constexpr int SEG = 16;                       // consecutive samples a thread
-constexpr int CHUNK = THREADS * SEG;          // 4096 samples a thread block
+constexpr int SEG = 8;                        // consecutive samples a thread
+constexpr int CHUNK = THREADS * SEG;          // 1024 samples a thread block
 constexpr int WARPS = THREADS / 32;
-constexpr int NPOW = 9;                       // g^(SEG * 2^k), k < NPOW
 constexpr int MAXP = 16;                      // poles a bank, at most
+constexpr int LPL = 2;                        // predecessors a lane reads
+constexpr int LOOK = 32 * LPL;                // predecessors a look-back step
+// the per-pole table (complex64 each; kernels/linrec.py pole_table)
+constexpr int T_G = 0;                        // g
+constexpr int T_R = 1;                        // r
+constexpr int T_RG = 2;                       // r g^(i+1), i < SEG
+constexpr int T_GI = T_RG + SEG;              // g^(i+1), i < SEG
+constexpr int T_GS = T_GI + SEG;              // g^(SEG 2^k), k < 5
+constexpr int T_GL = T_GS + 5;                // g^(SEG l), l < 32
+constexpr int T_GW = T_GL + 32;               // g^(SEG 32), a warp's span
+constexpr int T_GC = T_GW + 1;                // g^(CHUNK m), m <= LOOK
+constexpr int NTAB = T_GC + LOOK + 1;
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
@@ -258,173 +284,248 @@ __device__ __forceinline__ float2 shfl_up2(float2 v, int o) {
   return make_float2(__shfl_up_sync(FULL, v.x, o),
                      __shfl_up_sync(FULL, v.y, o));
 }
-__device__ __forceinline__ float2 shfl_down2(float2 v, int o) {
-  return make_float2(__shfl_down_sync(FULL, v.x, o),
-                     __shfl_down_sync(FULL, v.y, o));
+__device__ __forceinline__ float2 shfl_xor2(float2 v, int o) {
+  return make_float2(__shfl_xor_sync(FULL, v.x, o),
+                     __shfl_xor_sync(FULL, v.y, o));
 }
-// g^(SEG * n) for 0 <= n < 2^NPOW, a product of the binary powers
-__device__ __forceinline__ float2 seg_pow(const float2* pw, int n) {
-  float2 r = make_float2(1.0f, 0.0f);
-#pragma unroll
-  for (int k = 0; k < NPOW; ++k)
-    if ((n >> k) & 1) r = cmul(r, pw[k]);
-  return r;
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
 }
-
-__device__ __forceinline__ void load_seg(const float* __restrict__ d,
-                                         long long rbase, int base, int T,
-                                         float (&x)[SEG]) {
-#pragma unroll
-  for (int i = 0; i < SEG; ++i)
-    x[i] = base + i < T ? d[rbase + base + i] : 0.0f;
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
+// flags [B * nch] (epoch << 2 | state), agg / pfx [B * nch * P] complex64:
+// each chunk's aggregate and inclusive prefix; ticket: one counter, the
+// launch's tickets are base .. base + B * nch - 1.
 __global__ void __launch_bounds__(THREADS)
-pole_agg_kernel(const float* __restrict__ d, const float2* __restrict__ g,
-                const float2* __restrict__ pw, float2* __restrict__ agg,
-                int P, int T) {
-  __shared__ float2 s_pw[MAXP][NPOW];
-  __shared__ float2 s_w[MAXP][WARPS];
+pole_bank_kernel(const float* __restrict__ d, const float2* __restrict__ tab,
+                 const float2* __restrict__ w0, float* __restrict__ y,
+                 float2* __restrict__ wT, int P, int T, int nch,
+                 unsigned* __restrict__ flags, float2* __restrict__ agg,
+                 float2* __restrict__ pfx, unsigned* __restrict__ ticket,
+                 unsigned base, unsigned epoch) {
+  __shared__ float buf[CHUNK + CHUNK / 32];
+  __shared__ float2 s_tab[MAXP][NTAB];
+  __shared__ float2 s_w[MAXP][WARPS];   // warp ends, then the state before
+                                        // each warp
+  __shared__ float2 s_wloc[MAXP];
+  __shared__ unsigned s_ticket;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int chunk = blockIdx.x, b = blockIdx.y, nchunks = gridDim.x;
-  for (int i = tid; i < P * NPOW; i += THREADS)
-    s_pw[i / NPOW][i % NPOW] = pw[(long long)b * P * NPOW + i];
-  float x[SEG];
-  load_seg(d, (long long)b * T, chunk * CHUNK + tid * SEG, T, x);
+  if (tid == 0) s_ticket = atomicAdd(ticket, 1u) - base;
   __syncthreads();
+  const int b = (int)(s_ticket / (unsigned)nch);
+  const int c = (int)(s_ticket % (unsigned)nch);
+  const long long rbase = (long long)b * T;
+  const long long slot = (long long)b * nch + c;
+  const int c0 = c * CHUNK;
+  const int len = min(CHUNK, T - c0);
+  {
+    // every load in flight before the first store
+    constexpr int ITERS = (MAXP * NTAB + THREADS - 1) / THREADS;
+    const float2* tb = tab + (long long)b * P * NTAB;
+    float2 t[ITERS];
 #pragma unroll
-  for (int p = 0; p < MAXP; ++p) {
-    if (p >= P) break;
-    const float2 gp = g[b * P + p];
-    float2 a = make_float2(0.0f, 0.0f);
-#pragma unroll
-    for (int i = 0; i < SEG; ++i) a = step(gp, a, x[i]);
-    // shuffle tree: the left segment decays across the right one
-#pragma unroll
-    for (int k = 0; k < 5; ++k) {
-      const int o = 1 << k;
-      const float2 right = shfl_down2(a, o);
-      if ((lane & (2 * o - 1)) == 0) a = cfma(s_pw[p][k], a, right);
+    for (int k = 0; k < ITERS; ++k) {
+      const int i = tid + k * THREADS;
+      if (i < P * NTAB) t[k] = tb[i];
     }
-    if (lane == 0) s_w[p][warp] = a;
+#pragma unroll
+    for (int k = 0; k < ITERS; ++k) {
+      const int i = tid + k * THREADS;
+      if (i < P * NTAB) s_tab[i / NTAB][i % NTAB] = t[k];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < SEG; ++k) {
+    const int i = tid + k * THREADS;
+    buf[pad(i)] = i < len ? d[rbase + c0 + i] : 0.0f;
   }
   __syncthreads();
-  if (tid < P) {
-    float2 A = s_w[tid][0];
-    for (int w = 1; w < WARPS; ++w) A = cfma(s_pw[tid][5], A, s_w[tid][w]);
-    agg[((long long)b * nchunks + chunk) * P + tid] = A;
+  float x[SEG], yl[SEG];
+#pragma unroll
+  for (int i = 0; i < SEG; ++i) {
+    x[i] = buf[pad(tid * SEG + i)];
+    yl[i] = 0.0f;
   }
-}
-
-__global__ void __launch_bounds__(THREADS)
-pole_scan_kernel(const float* __restrict__ d, const float2* __restrict__ g,
-                 const float2* __restrict__ r, const float2* __restrict__ pw,
-                 const float2* __restrict__ w0,
-                 const float2* __restrict__ agg, float* __restrict__ y,
-                 float2* __restrict__ wT, int P, int T) {
-  __shared__ float2 s_pw[MAXP][NPOW];
-  __shared__ float2 s_w[MAXP][WARPS];
-  __shared__ float2 s_E[MAXP];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int chunk = blockIdx.x, b = blockIdx.y, nchunks = gridDim.x;
-  for (int i = tid; i < P * NPOW; i += THREADS)
-    s_pw[i / NPOW][i % NPOW] = pw[(long long)b * P * NPOW + i];
-  const int base = chunk * CHUNK + tid * SEG;
-  float x[SEG];
-  load_seg(d, (long long)b * T, base, T, x);
-  __syncthreads();
-  if (tid < P) {
-    // the state just before this chunk: w0, then each predecessor chunk
-    const float2 gC = s_pw[tid][NPOW - 1];    // g^CHUNK
-    float2 E = w0[b * P + tid];
-    for (int k = 0; k < chunk; ++k)
-      E = cfma(gC, E, agg[((long long)b * nchunks + k) * P + tid]);
-    s_E[tid] = E;
-  }
-  float2 C[MAXP], X[MAXP];
+  const int first_n = c0 + tid * SEG;           // this thread's first sample
+  float2 X[MAXP];                               // zero-carry state before
+                                                // the segment, in the warp
 #pragma unroll
   for (int p = 0; p < MAXP; ++p) {
-    if (p >= P) break;
-    const float2 gp = g[b * P + p];
+    if (p >= P) break;                          // P is uniform
+    const float2 g = s_tab[p][T_G], r = s_tab[p][T_R];
     float2 a = make_float2(0.0f, 0.0f);
 #pragma unroll
-    for (int i = 0; i < SEG; ++i) a = step(gp, a, x[i]);
-    // warp inclusive scan of the segments' zero-carry ends
+    for (int i = 0; i < SEG; ++i) {
+      a = step(g, a, x[i]);
+      yl[i] = fmaf(r.x, a.x, fmaf(-r.y, a.y, yl[i]));
+      if (first_n + i == T - 1) s_wloc[p] = a;
+    }
     float2 W = a;
 #pragma unroll
     for (int k = 0; k < 5; ++k) {
       const int o = 1 << k;
       const float2 up = shfl_up2(W, o);
-      if (lane >= o) W = cfma(s_pw[p][k], up, W);
+      if (lane >= o) W = cfma(s_tab[p][T_GS + k], up, W);
     }
-    float2 xl = shfl_up2(W, 1);
-    if (lane == 0) xl = make_float2(0.0f, 0.0f);
-    X[p] = xl;
+    X[p] = shfl_up2(W, 1);
+    if (lane == 0) X[p] = make_float2(0.0f, 0.0f);
     if (lane == 31) s_w[p][warp] = W;
   }
   __syncthreads();
-  if (tid < P) {
-    // exclusive prefix over the warps, zero carry into the chunk
-    float2 acc = make_float2(0.0f, 0.0f);
-    for (int w = 0; w < WARPS; ++w) {
-      const float2 wt = s_w[tid][w];
-      s_w[tid][w] = acc;
-      acc = cfma(s_pw[tid][5], acc, wt);
+
+  if (warp == 0) {
+    float2 E = make_float2(0.0f, 0.0f);         // the state before the chunk
+    if (c == 0) {
+      if (lane < P) E = w0[b * P + lane];
+    } else {
+      if (lane < P) {
+        float2 A = make_float2(0.0f, 0.0f);     // the chunk, zero carry-in
+        for (int w = 0; w < WARPS; ++w)
+          A = cfma(s_tab[lane][T_GW], A, s_w[lane][w]);
+        agg[slot * P + lane] = A;
+        __threadfence();
+      }
+      __syncwarp();
+      if (lane == 0) st_release(flags + slot, (epoch << 2) | AGG);
+      // lane p < P ends with pole p's sum; the window's power in `mult`
+      float2 mult = make_float2(1.0f, 0.0f);
+      for (int first = c - 1;; first -= LOOK) {
+        // lane j reads the chunks first - m, m = j + 32 k for k < LPL (m
+        // chunks before chunk first; their ends decay by g^(CHUNK m))
+        unsigned st[LPL];
+        bool wait;
+        do {
+          wait = false;
+#pragma unroll
+          for (int k = 0; k < LPL; ++k) {
+            const int pred = first - lane - 32 * k;
+            st[k] = PFX;                        // before chunk 0: never read
+            if (pred >= 0) {
+              const unsigned f = ld_acquire(flags + (slot - c + pred));
+              st[k] = (f >> 2) == epoch ? (f & 3u) : 0u;
+            }
+            wait |= st[k] == 0u;
+          }
+        } while (__any_sync(FULL, wait));
+        int kp = LOOK;                          // m of the nearest prefix
+#pragma unroll
+        for (int k = LPL - 1; k >= 0; --k) {
+          const unsigned pm = __ballot_sync(FULL, st[k] == PFX);
+          if (pm) kp = 32 * k + __ffs(pm) - 1;
+        }
+        float2 acc[MAXP];
+#pragma unroll
+        for (int p = 0; p < MAXP; ++p) acc[p] = make_float2(0.0f, 0.0f);
+#pragma unroll
+        for (int k = 0; k < LPL; ++k) {
+          const int m = lane + 32 * k, pred = first - m;
+          const bool use = m <= kp && pred >= 0;
+          const float2* src =
+              (st[k] == PFX ? pfx : agg) + (slot - c + max(pred, 0)) * P;
+          // all P loads in flight at once, then the weighted sums
+          float2 v[MAXP];
+#pragma unroll
+          for (int p = 0; p < MAXP; ++p)
+            v[p] = (use && p < P) ? __ldcg(src + p) : make_float2(0.0f, 0.0f);
+#pragma unroll
+          for (int p = 0; p < MAXP; ++p)
+            if (p < P) acc[p] = cfma(s_tab[p][T_GC + m], v[p], acc[p]);
+        }
+#pragma unroll
+        for (int p = 0; p < MAXP; ++p) {
+          if (p < P) {
+            float2 t = acc[p];
+#pragma unroll
+            for (int o = 16; o > 0; o >>= 1) {
+              const float2 u = shfl_xor2(t, o);
+              t.x += u.x;
+              t.y += u.y;
+            }
+            if (p == lane) E = cfma(mult, t, E);
+          }
+        }
+        if (kp < LOOK) break;
+        if (lane < P) mult = cmul(mult, s_tab[lane][T_GC + LOOK]);
+      }
     }
+    if (lane < P) {
+      // the state before each warp, then after the chunk: its prefix
+      float2 acc = E;
+      for (int w = 0; w < WARPS; ++w) {
+        const float2 wt = s_w[lane][w];
+        s_w[lane][w] = acc;
+        acc = cfma(s_tab[lane][T_GW], acc, wt);
+      }
+      pfx[slot * P + lane] = acc;
+      __threadfence();
+    }
+    __syncwarp();
+    if (lane == 0) st_release(flags + slot, (epoch << 2) | PFX);
   }
   __syncthreads();
-  float yv[SEG];
-#pragma unroll
-  for (int i = 0; i < SEG; ++i) yv[i] = 0.0f;
+
+  // the carry's part: C = the state just before this thread's segment
 #pragma unroll
   for (int p = 0; p < MAXP; ++p) {
     if (p >= P) break;
-    // carry into this thread's segment
-    C[p] = cfma(seg_pow(s_pw[p], lane), s_w[p][warp], X[p]);
-    C[p] = cfma(seg_pow(s_pw[p], tid), s_E[p], C[p]);
-    const float2 gp = g[b * P + p], rp = r[b * P + p];
-    float2 w = C[p];
+    const float2 C = cfma(s_tab[p][T_GL + lane], s_w[p][warp], X[p]);
 #pragma unroll
     for (int i = 0; i < SEG; ++i) {
-      w = step(gp, w, x[i]);
-      yv[i] = fmaf(rp.x, w.x, fmaf(-rp.y, w.y, yv[i]));
-      if (base + i == T - 1) wT[b * P + p] = w;
+      const float2 rg = s_tab[p][T_RG + i];
+      yl[i] = fmaf(rg.x, C.x, fmaf(-rg.y, C.y, yl[i]));
     }
+    const int il = T - 1 - first_n;
+    if (il >= 0 && il < SEG)
+      wT[b * P + p] = cfma(s_tab[p][T_GI + il], C, s_wloc[p]);
   }
-  const long long rbase = (long long)b * T;
 #pragma unroll
-  for (int i = 0; i < SEG; ++i)
-    if (base + i < T) y[rbase + base + i] = yv[i];
+  for (int i = 0; i < SEG; ++i) buf[pad(tid * SEG + i)] = yl[i];
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < SEG; ++k) {
+    const int i = tid + k * THREADS;
+    if (i < len) y[rbase + c0 + i] = buf[pad(i)];
+  }
 }
 
 }  // namespace poles
 
 extern "C" {
 
-// d, y: [B, T] float32; g (poles), r (residues), w0, wT: [B, P] complex64
-// (float2); pw: [B, P, NPOW] complex64 with pw[b, p, k] = g^(16 * 2^k)
-// from float64; agg: B * ceil(T/4096) * P complex64 of scratch.  All device
-// pointers; two launches on `stream`.  Returns cudaGetLastError().
-int sdr_pole_bank(const void* d, const void* g, const void* r, const void* pw,
-                  const void* w0, void* y, void* wT, void* agg, int B, int P,
-                  int T, void* stream) {
-  if (B < 1 || B > 65535 || P < 1 || P > poles::MAXP || T < 1)
+// d, y: [B, T] float32; tab: [B, P, sdr_pole_ntab()] complex64 (float2),
+// the per-pole table; w0, wT: [B, P] complex64.  The look-back scratch:
+// flags: B * nch 32-bit words, zeroed once; agg, pfx: B * nch * P complex64
+// each; ticket: one 32-bit counter, zeroed once, which each launch advances
+// by B * nch (base: its value before this launch, mod 2^32).  nch =
+// ceil(T / sdr_pole_chunk()).  epoch is in [1, 2^30) and differs from the
+// previous launch's that used the same flags (such launches must run in
+// stream order).  All device pointers; one launch on `stream`.  Returns
+// cudaGetLastError().
+int sdr_pole_bank(const void* d, const void* tab, const void* w0, void* y,
+                  void* wT, int B, int P, int T, void* flags, void* agg,
+                  void* pfx, void* ticket, unsigned base, unsigned epoch,
+                  void* stream) {
+  if (B < 1 || P < 1 || P > poles::MAXP || T < 1
+      || T > 0x7fffffff - poles::CHUNK || epoch < 1u || epoch >= (1u << 30))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((T + poles::CHUNK - 1) / poles::CHUNK),
-                  (unsigned)B);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  poles::pole_agg_kernel<<<grid, poles::THREADS, 0, s>>>(
-      (const float*)d, (const float2*)g, (const float2*)pw, (float2*)agg, P,
-      T);
-  const int rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  poles::pole_scan_kernel<<<grid, poles::THREADS, 0, s>>>(
-      (const float*)d, (const float2*)g, (const float2*)r, (const float2*)pw,
-      (const float2*)w0, (const float2*)agg, (float*)y, (float2*)wT, P, T);
+  const long long nch = (T + poles::CHUNK - 1) / poles::CHUNK;
+  if (nch * B > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  poles::pole_bank_kernel<<<(unsigned)(nch * B), poles::THREADS, 0,
+                            reinterpret_cast<cudaStream_t>(stream)>>>(
+      (const float*)d, (const float2*)tab, (const float2*)w0, (float*)y,
+      (float2*)wT, P, T, (int)nch, (unsigned*)flags, (float2*)agg,
+      (float2*)pfx, (unsigned*)ticket, base, epoch);
   return (int)cudaGetLastError();
 }
 
 int sdr_pole_chunk() { return poles::CHUNK; }
+int sdr_pole_seg() { return poles::SEG; }
 int sdr_pole_maxp() { return poles::MAXP; }
+int sdr_pole_look() { return poles::LOOK; }
+int sdr_pole_ntab() { return poles::NTAB; }
 
 }  // extern "C"

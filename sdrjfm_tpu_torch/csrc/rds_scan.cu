@@ -12,10 +12,9 @@
 // and bits/iq from count to cap are zeroed), and, when `iqs` is not null,
 // the per-sample 24 kHz iq stream (the RDS_DEMOD scope tap).
 //
-// Decoders 1 and 2 run in stages, one launch each on the caller's stream;
-// the wrapper (rds/scan_decoders.py) launches them in order, owns the
-// scratch between them and places every history and state run in the
-// packed state:
+// Each decoder runs in stages, one launch each on the caller's stream; the
+// wrapper (rds/scan_decoders.py) launches them in order, owns the scratch
+// between them and places every history and state run in the packed state:
 //   decoder 1: costas_kernel      one thread: the Costas loop; writes 4r
 //              fir_kernel x 3     parallel, one output a thread: the 21-tap
 //                                 lowpass of Re(4r), the bi-phase match, the
@@ -26,8 +25,16 @@
 //                                 at a time
 //   decoder 2: fir_kernel         parallel: the 45-tap RRC, re and im apart
 //              mm_core_kernel     one thread: AGC, M&M timing, Costas
+//   decoder 3: costas_kernel      decoder 1's stage 1, as it is
+//              clock_kernel       one block: the lowpass outputs it reads,
+//                                 the bit-clock phase chain on one thread,
+//                                 then clk, the emits and the
+//                                 integrate-and-dump in parallel
 // Only the feedback recursions stay on one thread: no FIR feeds back into
-// them, so the FIRs are a parallel pre-pass between the sequential stages.
+// them, so the FIRs are a parallel pre-pass between the sequential stages;
+// decoder 3's integrator is reset at each emit, and its clock phase needs
+// no data, so only its phase chain (an add and a compare-and-select a
+// sample) stays sequential besides the Costas loop.
 //
 // What bounds each stage on an H100.  The sequential stages: the
 // recursion's dependency chain on one thread, not bytes (128 KB a block)
@@ -44,10 +51,8 @@
 // staged one chunk ahead by the whole block with cp.async (a ring of two
 // chunks of STAGE_CHUNK samples; any T >= 1).  Its stores go straight out.
 // A FIR stage stages its window and taps in shared memory and sums each
-// output in the order of the sequential ring it replaces.
-//
-// Decoder 3 (decoder3_kernel) is still one thread a stream with its FIR ring
-// in local memory; its redesign is next (ROADMAP.md queue 2).
+// output in the order of the sequential ring it replaces (acc = 0, then
+// acc + taps[k] * x[n-k] for k = 0..K-1).
 //
 // The source builds without FMA contraction (-fmad=false, kernels/build.py)
 // and without fast math, so each multiply and add rounds on its own, as in
@@ -74,32 +79,6 @@ constexpr int HEAD = 9;
 __device__ __forceinline__ Head read_head(const float* c) {
   return Head{c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], c[8]};
 }
-
-// FIR history of K samples in a doubled ring: the window oldest..newest is
-// v[h+1 .. h+K] after a push at h.
-struct Ring {
-  float v[2 * MAX_TAPS];
-  int K, h;
-  __device__ void init(const float* hist, int k) {  // hist: K-1, oldest first
-    K = k;
-    h = 0;
-    for (int j = 1; j < K; ++j) v[j] = v[j + K] = hist[j - 1];
-  }
-  // push x, return sum_k taps[k] * x[n-k], summed k = 0..K-1
-  __device__ float push(float x, const float* taps) {
-    v[h] = x;
-    v[h + K] = x;
-    // one accumulator, k in order; unrolled so the loads issue ahead
-    float acc = 0.0f;
-#pragma unroll 8
-    for (int k = 0; k < K; ++k) acc = acc + taps[k] * v[h + K - k];
-    h = h + 1 == K ? 0 : h + 1;
-    return acc;
-  }
-  __device__ void save(float* out) const {  // the last K-1 inputs
-    for (int j = 0; j < K - 1; ++j) out[j] = v[h + 1 + j];
-  }
-};
 
 struct Costas {
   float freq, phase;
@@ -129,13 +108,6 @@ struct Emitter {
       biq[count] = iq;
     }
     ++count;
-  }
-  __device__ void finish(int* out) {
-    for (int i = count; i < cap; ++i) {
-      bits[i] = 0;
-      biq[i] = make_float2(0.0f, 0.0f);
-    }
-    *out = count;
   }
 };
 
@@ -170,9 +142,10 @@ struct Staging {
   __device__ int len(int c) const {
     return min(STAGE_CHUNK, T - c * STAGE_CHUNK);
   }
-  __device__ void issue(int c) const {  // every thread, its share of chunk c
+  // each of the STAGE_THREADS staging threads, its share of chunk c
+  __device__ void issue(int c) const {
     const int base = c * STAGE_CHUNK, n = len(c);
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    for (int i = threadIdx.x; i < n; i += STAGE_THREADS) {
 #pragma unroll
       for (int s = 0; s < NS; ++s)
         cp_async8(&ring[c & 1][s][i], src[s] + base + i);
@@ -190,22 +163,123 @@ __device__ void zero_tail(const Emitter& em, int count) {
 }
 
 // ---------------------------------------------------------------------------
-// decoder 1, stage 1: the Costas loop (sequential)
+// decoders 1 and 3, stage 1: the Costas loop (sequential); for decoder 3
+// also its bit clock's phase chain, on a warp of its own
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(STAGE_THREADS)
+// jnp.mod(x, 2 pi) in float32
+__device__ __forceinline__ float mod_2pi(float x, float two_pi) {
+  const float r = fmodf(x, two_pi);
+  return (r != 0.0f && r < 0.0f) ? r + two_pi : r;
+}
+
+// One step of the clock phase, x = ph + omega.  For 0 <= x < 4 pi the
+// compare-and-subtract is exact (x - 2 pi for 2 pi <= x <= 2 * 2 pi is exact
+// by Sterbenz's lemma) and equals fmodf(x, 2 pi) and mod_2pi(x) bit for bit.
+// Every step but the first starts from a phase in [0, 2 pi], so only the
+// first, from a phase handed in from outside, may need mod_2pi.
+__device__ __forceinline__ float wrap_step(float x, float two_pi) {
+  return x >= two_pi ? x - two_pi : x;
+}
+__device__ __forceinline__ float first_step(float x, float two_pi) {
+  return (x >= 0.0f && x < 2.0f * two_pi) ? wrap_step(x, two_pi)
+                                          : mod_2pi(x, two_pi);
+}
+
+// Decoder 3's clock phase before each of the T samples and after the last
+// (ph [T + 1]) and the clock clk = sinf(ph) of each sample (clk [T]), on one
+// thread beside the Costas loop (sinf is off the chain).  The phase depends on
+// no data but its start: the state's phase, or at a resync the phase that
+// synchronizeOnBitClk (rds-decoder-3.cpp:119-154) finds in sync_buf with
+// filt[0] at p0.  filt[0] needs the Costas output of sample 0, which this
+// thread takes itself from z[0] and the Costas state (the same step, so the
+// same bits as the Costas thread's).  corr lives in shared memory.
+// clk_in: the run lp_buf [K-1], sync_buf [N], p, bit_integrator,
+// bit_clk_phase, prev_clk, prev_bit, need_resync.
+__device__ void clock_chain(const float2* __restrict__ z, int T,
+                            const float* __restrict__ c,
+                            const float* __restrict__ cs_in,
+                            const float* __restrict__ clk_in,
+                            float* __restrict__ ph, float* __restrict__ clk,
+                            float* corr) {
+  const Head H = read_head(c);
+  const int K = (int)c[HEAD], N = (int)c[HEAD + 1];
+  const int fl = (int)c[HEAD + 2];              // floor(rate / bit clock)
+  const float* lp = c + HEAD + 3;
+  const float* kf = lp + K;                     // fold index, as floats
+  const float* lp_buf = clk_in;
+  const float* sync_buf = clk_in + K - 1;
+  const int o = K - 1 + N;
+  const int p0 = (int)clk_in[o];
+  float x = clk_in[o + 2];
+  if (clk_in[o + 5] != 0.0f) {
+    Costas cs{cs_in[0], cs_in[1]};
+    const float2 r = cs.step(z[0].x, z[0].y, H, H.alpha, H.beta);
+    float f0 = 0.0f;                            // filt[0], as fir_in_order
+    for (int k = 0; k < K; ++k)
+      f0 = f0 + lp[k] * (k == 0 ? r.x * 4.0f : lp_buf[K - 1 - k]);
+    for (int j = 0; j < N; ++j) corr[j] = 0.0f;
+    const int first = p0 + 1 == N ? 0 : p0 + 1;
+    for (int j = 0; j < N; ++j) {
+      const int q = first + j >= N ? first + j - N : first + j;
+      const int k = (int)kf[j];
+      corr[k] = corr[k] + (q == p0 ? f0 : sync_buf[q]);
+    }
+    int pos1 = fl, pos2 = fl;
+    for (int j = 0; j < fl; ++j)
+      if (corr[j] <= 0.0f) { pos1 = j; break; }
+    for (int j = 0; j < fl; ++j)
+      if (corr[j] >= 0.0f && j > pos1) { pos2 = j; break; }
+    const int i_min = pos1 >= fl ? fl : min(pos2 + 1, fl);
+    x = mod_2pi(-H.omega * ((float)i_min - 1.0f), H.two_pi);
+  }
+  ph[0] = x;
+  clk[0] = sinf(x);
+  x = first_step(x + H.omega, H.two_pi);
+#pragma unroll 8
+  for (int n = 1; n < T; ++n) {
+    ph[n] = x;
+    clk[n] = sinf(x);
+    x = wrap_step(x + H.omega, H.two_pi);
+  }
+  ph[T] = x;
+}
+
+// the staging barrier of the Costas threads (the first STAGE_THREADS):
+// the whole block, or with a chain warp beside them, a named barrier
+template <bool CHAIN>
+__device__ __forceinline__ void stage_sync() {
+  if (CHAIN)
+    asm volatile("bar.sync 1, %0;" ::"n"(STAGE_THREADS) : "memory");
+  else
+    __syncthreads();
+}
+
+// CHAIN (decoder 3): two more warps; the second's lane 0 runs clock_chain
+// into ph [T + 1] and clk [T] = ph + T + 1 (on another scheduler than the
+// Costas thread's), the first exits.  Without CHAIN (decoder 1) clk_in and
+// ph are unused.
+template <bool CHAIN>
+__global__ void __launch_bounds__(CHAIN ? STAGE_THREADS + 64 : STAGE_THREADS)
     costas_kernel(const float2* __restrict__ z, int T, int nch,
                   const float* __restrict__ c,
                   const float* __restrict__ cs_in,  // freq, phase
-                  float* __restrict__ cs_out, float2* __restrict__ iq4) {
+                  float* __restrict__ cs_out, float2* __restrict__ iq4,
+                  const float* __restrict__ clk_in, float* __restrict__ ph) {
   __shared__ float2 ring[2][1][STAGE_CHUNK];
+  if (CHAIN && threadIdx.x >= STAGE_THREADS) {
+    __shared__ float corr[MAX_TAPS];
+    if (threadIdx.x == STAGE_THREADS + 32)
+      clock_chain(z, T, c, cs_in, clk_in, ph, ph + T + 1, corr);
+    return;
+  }
   const Staging<1> st{ring, {z}, T};
   const Head H = read_head(c);
   Costas cs{cs_in[0], cs_in[1]};
   st.issue(0);
   for (int k = 0; k < nch; ++k) {
     cp_async_wait_all();
-    __syncthreads();
+    stage_sync<CHAIN>();
     if (k + 1 < nch) st.issue(k + 1);
     if (threadIdx.x == 0) {
       const float2* s = ring[k & 1][0];
@@ -228,10 +302,10 @@ __global__ void __launch_bounds__(STAGE_THREADS)
 // the FIR pre-pass (parallel): decoder 1's three FIRs, decoder 2's RRC
 // ---------------------------------------------------------------------------
 
-// y[n] = sum_k taps[k] * in(n - k), summed k = 0..K-1 from 0.0f as
-// Ring::push sums it, for NC interleaved components (decoder 2's re and im
-// apart).  The input stream is the history `hist` (K-1 values a component,
-// oldest first) followed by x[j * xstride + c] for j = 0..T-1, squared
+// y[n] = sum_k taps[k] * in(n - k), summed k = 0..K-1 from 0.0f, for NC
+// interleaved components (decoder 2's re and im apart).  The input stream
+// is the history `hist` (K-1 values a component, oldest first) followed by
+// x[j * xstride + c] for j = 0..T-1, squared
 // first when SQUARE (the history already holds squares).  One output a
 // thread; block 0 also writes the new history, the last K-1 inputs.
 template <int NC, bool SQUARE>
@@ -493,85 +567,156 @@ __global__ void __launch_bounds__(STAGE_THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// decoder 3 (one thread a stream)
+// decoder 3, stage 2: the lowpass outputs it reads, the bit clock and the
+// integrate-and-dump (its stage 1 is costas_kernel)
 // ---------------------------------------------------------------------------
 
-// jnp.mod(x, 2 pi) in float32
-__device__ __forceinline__ float mod_2pi(float x, float two_pi) {
-  const float r = fmodf(x, two_pi);
-  return (r != 0.0f && r < 0.0f) ? r + two_pi : r;
-}
+constexpr int CLK_THREADS = 1024;
+constexpr int CLK_PER = 4;                          // samples a thread
+constexpr int CLK_CHUNK = CLK_THREADS * CLK_PER;    // samples a pass
+constexpr int CLK_MAX_EMITS = CLK_CHUNK / 2;        // no two emits in a row
 
-__global__ void decoder3_kernel(const float2* __restrict__ z, int T,
-                                const float* __restrict__ c,
-                                const float* __restrict__ si,
-                                float* __restrict__ so, Emitter em,
-                                int* __restrict__ count,
-                                float2* __restrict__ iqs) {
-  const Head H = read_head(c);
-  const int Ll = (int)c[HEAD], N = (int)c[HEAD + 1];
-  const int fl = (int)c[HEAD + 2];              // floor(rate / bit clock)
+// Decoder 3 needs of its 21-tap lowpass only filt[0] (the clock search at
+// a resync reads it through sync_buf: the Costas stage's chain warp took
+// it) and the last min(T, N) outputs (the new sync_buf), N =
+// symbol_ceiling; each is summed k = 0..K-1 from 0 as fir_in_order sums
+// it.  The clock and its phases come from the Costas stage (clock_chain).
+// A pass of CLK_CHUNK samples at a time, the block takes the emits
+// (clk[n-1] <= 0 < clk[n]) and their slots by a block prefix count,
+// and one thread a bit sums integ = integ + clk * v over its segment in
+// sample order (from the carried integrator in the first segment, from 0
+// after each emit), so every sum is the sequential loop's.  v is Re(4r),
+// the Costas stage's output; the points are 4r at the emits.  Nothing is
+// sequential here beyond a segment of ~20 samples.
+// st_in / st_out: lp_buf [K-1], sync_buf [N], p, bit_integrator,
+// bit_clk_phase, prev_clk, prev_bit, need_resync.
+__global__ void __launch_bounds__(CLK_THREADS)
+    clock_kernel(const float2* __restrict__ iq4, const float* __restrict__ ph,
+                 int T, const float* __restrict__ c,
+                 const float* __restrict__ si, float* __restrict__ so,
+                 Emitter em, int* __restrict__ count) {
+  __shared__ float s_clk[CLK_CHUNK];
+  __shared__ float s_v[CLK_CHUNK];
+  __shared__ int s_pos[CLK_MAX_EMITS];   // emit positions in the pass
+  __shared__ unsigned char s_tb[CLK_MAX_EMITS];  // the_bit at each emit
+  __shared__ int s_wsum[CLK_THREADS / 32];
+  __shared__ float s_sync[MAX_TAPS];
+  __shared__ float s_tail;
+  __shared__ int s_nemit;
+  const int K = (int)c[HEAD], N = (int)c[HEAD + 1];
   const float* lp = c + HEAD + 3;
-  const float* kf = lp + Ll;                  // fold index, as floats
-  // state layout: freq, phase, lp_buf, sync_buf[N], p, bit_integrator,
-  // bit_clk_phase, prev_clk, prev_bit, need_resync
-  Costas cs{si[0], si[1]};
-  Ring rl;
-  rl.init(si + 2, Ll);
-  const int o_s = 2 + Ll - 1;
-  float sb[MAX_TAPS];
-  for (int j = 0; j < N; ++j) sb[j] = si[o_s + j];
-  const int o = o_s + N;
-  int p = (int)si[o];
-  float integ = si[o + 1], ph = si[o + 2], prev_clk = si[o + 3];
-  bool prev_bit = si[o + 4] != 0.0f;
-  const bool need_resync = si[o + 5] != 0.0f;
+  const int o = K - 1 + N;
+  const int p0 = (int)si[o];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // the lowpass's input stream: the history, then v
+  auto input = [&](int j) -> float {
+    return j < 0 ? si[j + K - 1] : iq4[j].x;
+  };
+  auto filt = [&](int n) -> float {
+    float acc = 0.0f;
+    for (int k = 0; k < K; ++k) acc = acc + lp[k] * input(n - k);
+    return acc;
+  };
 
-  for (int n = 0; n < T; ++n) {
-    const float2 zi = z[n];
-    const float2 r = cs.step(zi.x, zi.y, H, H.alpha, H.beta);
-    const float v = r.x * 4.0f;
-    sb[p] = rl.push(v, lp);
-    p = p + 1 == N ? 0 : p + 1;
-    if (n == 0 && need_resync) {
-      // synchronizeOnBitClk (rds-decoder-3.cpp:119-154), at a resync only
-      float corr[MAX_TAPS];
-      for (int j = 0; j < N; ++j) corr[j] = 0.0f;
-      for (int j = 0; j < N; ++j) {
-        const int q = p + j >= N ? p + j - N : p + j;
-        corr[(int)kf[j]] = corr[(int)kf[j]] + sb[q];
-      }
-      int pos1 = fl, pos2 = fl;
-      for (int j = 0; j < fl; ++j)
-        if (corr[j] <= 0.0f) { pos1 = j; break; }
-      for (int j = 0; j < fl; ++j)
-        if (corr[j] >= 0.0f && j > pos1) { pos2 = j; break; }
-      const int i_min = pos1 >= fl ? fl : min(pos2 + 1, fl);
-      ph = mod_2pi(-H.omega * ((float)i_min - 1.0f), H.two_pi);
-    }
-    float clk = sinf(ph);
-    integ = integ + clk * v;
-    const bool the_bit = integ >= 0.0f;
-    if (prev_clk <= 0.0f && clk > 0.0f) {
-      em.emit(the_bit != prev_bit, make_float2(r.x * 4.0f, r.y * 4.0f));
-      prev_bit = the_bit;
-      integ = 0.0f;
-    }
-    ph = mod_2pi(ph + H.omega, H.two_pi);
-    prev_clk = clk;
-    if (iqs) iqs[n] = make_float2(r.x * 4.0f, r.y * 4.0f);
+  // the new ring: the last min(T, N) outputs at their positions
+  const int m = min(T, N);
+  if (tid < N) s_sync[tid] = si[K - 1 + tid];
+  __syncthreads();
+  if (tid < m) {
+    const int n = T - m + tid;
+    s_sync[(p0 + n % N) % N] = filt(n);
   }
-  so[0] = cs.freq;
-  so[1] = cs.phase;
-  rl.save(so + 2);
-  for (int j = 0; j < N; ++j) so[o_s + j] = sb[j];
-  so[o] = (float)p;
-  so[o + 1] = integ;
-  so[o + 2] = ph;
-  so[o + 3] = prev_clk;
-  so[o + 4] = prev_bit ? 1.0f : 0.0f;
-  so[o + 5] = 0.0f;
-  em.finish(count);
+  if (tid < K - 1) so[tid] = input(T - (K - 1) + tid);   // the new lp_buf
+  __syncthreads();
+  if (tid < N) so[K - 1 + tid] = s_sync[tid];
+
+  float integ = si[o + 1], prev_clk = si[o + 3];
+  bool prev_bit = si[o + 4] != 0.0f;
+
+  int cnt = 0;
+  for (int b0 = 0; b0 < T; b0 += CLK_CHUNK) {
+    const int n = min(CLK_CHUNK, T - b0);
+    for (int i = tid; i < n; i += CLK_THREADS) {
+      s_clk[i] = ph[T + 1 + b0 + i];
+      s_v[i] = iq4[b0 + i].x;
+    }
+    __syncthreads();
+    // the emits of this thread's CLK_PER samples, then their slots
+    const int i0 = tid * CLK_PER;
+    unsigned mine = 0u;
+#pragma unroll
+    for (int k = 0; k < CLK_PER; ++k) {
+      const int i = i0 + k;
+      if (i < n) {
+        const float before = i == 0 ? prev_clk : s_clk[i - 1];
+        if (before <= 0.0f && s_clk[i] > 0.0f) mine |= 1u << k;
+      }
+    }
+    const int ne = __popc(mine);
+    int incl = ne;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int up = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += up;
+    }
+    if (lane == 31) s_wsum[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      const int w = s_wsum[lane];
+      int wi = w;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int up = __shfl_up_sync(0xffffffffu, wi, d);
+        if (lane >= d) wi += up;
+      }
+      s_wsum[lane] = wi - w;
+      if (lane == 31) s_nemit = wi;
+    }
+    __syncthreads();
+    int at = s_wsum[warp] + incl - ne;
+#pragma unroll
+    for (int k = 0; k < CLK_PER; ++k)
+      if ((mine >> k) & 1u) s_pos[at++] = i0 + k;
+    __syncthreads();
+    // segment k ends at emit k; segment nemit is the tail of the pass
+    const int nemit = s_nemit;
+    for (int k = tid; k <= nemit; k += CLK_THREADS) {
+      const int start = k == 0 ? 0 : s_pos[k - 1] + 1;
+      const int end = k < nemit ? s_pos[k] : n - 1;
+      float acc = k == 0 ? integ : 0.0f;        // k == 0: thread 0's carry
+      for (int i = start; i <= end; ++i) acc = acc + s_clk[i] * s_v[i];
+      if (k < nemit)
+        s_tb[k] = acc >= 0.0f ? 1 : 0;
+      else
+        s_tail = acc;
+    }
+    __syncthreads();
+    for (int k = tid; k < nemit; k += CLK_THREADS) {
+      const int slot = cnt + k;
+      if (slot < em.cap) {
+        const bool held = k == 0 ? prev_bit : s_tb[k - 1] != 0;
+        em.bits[slot] = ((s_tb[k] != 0) != held) ? 1 : 0;
+        em.biq[slot] = iq4[b0 + s_pos[k]];
+      }
+    }
+    if (tid == 0) {
+      if (nemit) prev_bit = s_tb[nemit - 1] != 0;
+      integ = s_tail;
+      prev_clk = s_clk[n - 1];
+    }
+    cnt += nemit;
+    __syncthreads();
+  }
+  if (tid == 0) {
+    so[o] = (float)((p0 + T % N) % N);
+    so[o + 1] = integ;
+    so[o + 2] = ph[T];
+    so[o + 3] = prev_clk;
+    so[o + 4] = prev_bit ? 1.0f : 0.0f;
+    so[o + 5] = 0.0f;
+    *count = cnt;
+  }
+  zero_tail(em, cnt);
 }
 
 // ---------------------------------------------------------------------------
@@ -606,9 +751,13 @@ __global__ void latency_kernel(int op, int n, const float* __restrict__ in,
         x = s + c;
       }
       break;
-    default:
+    case 4:
 #pragma unroll 4
       for (int i = 0; i < n; ++i) x = hypotf(x, y);
+      break;
+    default:  // decoder 3's clock phase step (clock_kernel's chain)
+#pragma unroll 16
+      for (int i = 0; i < n; ++i) x = wrap_step(x + y, 6.2831855f);
       break;
   }
   const long long t1 = clock64();
@@ -632,14 +781,24 @@ extern "C" {
 // ceil(T / FIR_TILE).  bits [cap] int8, biq [cap] complex64, count: one
 // int32.
 
-// decoder 1 stage 1.  z [T] complex64; head: the constant block; cs_in /
-// cs_out: (freq, phase); iq4 [T] complex64 out (4r, the iq stream).
+// decoders 1 and 3, stage 1.  z [T] complex64; head: the decoder's
+// constant block; cs_in / cs_out: (freq, phase); iq4 [T] complex64 out (4r,
+// the iq stream).  Decoder 3 (clk_in not null): clk_in is its state run
+// from lp_buf to need_resync, and ph [2T + 1] floats out: the clock phases
+// [T + 1], then the clock [T].
 int sdr_rds_costas(const void* z, int T, int nch, const void* head,
-                   const void* cs_in, void* cs_out, void* iq4, void* stream) {
-  if (!chunks_ok(T, nch) || cs_in == cs_out) return (int)cudaErrorInvalidValue;
-  costas_kernel<<<1, STAGE_THREADS, 0, (cudaStream_t)stream>>>(
-      (const float2*)z, T, nch, (const float*)head, (const float*)cs_in,
-      (float*)cs_out, (float2*)iq4);
+                   const void* cs_in, void* cs_out, void* iq4,
+                   const void* clk_in, void* ph, void* stream) {
+  if (!chunks_ok(T, nch) || cs_in == cs_out || (clk_in && !ph))
+    return (int)cudaErrorInvalidValue;
+  if (clk_in)
+    costas_kernel<true><<<1, STAGE_THREADS + 64, 0, (cudaStream_t)stream>>>(
+        (const float2*)z, T, nch, (const float*)head, (const float*)cs_in,
+        (float*)cs_out, (float2*)iq4, (const float*)clk_in, (float*)ph);
+  else
+    costas_kernel<false><<<1, STAGE_THREADS, 0, (cudaStream_t)stream>>>(
+        (const float2*)z, T, nch, (const float*)head, (const float*)cs_in,
+        (float*)cs_out, (float2*)iq4, nullptr, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -704,27 +863,27 @@ int sdr_rds_mm_core(const void* v, int T, int nch, const void* head,
   return (int)cudaGetLastError();
 }
 
-// decoder 3.  z [T] complex64; consts: its constant block; st_in / st_out:
-// the packed state (nstate floats, distinct buffers); iqs [T] or null.
-int sdr_rds_decoder3(const void* z, int T, const void* consts,
-                     const void* st_in, void* st_out, int nstate, void* bits,
-                     void* biq, void* count, int cap, void* iqs,
-                     void* stream) {
-  if (T < 1 || cap < 1 || nstate < 1 || st_in == st_out)
-    return (int)cudaErrorInvalidValue;
+// decoder 3 stage 2.  iq4 [T] complex64 and ph [2T + 1] floats (the Costas
+// stage's 4r, clock phases and clock); consts: decoder 3's constant block;
+// st_in / st_out: the run from lp_buf to need_resync (distinct buffers).
+int sdr_rds_clock(const void* iq4, const void* ph, int T, const void* consts,
+                  const void* st_in, void* st_out, void* bits, void* biq,
+                  void* count, int cap, void* stream) {
+  if (T < 1 || cap < 1 || st_in == st_out) return (int)cudaErrorInvalidValue;
   Emitter em{(int8_t*)bits, (float2*)biq, cap, 0};
-  decoder3_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
-      (const float2*)z, T, (const float*)consts, (const float*)st_in,
-      (float*)st_out, em, (int*)count, (float2*)iqs);
+  clock_kernel<<<1, CLK_THREADS, 0, (cudaStream_t)stream>>>(
+      (const float2*)iq4, (const float*)ph, T, (const float*)consts,
+      (const float*)st_in, (float*)st_out, em, (int*)count);
   return (int)cudaGetLastError();
 }
 
 // op: 0 add, 1 multiply, 2 IEEE division (x = x op in[1]), 3 sincosf (x =
-// sin x + cos x), 4 hypotf (x = hypotf(x, in[1])); n >= 1 steps from x =
+// sin x + cos x), 4 hypotf (x = hypotf(x, in[1])), 5 the clock phase step
+// (x = x + in[1], less 2 pi where that reaches 2 pi); n >= 1 steps from x =
 // in[0].  out: the final x; cycles: one int64, clock64 around the loop.
 int sdr_rds_latency(int op, int n, const void* in, void* out, void* cycles,
                     void* stream) {
-  if (op < 0 || op > 4 || n < 1) return (int)cudaErrorInvalidValue;
+  if (op < 0 || op > 5 || n < 1) return (int)cudaErrorInvalidValue;
   latency_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
       op, n, (const float*)in, (float*)out, (long long*)cycles);
   return (int)cudaGetLastError();
@@ -733,5 +892,6 @@ int sdr_rds_latency(int op, int n, const void* in, void* out, void* cycles,
 int sdr_rds_max_taps() { return MAX_TAPS; }
 int sdr_rds_stage_chunk() { return STAGE_CHUNK; }
 int sdr_rds_fir_tile() { return FIR_TILE; }
+int sdr_rds_clock_chunk() { return CLK_CHUNK; }
 
 }  // extern "C"

@@ -14,7 +14,8 @@ such primitive, so the port carries hand-written CUDA kernels in
   into one-pole recurrences (JAX `jax.vmap(linrec_apply)` over the poles,
   blockops.py:378-382), with the residue-weighted sum y = Re sum_i r_i w_i
   fused so the [P, T] pole states never reach device memory.  A call is
-  two launches (chunk aggregates, then the scan).
+  one launch: a single pass with a decoupled look-back that carries the P
+  complex states between chunks of 2048 samples.
 
 Each wrapper launches its kernel on a CUDA tensor (built with nvcc at the
 first launch, never at import) and runs its plain version on a CPU tensor;
@@ -169,10 +170,15 @@ linrec = LinrecKernel()
 # Complex pole bank (kernel A)
 # ---------------------------------------------------------------------------
 
-POLE_SEG = 16                        # samples a thread (csrc poles::SEG)
-POLE_CHUNK = 4096                    # samples a thread block (poles::CHUNK)
-POLE_NPOW = 9                        # g^(SEG*2^k), k < NPOW (poles::NPOW)
+POLE_SEG = 8                         # samples a thread (csrc poles::SEG)
+POLE_CHUNK = 2048                    # samples a thread block (poles::CHUNK)
 POLE_MAXP = 16                       # poles a bank (poles::MAXP)
+POLE_LOOK = 64                       # predecessors a look-back step
+                                     # (poles::LOOK, two a lane)
+# the per-pole table the kernel reads (csrc poles::T_*), complex64 each
+POLE_TABLE = (("g", 1), ("r", 1), ("rg", POLE_SEG), ("gi", POLE_SEG),
+              ("gs", 5), ("gl", 32), ("gw", 1), ("gc", POLE_LOOK + 1))
+POLE_NTAB = sum(n for _, n in POLE_TABLE)
 
 
 def pole_bank_plain(drive: torch.Tensor, poles: torch.Tensor,
@@ -193,23 +199,52 @@ def pole_bank_plain(drive: torch.Tensor, poles: torch.Tensor,
     return y, wT.view(B, P)
 
 
-def _pole_powers(poles: np.ndarray) -> np.ndarray:
-    """g^(SEG * 2^k) for k < NPOW per pole, in float64 from the complex64
-    poles, rounded once to complex64: the kernel joins segments with these
-    (a power formed as exp(n log g) in f32 would lose ~n * 1e-7 rad)."""
-    g = poles.astype(np.complex128)
-    return np.stack([g ** (POLE_SEG * 2 ** k) for k in range(POLE_NPOW)],
-                    axis=-1).astype(np.complex64)
+def pole_table_offsets() -> Dict[str, int]:
+    """Where each part of a pole's table starts (complex64 entries)."""
+    out, off = {}, 0
+    for name, n in POLE_TABLE:
+        out[name] = off
+        off += n
+    return out
+
+
+def pole_table(poles: np.ndarray, residues: np.ndarray) -> np.ndarray:
+    """The kernel's table for each pole ([..., POLE_NTAB] complex64), each
+    entry computed in float64 from the complex64 pole and residue and
+    rounded once: g, r; the correction's r g^(i+1) and the end state's
+    g^(i+1) for i < SEG; the warp scan's g^(SEG 2^k), k < 5; g^(SEG l), l
+    < 32 (a lane's offset in its warp); g^(SEG 32) (a warp's span); the
+    look-back's g^(CHUNK m), m <= LOOK.  A power formed in f32 as exp(n
+    log g) would lose ~n * 1e-7 rad."""
+    g = np.asarray(poles, np.complex64).astype(np.complex128)[..., None]
+    r = np.asarray(residues, np.complex64).astype(np.complex128)[..., None]
+    i1 = np.arange(1, POLE_SEG + 1)
+    with np.errstate(under="ignore"):
+        parts = {"g": g, "r": r, "rg": r * g ** i1, "gi": g ** i1,
+                 "gs": g ** (POLE_SEG * 2 ** np.arange(5)),
+                 "gl": g ** (POLE_SEG * np.arange(32)),
+                 "gw": g ** (POLE_SEG * 32),
+                 "gc": g ** (POLE_CHUNK * np.arange(POLE_LOOK + 1))}
+        return np.concatenate([parts[name] for name, _ in POLE_TABLE],
+                              axis=-1).astype(np.complex64)
+
+
+def pole_grid(B: int, T: int) -> Tuple[int, int]:
+    """(chunks a row, thread blocks = tickets a launch) of kernel A."""
+    if B < 1 or T < 1:
+        raise ValueError(f"pole_bank: shape {(B, T)}")
+    nch = -(-T // POLE_CHUNK)
+    return nch, B * nch
 
 
 class PoleBank(NamedTuple):
     """The kernel's device constants for B banks: poles, residues [B, P]
-    and the join powers [B, P, POLE_NPOW] complex64 (banks with fewer
+    and the per-pole table [B, P, POLE_NTAB] complex64 (banks with fewer
     poles padded with zero poles of zero residue, which add nothing), and
     each bank's own pole count."""
     poles: torch.Tensor
     residues: torch.Tensor
-    powers: torch.Tensor
+    table: torch.Tensor
     sizes: Tuple[int, ...]
 
 
@@ -228,13 +263,13 @@ def pole_bank_constants(specs, device) -> PoleBank:
     if np.any(np.abs(pol) > 1.0):
         raise ValueError("pole_bank: a pole lies outside the unit circle")
     return PoleBank(*(torch.as_tensor(a, device=device)
-                      for a in (pol, res, _pole_powers(pol))),
+                      for a in (pol, res, pole_table(pol, res))),
                     sizes=tuple(len(s.poles) for s in specs))
 
 
 class PoleBankKernel:
     """Callable wrapper of kernel A with a launch counter (`launches`
-    counts calls that launched the kernel pair; CPU calls do not count).
+    counts launches; CPU calls do not count).
 
     __call__(drive [B, T] f32, bank: PoleBank of B banks, w0s: B tensors
     [P_b] complex64) -> (y [B, T] f32, [wT_b [P_b] complex64])."""
@@ -242,20 +277,45 @@ class PoleBankKernel:
     def __init__(self):
         self.launches = 0
         self._fn = None
-        self._scratch: Dict[torch.device, torch.Tensor] = {}
+        self._scratch: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+        self._tickets: Dict[torch.device, int] = {}
+        self._epoch = 0
 
     def _entry(self):
         if self._fn is None:
             lib = build.load(SOURCE)
             fn = lib.sdr_pole_bank
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
-                ctypes.c_void_p]
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                           + [ctypes.c_void_p] * 4 + [ctypes.c_uint] * 2
+                           + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
-            if (lib.sdr_pole_chunk() != POLE_CHUNK
-                    or lib.sdr_pole_maxp() != POLE_MAXP):
-                raise RuntimeError("pole_bank: csrc geometry != wrapper's")
+            geom = (lib.sdr_pole_chunk(), lib.sdr_pole_seg(),
+                    lib.sdr_pole_maxp(), lib.sdr_pole_look(),
+                    lib.sdr_pole_ntab())
+            if geom != (POLE_CHUNK, POLE_SEG, POLE_MAXP, POLE_LOOK,
+                        POLE_NTAB):
+                raise RuntimeError(f"pole_bank: csrc geometry {geom} != the "
+                                   f"wrapper's")
             self._fn = fn
         return self._fn
+
+    def _lookback(self, slots: int, dev) -> Dict[str, torch.Tensor]:
+        """The look-back flags (zeroed when allocated; the epoch tells one
+        launch's from the last's), the aggregate and prefix payloads
+        (POLE_MAXP complex values a chunk) and the ticket counter, per
+        device, grown on demand."""
+        sc = self._scratch.get(dev)
+        if sc is None:
+            sc = {"ticket": torch.zeros(1, dtype=torch.int32, device=dev)}
+            self._tickets[dev] = 0
+            self._scratch[dev] = sc
+        if "flags" not in sc or sc["flags"].numel() < slots:
+            n = max(slots, 1024)
+            sc["flags"] = torch.zeros(n, dtype=torch.int32, device=dev)
+            sc["agg"] = torch.empty(n * POLE_MAXP, dtype=torch.complex64,
+                                    device=dev)
+            sc["pfx"] = torch.empty_like(sc["agg"])
+        return sc
 
     def __call__(self, drive: torch.Tensor, bank: PoleBank, w0s):
         dev = drive.device
@@ -267,7 +327,7 @@ class PoleBankKernel:
         if len(bank.sizes) != B or len(w0s) != B:
             raise ValueError(f"pole_bank: {B} rows, {len(bank.sizes)} "
                              f"banks, {len(w0s)} states")
-        pol, res, pw = bank.poles, bank.residues, bank.powers
+        pol, res, tab = bank.poles, bank.residues, bank.table
         if pol.device != dev:
             raise ValueError("pole_bank: constants are not on the drive's "
                              "device")
@@ -277,32 +337,35 @@ class PoleBankKernel:
                     or tuple(w.shape) != (n,)):
                 raise ValueError("pole_bank: each state must be a [P_b] "
                                  "complex64 tensor on the drive's device")
-        w0 = torch.stack([torch.nn.functional.pad(w, (0, P - w.shape[0]))
+        w0 = torch.stack([w if w.shape[0] == P else
+                          torch.nn.functional.pad(w, (0, P - w.shape[0]))
                           for w in w0s])
         if dev.type == "cpu":
             y, wT = pole_bank_plain(drive, pol, res, w0)
         else:
             if not drive.is_contiguous():
                 raise ValueError("pole_bank: drive must be contiguous")
-            if not (1 <= B <= 65535 and 1 <= T < 2 ** 31 - POLE_CHUNK):
+            if not (1 <= T < 2 ** 31 - POLE_CHUNK):
                 raise ValueError(f"pole_bank: shape {(B, T)} out of range")
-            nchunks = -(-T // POLE_CHUNK)
-            agg = self._scratch.get(dev)
-            if agg is None or agg.numel() < B * nchunks * P:
-                agg = torch.empty(max(B * nchunks * P, 4096),
-                                  dtype=torch.complex64, device=dev)
-                self._scratch[dev] = agg
+            nch, blocks = pole_grid(B, T)
+            if blocks >= 2 ** 31:
+                raise ValueError(f"pole_bank: shape {(B, T)} out of range")
+            sc = self._lookback(blocks, dev)
+            self._epoch = self._epoch % (EPOCHS - 1) + 1
             y = torch.empty_like(drive)
             wT = torch.empty(B, P, dtype=torch.complex64, device=dev)
             with torch.cuda.device(dev):
                 rc = self._entry()(
-                    drive.data_ptr(), pol.data_ptr(), res.data_ptr(),
-                    pw.data_ptr(), w0.data_ptr(), y.data_ptr(),
-                    wT.data_ptr(), agg.data_ptr(), B, P, T,
+                    drive.data_ptr(), tab.data_ptr(), w0.data_ptr(),
+                    y.data_ptr(), wT.data_ptr(), B, P, T,
+                    sc["flags"].data_ptr(), sc["agg"].data_ptr(),
+                    sc["pfx"].data_ptr(), sc["ticket"].data_ptr(),
+                    self._tickets[dev], self._epoch,
                     torch.cuda.current_stream(dev).cuda_stream)
             if rc != 0:
                 raise RuntimeError(f"pole_bank kernel launch failed: CUDA "
                                    f"error {rc}")
+            self._tickets[dev] = (self._tickets[dev] + blocks) % 2 ** 32
             self.launches += 1
         return y, [wT[b, :n] for b, n in enumerate(bank.sizes)]
 

@@ -14,19 +14,23 @@ version beside it.
 The JAX package runs each as a `lax.scan` over the 24 kS/s samples (16,384
 steps a block at block_fm=131072); PyTorch has no scan, so each decoder is
 CUDA kernels (`csrc/rds_scan.cu`), and `decoder1_scan` / `decoder2_scan` /
-`decoder3_scan` are their wrappers.  Decoders 1 and 2 run in stages: the
+`decoder3_scan` are their wrappers.  Each decoder runs in stages: the
 feedback recursions on one thread each, the FIRs, which feed nothing back,
 as a parallel pre-pass between them (STAGES names them in launch order);
-the wrapper places every history and state run in the packed state
-(`state_offsets`) and owns the scratch between the stages.  Decoder 3 is
-one sequential kernel.  On a CPU tensor a wrapper runs the plain version:
-the linear stages (FIRs, the bit-clock bandpass, the emit and differential
-logic) in torch ops, and only the per-sample feedback recursion (Costas,
-AGC and M&M timing, clock phase and integrate-and-dump) as a host loop over
-float32 scalars, one rounding per operation as in the kernels (built
-without FMA contraction).  Decoders 1 and 2 sum their FIRs in the kernels'
-order (`fir_in_order`), so their FIR outputs equal the kernels' bit for
-bit.
+decoder 3 runs decoder 1's Costas stage with its data-free clock phase
+chain (and the clock, sinf of it) on a warp beside the Costas thread, then
+a parallel clock stage that computes only the lowpass outputs it reads and
+the integrate-and-dump one segment (bit) a thread.  The
+wrapper places every history and state run in the packed state
+(`state_offsets`) and owns the scratch between the stages.  On a CPU
+tensor a wrapper runs the plain version: the linear stages (FIRs, the
+bit-clock bandpass, the emit and differential logic, decoder 3's
+segmented integrate-and-dump) in torch ops, and only the per-sample
+feedback recursion (Costas, AGC and M&M timing, the clock phase) as a host
+loop over float32 scalars, one rounding per operation as in the kernels
+(built without FMA contraction).  The plain versions sum their FIRs in the
+kernels' order (`fir_in_order`), so their FIR outputs equal the kernels'
+bit for bit.
 
 Unlike the JAX functions, which return per-sample bits and an emit mask for
 the receiver to compact with `jnp.nonzero`, every decoder here writes its
@@ -49,7 +53,7 @@ import torch
 from .. import constants as C
 from ..kernels import build
 from ..ops import design
-from ..ops.blockops import IIRSpec, fir_apply
+from ..ops.blockops import IIRSpec
 from ..kernels.linrec import pole_bank_plain
 from .bitrecovery import bit_capacity
 
@@ -67,6 +71,7 @@ MAX_TAPS = 64
 STAGE_CHUNK = 1024        # samples a sequential stage stages at a time
 FIR_TILE = 256            # outputs a block of the FIR pre-pass
 POLES = 8                 # decoder 1's bandpass poles (a template parameter)
+CLOCK_CHUNK = 4096        # samples a pass of decoder 3's clock stage
 
 
 # --------------------------------------------------------------------------
@@ -417,11 +422,80 @@ def decoder2_plain(z: Tensor, cfg: Decoder2Config, state: Decoder2State,
     return (*_compact(bits_t, emit_t, iq, cap), iq if want_iq else None, new)
 
 
+def lowpass_outputs(hist: Tensor, v: Tensor, taps: Tensor, n: int
+                    ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Decoder 3's lowpass where the function reads it: filt[0] (the clock
+    search at a resync sees it through sync_buf), the last min(T, n)
+    outputs (the new sync_buf) and the new history (the last K-1 inputs),
+    each output summed as fir_in_order sums it.  Returns (filt[0],
+    filt[T-min(T, n):], new history)."""
+    K, T = taps.shape[0], v.shape[0]
+    w = torch.cat([hist.to(torch.float32), v.to(torch.float32)])
+    f0, _ = fir_in_order(hist, v[:1], taps)
+    m = min(T, n)
+    last, _ = fir_in_order(w[T - m:T - m + K - 1], v[T - m:], taps)
+    return f0[0], last, w[T:]
+
+
+def wrap_step(x):
+    """One step of the clock phase's wrap, x = ph + OMEGA: x - 2 pi where x
+    >= 2 pi.  Exact (Sterbenz's lemma) and equal to np.fmod(x, TWO_PI) bit
+    for bit for 0 <= x < 4 pi, which holds after the first step."""
+    return x - TWO_PI if x >= TWO_PI else x
+
+
+def clock_phases(ph0, T: int) -> np.ndarray:
+    """The bit clock's phase before each of T samples and after the last
+    ([T + 1] float32): ph[n+1] = mod(ph[n] + OMEGA, 2 pi) (jnp.mod), as
+    the clock stage runs the chain: the first step in general, each later
+    one, from a phase in [0, 2 pi], by wrap_step."""
+    out = np.empty(T + 1, _F)
+    p = _F(ph0)
+    out[0] = p
+    x = p + OMEGA
+    p = (wrap_step(x) if _F(0) <= x < _F(2) * TWO_PI
+         else _F(_mod_2pi(torch.tensor(x))))
+    for n in range(1, T + 1):
+        out[n] = p
+        if n < T:
+            p = wrap_step(p + OMEGA)
+    return out
+
+
+def integrate_and_dump(clk: Tensor, v: Tensor, integ0: Tensor,
+                       prev_clk: Tensor, prev_bit: Tensor):
+    """Decoder 3's integrate-and-dump, segmented: the emits are the clock's
+    rising edges (clk[n-1] <= 0 < clk[n], clk[-1] = prev_clk), known before
+    any sum; each segment ends at an emit and sums integ = integ + clk * v
+    in sample order (from integ0 in the first, from 0 after an emit), one
+    rounding per operation, vectorised across segments.  The bit at an emit
+    is (integ >= 0) XOR that of the emit before (prev_bit for the first).
+    Returns (emit [T], bit [T] bool, the tail's integrator, prev_bit)."""
+    T = clk.shape[0]
+    dev = clk.device
+    before = torch.cat([prev_clk.reshape(1).to(torch.float32), clk[:-1]])
+    emit = (before <= 0.0) & (clk > 0.0)
+    pos = torch.nonzero(emit).reshape(-1)
+    starts = torch.cat([pos.new_zeros(1), pos + 1])
+    lens = torch.cat([pos, pos.new_full((1,), T - 1)]) - starts + 1
+    acc = torch.zeros(starts.shape[0], dtype=torch.float32, device=dev)
+    acc[0] = integ0
+    for o in range(int(lens.max())):
+        idx = (starts + o).clamp(max=T - 1)
+        acc = torch.where(lens > o, acc + clk[idx] * v[idx], acc)
+    the_bit = acc[:-1] >= 0.0
+    held = torch.cat([prev_bit.reshape(1).to(torch.bool), the_bit[:-1]])
+    bit = torch.zeros(T, dtype=torch.bool, device=dev)
+    bit[pos] = the_bit ^ held
+    after = the_bit[-1] if pos.numel() else prev_bit.to(torch.bool)
+    return emit, bit, acc[-1], after
+
+
 def decoder3_plain(z: Tensor, cfg: Decoder3Config, state: Decoder3State,
                    cap: int, want_iq: bool = False):
-    """decoder3_block: Costas as a host loop, the lowpass in torch, the
-    clock search at a resync in torch, the clock phase and the
-    integrate-and-dump as host loops."""
+    """decoder3_block: Costas as a host loop, the lowpass outputs it reads
+    in torch, the clock search at a resync in torch, the clock phase chain
+    as a host loop, the integrate-and-dump segmented in torch."""
     dev = z.device
     n = cfg.symbol_ceiling
     rr, ri, freq, phase = _costas(_host(z.real), _host(z.imag),
@@ -430,49 +504,31 @@ def decoder3_plain(z: Tensor, cfg: Decoder3Config, state: Decoder3State,
                                   1.0 / 16.0, 0.02 / 16.0)
     r = torch.complex(torch.from_numpy(rr), torch.from_numpy(ri)).to(dev)
     v = r.real * 4.0
-    filt, lp_buf = fir_apply(v, torch.as_tensor(cfg.lp21, device=dev),
-                             state.lp_buf)
     T = v.shape[0]
+    f0, last, lp_buf = lowpass_outputs(state.lp_buf, v,
+                                       torch.as_tensor(cfg.lp21, device=dev),
+                                       n)
     # the ring of the last n filtered samples, as the scan leaves it
     buf0 = state.sync_buf.clone()
     p0 = state.p.to(torch.int64)
-    buf0[p0] = filt[0]
-    first = (p0 + 1) % n
-    ph = _host(state.bit_clk_phase)
+    buf0[p0] = f0
+    ph0 = _host(state.bit_clk_phase)
     if bool(_host(state.need_resync)):
-        ph = _host(sync_bit_clock(buf0, first, cfg))
-    pos = (p0 + torch.arange(T, device=dev)) % n
+        ph0 = _host(sync_bit_clock(buf0, (p0 + 1) % n, cfg))
+    m = min(T, n)
     sync_buf = state.sync_buf.clone()
-    sync_buf[pos[-n:]] = filt[-n:]
-    # clock phase and integrate-and-dump
-    vh = _host(v)
-    ph = _F(ph)
-    integ = _F(_host(state.bit_integrator))
-    prev_clk = _F(_host(state.prev_clk))
-    prev_bit = bool(_host(state.prev_bit))
-    emit = np.zeros(T, bool)
-    bits = np.zeros(T, bool)
-    for k in range(T):
-        clk = np.sin(ph)
-        integ = integ + clk * vh[k]
-        the_bit = bool(integ >= 0)
-        if prev_clk <= 0 and clk > 0:
-            emit[k] = True
-            bits[k] = the_bit ^ prev_bit
-            prev_bit = the_bit
-            integ = _F(0.0)
-        ph = np.fmod(ph + OMEGA, TWO_PI)
-        prev_clk = clk
+    sync_buf[(p0 + torch.arange(T - m, T, device=dev)) % n] = last
+    ph = clock_phases(ph0, T)
+    clk = torch.from_numpy(np.sin(ph[:T])).to(dev)
+    emit, bits, integ, prev_bit = integrate_and_dump(
+        clk, v, state.bit_integrator, state.prev_clk, state.prev_bit)
     iq = r * 4.0
     new = Decoder3State(CostasState(_scalar(freq, z), _scalar(phase, z)),
                         lp_buf, sync_buf,
                         ((p0 + T) % n).to(torch.int32),
-                        _scalar(integ, z), _scalar(ph, z),
-                        _scalar(prev_clk, z), _scalar(prev_bit, z, torch.bool),
+                        integ, _scalar(ph[T], z), clk[-1], prev_bit,
                         _scalar(False, z, torch.bool))
-    return (*_compact(torch.from_numpy(bits).to(dev),
-                      torch.from_numpy(emit).to(dev), iq, cap),
-            iq if want_iq else None, new)
+    return (*_compact(bits, emit, iq, cap), iq if want_iq else None, new)
 
 
 # --------------------------------------------------------------------------
@@ -548,6 +604,8 @@ def state_offsets(state) -> Dict[str, Tuple[int, int]]:
 # array, in the order it takes them (csrc/rds_scan.cu)
 COSTAS_RUN = ("costas.freq", "costas.phase")
 EMIT1_RUN = ("last_sync", "last_sync_slope", "last_data", "prev_bit")
+CLOCK3_RUN = ("lp_buf", "sync_buf", "p", "bit_integrator", "bit_clk_phase",
+              "prev_clk", "prev_bit", "need_resync")
 CORE2_RUN = ("agc_gain", "costas.freq", "costas.phase", "s0", "s1", "s2",
              "count", "skip", "mu", "prev_bit", "last_iq")
 
@@ -610,7 +668,8 @@ def _sizes_ok(which: int, cfg) -> bool:
                 and len(cfg.sharp.poles) == POLES)
     if which == 2:
         return 2 <= len(cfg.rrc) <= MAX_TAPS
-    return len(cfg.lp21) <= MAX_TAPS and cfg.symbol_ceiling <= MAX_TAPS
+    return (2 <= len(cfg.lp21) <= MAX_TAPS
+            and 1 <= cfg.symbol_ceiling <= MAX_TAPS)
 
 
 def kernel_constants(kind: str, cfg, device) -> Tensor:
@@ -643,16 +702,16 @@ _PLAIN = {1: decoder1_plain, 2: decoder2_plain, 3: decoder3_plain}
 STAGES = {1: ("costas", "fir_lp21", "fir_match", "fir_sharp_num",
               "poles_emit"),
           2: ("fir_rrc", "mm_core"),
-          3: ("scan",)}
+          3: ("costas", "clock")}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRIES = {
-    "sdr_rds_costas": [_P, _I, _I, _P, _P, _P, _P, _P],
+    "sdr_rds_costas": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "sdr_rds_fir": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P, _I, _I, _P],
     "sdr_rds_poles_emit": [_P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P,
                            _P, _I, _P],
     "sdr_rds_mm_core": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P],
-    "sdr_rds_decoder3": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P],
+    "sdr_rds_clock": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P],
 }
 
 
@@ -695,8 +754,8 @@ class RdsScanKernel:
                 fn.argtypes = args
                 fn.restype = ctypes.c_int
             sizes = (lib.sdr_rds_max_taps(), lib.sdr_rds_stage_chunk(),
-                     lib.sdr_rds_fir_tile())
-            if sizes != (MAX_TAPS, STAGE_CHUNK, FIR_TILE):
+                     lib.sdr_rds_fir_tile(), lib.sdr_rds_clock_chunk())
+            if sizes != (MAX_TAPS, STAGE_CHUNK, FIR_TILE, CLOCK_CHUNK):
                 raise RuntimeError(f"rds_scan: csrc sizes {sizes} != the "
                                    f"wrapper's")
             self._lib = lib
@@ -776,7 +835,7 @@ class RdsScanKernel:
             stages = (
                 self._stage(dev, "costas", lib.sdr_rds_costas,
                             (z.data_ptr(), T, nch, c0, *run(COSTAS_RUN, 2),
-                             iq4.data_ptr(), stream)),
+                             iq4.data_ptr(), None, None, stream)),
                 self._stage(dev, "fir_lp21", fir,
                             (*field("lp_buf", Ll - 1), iq4.data_ptr(), 2, T,
                              taps("lp21"), Ll, 1, 0, v1.data_ptr(), 1, tiles,
@@ -805,10 +864,19 @@ class RdsScanKernel:
                             (v.data_ptr(), T, nch, c0, *run(CORE2_RUN, 15),
                              *outs, iqp, stream)))
         else:
+            K, N = len(cfg.lp21), cfg.symbol_ceiling
+            iq4 = iq if iq is not None else torch.empty_like(z)
+            # the clock phases [T + 1], then the clock [T]
+            ph = torch.empty(2 * T + 1, dtype=torch.float32, device=dev)
+            work.update(iq4=iq4, ph=ph)
+            clk_in, clk_out = run(CLOCK3_RUN, K - 1 + N + 6)
             stages = (
-                self._stage(dev, "scan", lib.sdr_rds_decoder3,
-                            (z.data_ptr(), T, c0, si, sO, st_in.numel(),
-                             *outs, iqp, stream)),)
+                self._stage(dev, "costas", lib.sdr_rds_costas,
+                            (z.data_ptr(), T, nch, c0, *run(COSTAS_RUN, 2),
+                             iq4.data_ptr(), clk_in, ph.data_ptr(), stream)),
+                self._stage(dev, "clock", lib.sdr_rds_clock,
+                            (iq4.data_ptr(), ph.data_ptr(), T, c0, clk_in,
+                             clk_out, *outs, stream)))
         return StagePlan(stages, bits, count, biq, iq, st_out, work)
 
     def __call__(self, z: Tensor, cfg, state, cap: int,
