@@ -21,13 +21,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
              with a resync), the FIR pre-pass stages of B1 and B2 and B3's
              lowpass outputs, history and clock phase chain bit for bit
              against their host functions.
+3b. graph  — the look-back kernels under CUDA-graph replay: two real-scan
+             calls (R=2, R=1) and one pole-bank call at the squelch's
+             shapes captured in one graph, replayed three times on new
+             inputs, each replay against the plain versions.
 4. main    — synthesises an 8 s stereo+RDS capture and drives it through
              `python -m sdrjfm_tpu_torch.app rx` (in process) on cuda at
              block_fm=131072 with the int16 wire: PI/PS/RT back at BER 0,
-             pilot and PSS locked, 48 kHz stereo audio; the kernels' launch
-             counts over that run equal the block counts.
+             pilot and PSS locked, 48 kHz stereo audio.  rx steps through
+             the captured graph (Receiver.jit_step): the wrappers' launch
+             counts over the run are the warm-up steps' and the capture's,
+             and the device launches in a profiler trace of a second run
+             are the warm-up steps' and one replay's a block.
 5. reference — the same capture through the port on the CPU (the kernels'
              plain versions): audio, metadata and RDS bits agree.
+5a. runners — every runner on the card against the eager rx.step loop on
+             that capture: run_offline, run_offline_scanned (one chunk,
+             chunks of 4, 2 and 1, and a 2-block capture), run_streaming
+             (per block, chunks of 4), run_live over an unpaced
+             NativeRawSource, and the scan runner with RDS decoders 1-3
+             (audio within 1e-5, RDS bits equal, PI/PS/RT at BER 0); the
+             launches under the graphs counted by kernel name from a
+             profiler trace (the front end once a block, the real scan
+             twice); then `rx` with --runner scan --chunk-blocks 4,
+             --pcm-out and --follow --no-pace against phase main's CLI run,
+             and that run against the eager loop.
 5b. options — `rx` on cuda at block_fm=131072 once per receiver option
              (scan decoders 1-3, squelch nsq/lsq on the station and on a
              noise-only capture, the other discriminators, the deemphasis
@@ -35,7 +53,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
              the test tone, the taps and dumps, a raw u8 capture at 2.4
              MS/s, and 2.5 MS/s refused with exit 2): each run's checks,
              each kernel's launch count over the run (counts set to 0 just
-             before it; a decoder call launches each of its stages once),
+             before it; a decoder call launches each of its stages once)
+             and its device launches from a profiler trace, as in main,
              and its first two blocks of audio against the same
              run on the CPU; emit_audio_i16 against the host quantizer.
 6. times   — per-block step time and real-time factor (the main path, the
@@ -57,6 +76,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
              time; for the main path, for the heaviest option config and
              for the main path with RDS decoder 3 (each after its step
              time).
+8. scanned — for the same three configs, run_offline_scanned over the
+             capture, 7 passes after the capturing one: wall ms per block
+             (median, spread), its real-time factor, the same for
+             run_offline (rx's default loop runner), the host's time per
+             replay(), capture and instantiate seconds, device time per
+             step and busy share (profiler), beside the eager step time.
 
 Then one line {"kernels": [...]}, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}.  Outputs go to
@@ -142,6 +167,7 @@ def paced_ms(fn, reps: int = 5, iters: int = 20) -> float:
 
 
 _SLEEP_CYCLES_PER_MS = None
+SLEEP_RETRIES = 4                  # reps a device_ms call may run again
 
 
 def _sleep_cycles_per_ms() -> float:
@@ -166,9 +192,10 @@ def device_ms(fn, what: str, reps: int = 5, iters: int = 20):
 
     Each rep enqueues a device-side sleep and then `iters` calls; CUDA
     events around the calls time the card alone, because the host has
-    queued every call before the sleep ends.  The run fails if the host
-    took longer to enqueue the calls than the sleep lasted (measured from
-    before the sleep was enqueued, so the bound is strict)."""
+    queued every call before the sleep ends.  A rep whose enqueue took the
+    host longer than the sleep lasted (measured from before the sleep was
+    enqueued, so the bound is strict) is dropped and run again with a sleep
+    twice as long; the run fails after SLEEP_RETRIES such reps."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -177,8 +204,8 @@ def device_ms(fn, what: str, reps: int = 5, iters: int = 20):
     host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     cycles = int((3.0 * host_ms + 1.0) * _sleep_cycles_per_ms())
-    dev, host = [], []
-    for _ in range(reps):
+    dev, host, retries = [], [], 0
+    while len(dev) < reps:
         s = torch.cuda.Event(enable_timing=True)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -193,9 +220,13 @@ def device_ms(fn, what: str, reps: int = 5, iters: int = 20):
         b.record()
         torch.cuda.synchronize()
         window = s.elapsed_time(a)
-        need((h2 - h0) * 1e3 < window,
-             f"{what}: host enqueue {(h2 - h0) * 1e3:.3f} ms outlasted the "
-             f"{window:.3f} ms device sleep it must hide behind")
+        if (h2 - h0) * 1e3 >= window:
+            retries += 1
+            need(retries <= SLEEP_RETRIES,
+                 f"{what}: host enqueue {(h2 - h0) * 1e3:.3f} ms outlasted "
+                 f"the {window:.3f} ms device sleep it must hide behind")
+            cycles *= 2
+            continue
         dev.append(a.elapsed_time(b) / iters)
         host.append((h2 - h1) / iters * 1e6)
     return statistics.median(dev), statistics.median(host)
@@ -409,21 +440,27 @@ def phase_main():
                    "--pi", "0x10F0", "--pty", "10", "--int16"])
     need(rc == 0, "synth")
     synth_s = time.perf_counter() - t0
+    from sdrjfm_tpu_torch.runtime.graph import WARMUP_STEPS
     frontend.launches = 0
     linrec.launches = 0
+    argv = ["rx", "--iq", str(wav), "--audio", str(audio), "--rds",
+            "--report", str(report), "--block-fm", str(BLOCK_FM),
+            "--iq-format", "i16", "--device", "cuda"]
     t0 = time.perf_counter()
-    rc = app.main(["rx", "--iq", str(wav), "--audio", str(audio), "--rds",
-                   "--report", str(report), "--block-fm", str(BLOCK_FM),
-                   "--iq-format", "i16", "--device", "cuda"])
+    rc = app.main(argv)
     rx_s = time.perf_counter() - t0
     launches = {"frontend": frontend.launches, "linrec": linrec.launches}
     need(rc == 0, f"rx exited {rc}")
+    # the same run again under the profiler, for the device's launches
+    rc, device = _device_launches(lambda: app.main(argv))
+    need(rc == 0, f"rx (profiled) exited {rc}")
     rep = json.loads(report.read_text())
     blocks = rep["blocks"]
     rds, meta = rep["rds"], rep["meta_last"]
     x, info = read_wav(str(audio))
     rms = float(np.sqrt(np.mean(np.asarray(x, np.float64) ** 2)))
     result = {"phase": "main", "blocks": blocks, "launches": launches,
+              "device_launches": device, "warmup_steps": WARMUP_STEPS,
               "synth_s": synth_s, "rx_s": rx_s,
               "throughput_x_realtime": rep["throughput_x_realtime"],
               "pi": rds["pi_code"], "ps": rds["station_label"],
@@ -434,10 +471,17 @@ def phase_main():
               "audio_shape": list(x.shape), "audio_rate": info.rate,
               "audio_rms": rms}
     emit(result)
-    need(blocks > 0 and launches["frontend"] == blocks,
-         f"frontend launches {launches['frontend']} != blocks {blocks}")
-    need(launches["linrec"] == 2 * blocks,
-         f"scan launches {launches['linrec']} != 2 x blocks {blocks}")
+    # rx steps through the captured graph: the wrappers count the warm-up
+    # steps' launches and the capture; the profiler sees the warm-up
+    # launches and every replay's
+    steps = WARMUP_STEPS + 1
+    need(blocks > 0 and launches == {"frontend": steps, "linrec": 2 * steps},
+         f"wrapper launches {launches}, want {steps} front ends and "
+         f"{2 * steps} scans (warm-up steps and capture)")
+    runs = blocks + WARMUP_STEPS
+    need(device["frontend"] == runs and device["linrec"] == 2 * runs,
+         f"device launches {device}, want {runs} front ends and {2 * runs} "
+         f"scans (warm-up steps and one replay a block)")
     need(rds["pi_code"] == "0x10F0" and rds["station_label"].strip() == "TPU FM"
          and rds["radio_text"] == "VERIFY RUN", "RDS PI/PS/RT")
     need(rds["bit_error_rate"] == 0.0, "RDS BER")
@@ -591,7 +635,7 @@ def phase_times(rx, wav, fe_err, sc_err, launches, card):
     ]
     emit({"phase": "times", "what": "kernels", "card": card,
           "kernels": kernels})
-    return kernels
+    return kernels, step_ms
 
 
 # substrings of the hand kernels' names in a profile (csrc/*.cu)
@@ -675,10 +719,23 @@ def _to(state, dev):
     return state.to(dev)
 
 
+def _pole_f64(spec, x, w0):
+    """One bank's output as float64 recurrences on the host, and its scale
+    max_n sum_p |r_p||w_p[n]| (the tolerances' unit: the terms cancel)."""
+    from scipy.signal import lfilter
+    g = spec.poles.astype(np.complex128)
+    xd = x.double().cpu().numpy().astype(np.complex128)
+    w0d = w0.cpu().numpy().astype(np.complex128)
+    ws = np.stack([lfilter([1.0], [1.0, -gp], xd, zi=[gp * w0d[p]])[0]
+                   for p, gp in enumerate(g)])
+    ref = np.real((spec.residues.astype(np.complex128)[:, None] * ws).sum(0))
+    scale = float((np.abs(spec.residues)[:, None] * np.abs(ws)).sum(0).max())
+    return ref, scale
+
+
 def phase_option_kernels(dev="cuda"):
     """Kernel A against its plain version and the float64 recurrence;
     kernels B1-B3 against their plain versions on chained segments."""
-    from scipy.signal import lfilter
     from sdrjfm_tpu_torch.kernels.linrec import (POLE_CHUNK, POLE_LOOK,
                                                  pole_bank,
                                                  pole_bank_constants,
@@ -722,15 +779,7 @@ def phase_option_kernels(dev="cuda"):
                "max_abs_err": float((y - yp).abs().max()),
                "state_err": float((torch.stack(wT) - wTp).abs().max())}
         for b, spec in enumerate(banks):
-            g = spec.poles.astype(np.complex128)
-            xd = x[b].double().cpu().numpy().astype(np.complex128)
-            w0d = w0[b].cpu().numpy().astype(np.complex128)
-            ws = np.stack([lfilter([1.0], [1.0, -gp], xd, zi=[gp * w0d[p]])[0]
-                           for p, gp in enumerate(g)])
-            ref = np.real((spec.residues.astype(np.complex128)[:, None]
-                           * ws).sum(0))
-            scale = float((np.abs(spec.residues)[:, None]
-                           * np.abs(ws)).sum(0).max())
+            ref, scale = _pole_f64(spec, x[b], w0[b])
             k64 = float(np.abs(y[b].cpu().numpy() - ref).max()) / scale
             kp = float((y[b] - yp[b]).abs().max()) / scale
             row[f"bank{b}_scale"] = scale
@@ -976,6 +1025,7 @@ def _run_options(wav, dev, cmp_dev, tmp):
     from sdrjfm_tpu_torch.io.pcmout import quantize_pcm16
     from sdrjfm_tpu_torch.io.wavio import read_wav
     from sdrjfm_tpu_torch.models.receiver import Receiver, ReceiverConfig
+    from sdrjfm_tpu_torch.runtime.graph import WARMUP_STEPS
 
     caps = {"station": wav, "noise": tmp / "noise.wav",
             "raw": tmp / "iq_2400k.u8"}
@@ -997,9 +1047,10 @@ def _run_options(wav, dev, cmp_dev, tmp):
         for c in decoders.values():
             c.stage_launches = dict.fromkeys(c.stage_launches, 0)
         t0 = time.perf_counter()
-        rc = app.main(["rx", "--iq", str(caps[cap]), "--audio", str(audio),
-                       "--report", str(rep), "--block-fm", str(BLOCK_FM),
-                       "--device", dev, *fl])
+        rc, device = _device_launches(lambda: app.main(
+            ["rx", "--iq", str(caps[cap]), "--audio", str(audio),
+             "--report", str(rep), "--block-fm", str(BLOCK_FM),
+             "--device", dev, *fl]))
         secs = time.perf_counter() - t0
         launches = {k: c.launches for k, c in counters.items()}
         stage_launches = {k: dict(c.stage_launches)
@@ -1011,13 +1062,25 @@ def _run_options(wav, dev, cmp_dev, tmp):
         half = x[len(x) // 2:]
         rms = float(np.sqrt(np.mean(np.asarray(half, np.float64) ** 2)))
         row = {"option": name, "flags": fl, "blocks": blocks,
-               "launches": launches, "rx_s": secs,
+               "launches": launches, "device_launches": device,
+               "rx_s": secs,
                "audio_rate": info.rate, "audio_rms_2nd_half": rms}
         if stage_launches:
             row["stage_launches"] = stage_launches
-        want = {k: per_block.get(k, 0) * blocks for k in counters}
+        # rx steps through the captured graph: the wrappers count the
+        # warm-up steps' launches and the capture, the profiler the warm-up
+        # launches and one replay's a block
+        want = {k: per_block.get(k, 0) * (WARMUP_STEPS + 1)
+                for k in counters}
         need(launches == want, f"option {name}: launches {launches} != "
                                f"{want}")
+        per_dev = {k: per_block.get(k, 0) for k in DEVICE_KERNELS}
+        per_dev["costas"] = (per_block.get("rds_scan1", 0)
+                             + per_block.get("rds_scan3", 0))
+        per_dev["mm_core"] = per_block.get("rds_scan2", 0)
+        want = {k: v * (blocks + WARMUP_STEPS) for k, v in per_dev.items()}
+        need(device == want, f"option {name}: device launches {device} != "
+                             f"{want}")
         # a decoder call launches each of its stages once
         need(all(v == launches[k] for k, st in stage_launches.items()
                  for v in st.values()),
@@ -1363,7 +1426,442 @@ def phase_config_step(wav, card, what: str, **options):
           "step_ms": step_ms, "step_ms_all": steps,
           "fm_stereo_rds_realtime_x": T / C.INPUT_RATE / (step_ms / 1e3),
           "card": card})
-    return rx
+    return rx, step_ms
+
+def phase_graph(card):
+    """The look-back kernels under CUDA-graph replay: two real-scan calls
+    (R=2, then R=1, as the main path launches them) and one pole-bank call
+    at the squelch's 2 x 10 poles x 131072, captured in one graph and
+    replayed three times, with new random inputs copied into the static
+    inputs between replays; each replay against the plain versions
+    (SCAN_RTOL of max|y|, POLE_RTOL of the bank's scale, also against
+    float64).  A replay that faults is recorded and fails the phase."""
+    from sdrjfm_tpu_torch import constants as C
+    from sdrjfm_tpu_torch.kernels.linrec import (linrec, linrec_plain,
+                                                 pole_bank,
+                                                 pole_bank_constants,
+                                                 pole_bank_plain)
+    dev = torch.device("cuda")
+    M = BLOCK_FM
+    rng = np.random.default_rng(12)
+    specs = _squelch_specs()
+    bank = pole_bank_constants(specs, dev)
+    g2 = [1 - C.CARRIER_ALPHA, 1 - C.FM_DC_ALPHA]
+    g1 = [1 - C.PILOT_LOCK_ALPHA]
+    d2, d1 = torch.zeros(2, M, device=dev), torch.zeros(1, M, device=dev)
+    y02, y01 = torch.zeros(2, device=dev), torch.zeros(1, device=dev)
+    x = torch.zeros(2, M, device=dev)
+    w0 = [torch.zeros(10, dtype=torch.complex64, device=dev) for _ in specs]
+
+    def rand(*shape, scale=1.0, cplx=False):
+        v = scale * rng.standard_normal(shape)
+        if cplx:
+            v = v + 1j * scale * rng.standard_normal(shape)
+        return torch.from_numpy(v.astype(np.complex64 if cplx
+                                         else np.float32))
+
+    def new_inputs():
+        d2.copy_(rand(2, M, scale=1e-2))
+        d1.copy_(rand(1, M, scale=1e-2))
+        y02.copy_(rand(2))
+        y01.copy_(rand(1))
+        x.copy_(rand(2, M, scale=0.3))
+        for w in w0:
+            w.copy_(rand(10, scale=0.05, cplx=True))
+
+    def body():
+        return (linrec(d2, g2, y02), linrec(d1, g1, y01),
+                pole_bank(x, bank, w0))
+
+    new_inputs()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = body()
+    rows, ok = [], True
+    for r in range(3):
+        new_inputs()
+        row = {"replay": r + 1}
+        rows.append(row)
+        try:
+            graph.replay()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            row["error"] = str(e)[:300]
+            ok = False
+            break
+        for name, d, g, y0, (y, last) in (("scan_R2", d2, g2, y02, outs[0]),
+                                          ("scan_R1", d1, g1, y01, outs[1])):
+            yp, lastp = linrec_plain(d, g, y0)
+            err = float(torch.maximum((y - yp).abs().max(),
+                                      (last - lastp).abs().max()))
+            row[f"{name}_max_abs_err"] = err
+            row[f"{name}_err_of_max"] = err / float(yp.abs().max())
+            ok &= err <= SCAN_RTOL * float(yp.abs().max())
+        y, wT = outs[2]
+        yp, wTp = pole_bank_plain(x, bank.poles, bank.residues,
+                                  torch.stack(w0))
+        for b, spec in enumerate(specs):
+            ref, scale = _pole_f64(spec, x[b], w0[b])
+            kp = float((y[b] - yp[b]).abs().max()) / scale
+            k64 = float(np.abs(y[b].cpu().numpy() - ref).max()) / scale
+            row[f"pole_bank{b}_err_of_scale"] = kp
+            row[f"pole_bank{b}_vs_f64_of_scale"] = k64
+            ok &= kp <= POLE_RTOL and k64 <= POLE_RTOL
+        st = float((torch.stack(wT) - wTp).abs().max())
+        row["pole_state_max_abs_err"] = st
+        ok &= st <= 10 * POLE_RTOL * float(wTp.abs().max())
+    emit({"phase": "graph", "what": "2 real scans (R=2, R=1) and 1 pole "
+          "bank in one CUDA graph, 3 replays on new inputs", "ok": bool(ok),
+          "scan_rtol_of_max": SCAN_RTOL, "pole_rtol_of_scale": POLE_RTOL,
+          "replays": rows, "card": card})
+    need(ok, f"graph replays: {rows}")
+
+
+RUNNER_AUDIO_ATOL = 1e-5           # a runner's audio vs the eager run's on
+                                   # the card: the same kernels, but a
+                                   # look-back scan may join a predecessor's
+                                   # prefix or its aggregate (timing), so the
+                                   # last bits may differ; RDS bits equal
+CLI_AUDIO_ATOL = 2.0 / 32768       # PCM16 wavs and PCM of two card runs:
+                                   # the floats above, rounded to 16 bits
+
+
+def _rds_ok(bits, meta):
+    """The synth capture's PI/PS/RT at BER 0, pilot and PSS locked."""
+    from sdrjfm_tpu_torch.rds.live import LiveRDSDecoder
+    dec = LiveRDSDecoder()
+    dec.feed(bits)
+    rep = dec.report()
+    d = {"pi": rep["pi_code"], "ps": rep["station_label"],
+         "rt": rep["radio_text"], "ber": rep["bit_error_rate"],
+         "groups": rep["groups_decoded"],
+         "pilot_locked": meta["pilot_locked"],
+         "pss_established": meta["pss_established"]}
+    ok = (d["pi"] == "0x10F0" and d["ps"].strip() == "TPU FM"
+          and d["rt"] == "VERIFY RUN" and d["ber"] == 0.0
+          and d["pilot_locked"] and d["pss_established"])
+    return ok, d
+
+
+# kernel names in a profile (csrc/*.cu); a call of RDS decoder 1 or 3
+# launches its Costas stage once, one of decoder 2 its M&M core once
+DEVICE_KERNELS = {"frontend": "frontend_kernel", "linrec": "linrec_kernel",
+                  "pole_bank": "pole_bank_kernel", "costas": "costas_kernel",
+                  "mm_core": "mm_core_kernel"}
+
+
+def _device_launches(fn):
+    """(fn(), device kernel launches by counter name over it), the
+    launches read from a profiler trace: the wrappers' host counters do
+    not see a graph's replays."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ret = fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return ret, {k: sum(e.count for e in ev if n in e.key)
+                 for k, n in DEVICE_KERNELS.items()}
+
+
+def _eager_offline(rx, iq):
+    """The capture through rx.step itself, block by block, with no graph:
+    the yardstick the runners are held to.  Audio, RDS bits, meta dicts."""
+    from types import SimpleNamespace
+    from sdrjfm_tpu_torch.models.receiver import meta_dict_from_vec
+    T = rx.cfg.wire_len
+    state, ctl = rx.init_state(), rx.initial_controls()
+    audio, bits, metas = [], [], []
+    for b in range(len(iq) // T):
+        blk = torch.from_numpy(np.array(iq[b * T:(b + 1) * T])).to(rx.device)
+        state, out = rx.step(state, ctl, blk)
+        meta, n = meta_dict_from_vec(out.meta_vec.cpu().numpy())
+        audio.append(out.audio.cpu().numpy())
+        bits.append(out.rds.bits[:n].cpu().numpy())
+        metas.append(meta)
+    return SimpleNamespace(audio=np.concatenate(audio),
+                           rds_bits=np.concatenate(bits), meta=metas)
+
+
+def phase_runners(wav, card):
+    """Every runner on the card against the eager rx.step loop on the 8 s
+    capture (11 blocks, i16 wire): audio within RUNNER_AUDIO_ATOL, RDS
+    bits equal, PI/PS/RT decoded at BER 0; chunk graphs of 1, 2 and 4
+    blocks (fewer blocks than warm-up steps, and trailing partial chunks)
+    and a 2-block capture; launches under the graphs counted from a
+    profiler trace; then `rx` through the CLI with --runner scan
+    --chunk-blocks 4, --pcm-out and --follow --no-pace against the CLI run
+    of phase main (the loop runner), itself against the eager loop."""
+    import shutil
+    from sdrjfm_tpu_torch import app
+    from sdrjfm_tpu_torch.io.wavio import read_iq_wav_raw, read_wav
+    from sdrjfm_tpu_torch.models.receiver import Receiver, ReceiverConfig
+    from sdrjfm_tpu_torch.runtime.native_source import NativeRawSource
+    from sdrjfm_tpu_torch.runtime.stream import (run_live, run_offline,
+                                                 run_offline_scanned,
+                                                 run_streaming)
+    iq, _ = read_iq_wav_raw(str(wav))
+    rx = Receiver(ReceiverConfig(block_fm=BLOCK_FM, rds="block",
+                                 audio_filter_hz=15000, iq_format="i16"),
+                  device="cuda")
+    ref = _eager_offline(rx, iq)
+    nblk = len(ref.meta)
+
+    def live():
+        with NativeRawSource(str(wav), pace=False) as src:
+            return run_live(rx, src)
+
+    runs = (("run_offline", lambda: run_offline(rx, iq)),
+            ("run_offline_scanned", lambda: run_offline_scanned(rx, iq)),
+            ("run_offline_scanned_chunk4",
+             lambda: run_offline_scanned(rx, iq, chunk_blocks=4)),
+            ("run_offline_scanned_chunk2",
+             lambda: run_offline_scanned(rx, iq, chunk_blocks=2)),
+            ("run_offline_scanned_chunk1",
+             lambda: run_offline_scanned(rx, iq, chunk_blocks=1)),
+            ("run_streaming", lambda: run_streaming(rx, iq)),
+            ("run_streaming_chunk4",
+             lambda: run_streaming(rx, iq, chunk_blocks=4)),
+            ("run_live_raw_unpaced", live))
+    results = {}
+    for name, fn in runs:
+        t0 = time.perf_counter()
+        res = fn()
+        secs = time.perf_counter() - t0
+        results[name] = res
+        same_shape = res.audio.shape == ref.audio.shape
+        a_err = (float(np.abs(res.audio - ref.audio).max()) if same_shape
+                 else float("inf"))
+        bits_equal = bool(np.array_equal(res.rds_bits, ref.rds_bits))
+        dec_ok, dec = _rds_ok(res.rds_bits, res.meta[-1])
+        row = {"phase": "runners", "runner": name, "blocks": len(res.meta),
+               "s": secs, "audio_max_abs_diff_vs_eager": a_err,
+               "rds_bits_equal": bits_equal,
+               "bit_for_bit": bool(same_shape and bits_equal
+                                   and np.array_equal(res.audio, ref.audio)),
+               "decode": dec, "audio_atol": RUNNER_AUDIO_ATOL}
+        if name.startswith("run_live"):
+            row["dropped_total"] = res.dropped_total
+        emit(row)
+        need(len(res.meta) == nblk and a_err <= RUNNER_AUDIO_ATOL
+             and bits_equal and dec_ok, f"runner {name}: {row}")
+    # a capture of 2 blocks: one chunk of 2, against the eager loop on them
+    T = rx.cfg.wire_len
+    head, head_ref = (run_offline_scanned(rx, iq[:2 * T]),
+                      _eager_offline(rx, iq[:2 * T]))
+    h_err = float(np.abs(head.audio - head_ref.audio).max())
+    h_eq = bool(np.array_equal(head.rds_bits, head_ref.rds_bits))
+    emit({"phase": "runners", "runner": "run_offline_scanned, 2 blocks",
+          "blocks": len(head.meta), "audio_max_abs_diff_vs_eager": h_err,
+          "rds_bits_equal": h_eq})
+    need(len(head.meta) == 2 and head.audio.shape == head_ref.audio.shape
+         and h_err <= RUNNER_AUDIO_ATOL and h_eq, "scanned, 2 blocks")
+    c0 = results["run_offline_scanned"].audio
+    chunk_err = {k: float(np.abs(results[f"run_offline_scanned_{k}"].audio
+                                 - c0).max())
+                 for k in ("chunk4", "chunk2", "chunk1")}
+    # the launches inside the graphs, by kernel name, each graph captured
+    # before the trace (so no warm-up step is in it)
+    run_offline_scanned(rx, iq)
+    counts = {"run_offline_scanned": _device_launches(
+                  lambda: run_offline_scanned(rx, iq))[1],
+              "run_offline": _device_launches(
+                  lambda: run_offline(rx, iq))[1]}
+    emit({"phase": "runners", "what": "chunks of 4, 2, 1 vs one chunk, and "
+          "device launches under the graphs (profiler)", "blocks": nblk,
+          "chunk_vs_none_max_abs_diff": chunk_err,
+          "graph_launches": counts, "card": card})
+    need(max(chunk_err.values()) <= RUNNER_AUDIO_ATOL, "chunks vs one chunk")
+    for k, c in counts.items():
+        need(c["frontend"] == nblk and c["linrec"] == 2 * nblk,
+             f"{k}: launches under the graph {c}, want {nblk} front ends "
+             f"and {2 * nblk} scans")
+    # decoders 1-3 under replay: the loop and scan runners against the
+    # eager loop
+    for rds in ("scan1", "scan2", "scan3"):
+        rxd = Receiver(ReceiverConfig(block_fm=BLOCK_FM, rds=rds,
+                                      audio_filter_hz=15000,
+                                      iq_format="i16"), device="cuda")
+        e = _eager_offline(rxd, iq)
+        for name, g in (("run_offline", run_offline(rxd, iq)),
+                        ("run_offline_scanned", run_offline_scanned(rxd,
+                                                                    iq))):
+            a_err = float(np.abs(e.audio - g.audio).max())
+            eq = bool(np.array_equal(e.rds_bits, g.rds_bits))
+            emit({"phase": "runners", "runner": f"{name}, {rds}",
+                  "audio_max_abs_diff_vs_eager": a_err,
+                  "rds_bits_equal": eq})
+            need(a_err <= RUNNER_AUDIO_ATOL and eq, f"{name} {rds} vs eager")
+    # the CLI's runners against the CLI run of phase main (the loop
+    # runner), and that one against the eager loop
+    tmp = ROOT / "chiprun_work" / "runners_tmp"
+    tmp.mkdir(parents=True, exist_ok=True)
+    try:
+        main_audio, _ = read_wav(str(OUT / "audio.wav"))
+        m_err = (float(np.abs(main_audio - ref.audio).max())
+                 if main_audio.shape == ref.audio.shape else float("inf"))
+        emit({"phase": "runners", "cli": "loop (phase main)",
+              "audio_max_abs_diff_vs_eager": m_err,
+              "audio_atol": CLI_AUDIO_ATOL})
+        need(m_err <= CLI_AUDIO_ATOL, f"rx loop vs eager: {m_err}")
+        for name, flags in (("scan_chunk4", ["--runner", "scan",
+                                             "--chunk-blocks", "4"]),
+                            ("pcm_out", ["--pcm-out", str(tmp / "pcm.raw")]),
+                            ("follow", ["--follow", "--no-pace"])):
+            a, r = tmp / f"{name}.wav", tmp / f"{name}.json"
+            t0 = time.perf_counter()
+            rc = app.main(["rx", "--iq", str(wav), "--audio", str(a),
+                           "--rds", "--report", str(r), "--block-fm",
+                           str(BLOCK_FM), "--iq-format", "i16", "--device",
+                           "cuda", *flags])
+            secs = time.perf_counter() - t0
+            need(rc == 0, f"rx {name} exited {rc}")
+            rep = json.loads(r.read_text())
+            x, info = read_wav(str(a))
+            err = float(np.abs(x - main_audio).max())
+            row = {"phase": "runners", "cli": name, "flags": flags,
+                   "rx_s": secs, "blocks": rep["blocks"],
+                   "throughput_x_realtime": rep["throughput_x_realtime"],
+                   "audio_max_abs_diff_vs_loop_cli": err,
+                   "pi": rep["rds"]["pi_code"],
+                   "ps": rep["rds"]["station_label"],
+                   "rt": rep["rds"]["radio_text"],
+                   "ber": rep["rds"]["bit_error_rate"],
+                   "pilot_locked": rep["meta_last"]["pilot_locked"],
+                   "pss_established": rep["meta_last"]["pss_established"]}
+            if name == "pcm_out":
+                pcm = np.fromfile(str(tmp / "pcm.raw"), "<i2").reshape(-1, 2)
+                row["pcm_max_abs_diff_vs_loop_cli"] = float(
+                    np.abs(pcm / 32768.0 - main_audio).max())
+                err = max(err, row["pcm_max_abs_diff_vs_loop_cli"])
+            if name == "follow":
+                row["ingest_dropped"] = rep["ingest_dropped"]
+                row["latency_ms"] = rep.get("latency_ms")
+            emit(row)
+            need(rep["blocks"] == nblk and x.shape == main_audio.shape
+                 and err <= CLI_AUDIO_ATOL and row["pi"] == "0x10F0"
+                 and row["ps"].strip() == "TPU FM"
+                 and row["rt"] == "VERIFY RUN" and row["ber"] == 0.0
+                 and row["pilot_locked"] and row["pss_established"]
+                 and rep.get("ingest_dropped", 0) == 0, f"rx {name}: {row}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_scanned(rx, wav, card, what: str, eager_step_ms: float,
+                  passes: int = 7):
+    """run_offline_scanned over the capture's blocks, `passes` times after
+    the first (which captures): wall ms per block, its real-time factor,
+    the same for run_offline (the loop runner), the host's time per
+    replay(), the capture and instantiate seconds, the
+    device time per step and busy share (profiler), beside the eager
+    step; its output against the eager rx.step loop's."""
+    from sdrjfm_tpu_torch import constants as C
+    from sdrjfm_tpu_torch.io.wavio import read_iq_wav_raw
+    from sdrjfm_tpu_torch.runtime.stream import (_wire_blocks, run_offline,
+                                                 run_offline_scanned)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    iq, _ = read_iq_wav_raw(str(wav))
+    T = rx.cfg.wire_len
+    nblk = len(iq) // T
+    block_s = rx.cfg.block_in / C.INPUT_RATE
+    ref = _eager_offline(rx, iq)
+    t0 = time.perf_counter()
+    first = run_offline_scanned(rx, iq)
+    first_s = time.perf_counter() - t0
+    a_err = float(np.abs(first.audio - ref.audio).max())
+    bits_eq = bool(np.array_equal(first.rds_bits, ref.rds_bits))
+    need(a_err <= RUNNER_AUDIO_ATOL and bits_eq,
+         f"scanned {what}: vs eager {a_err}, bits equal {bits_eq}")
+    walls = []
+    for _ in range(passes):
+        t0 = time.perf_counter()
+        run_offline_scanned(rx, iq)
+        walls.append((time.perf_counter() - t0) / nblk * 1e3)
+    # the loop runner (run_offline, rx's default): the per-block graph,
+    # an upload, a meta_vec fetch and the hooks' turn between blocks
+    run_offline(rx, iq)
+    loop_walls = []
+    for _ in range(passes):
+        t0 = time.perf_counter()
+        run_offline(rx, iq)
+        loop_walls.append((time.perf_counter() - t0) / nblk * 1e3)
+    # one run's parts, each ended by a sync: loading the start state and
+    # controls into the step's buffers, staging the chunk (host copy into
+    # pinned memory, upload), the replays (the host's enqueue alone, then
+    # the card's), and fetching the outputs
+    sg = rx.jit_step()
+    sc = sg.scan(nblk)
+    wire = _wire_blocks(iq, rx.cfg, nblk)
+    parts = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        parts[name] = (time.perf_counter() - t0) * 1e3
+
+    def replays():
+        t0 = time.perf_counter()
+        for _ in range(nblk):
+            sc.step()
+        parts["enqueue_ms"] = (time.perf_counter() - t0) * 1e3
+
+    timed("load_state_ms", lambda: sg.load(rx.init_state(),
+                                           rx.initial_controls()))
+    timed("stage_ms", lambda: sc.load_blocks(wire))
+    timed("replays_ms", replays)
+    timed("fetch_ms", lambda: sc.fetch(nblk))
+    host_us = parts["enqueue_ms"] / nblk * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        run_offline_scanned(rx, iq)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+    rows = [(e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    dev_us = sum(r[0] for r in rows)
+    wall_ms = statistics.median(walls)
+    emit({"phase": "times", "what": f"scanned, {what}", "blocks": nblk,
+          "passes": passes, "wall_ms_per_block": wall_ms,
+          "wall_ms_per_block_all": walls,
+          "wall_ms_per_block_spread": [min(walls), max(walls)],
+          "fm_stereo_rds_realtime_x": block_s / (wall_ms / 1e3),
+          "fm_stereo_rds_realtime_x_all": [block_s / (w / 1e3)
+                                           for w in walls],
+          "device_ms_per_step": (dev_us / nblk / 1e3 if rows
+                                 else "not measured"),
+          "device_busy_share": (dev_us / 1e6 / wall if rows
+                                else "not measured"),
+          "device_events_per_step": sum(r[1] for r in rows) / nblk,
+          "host_us_per_replay": host_us,
+          "loop_wall_ms_per_block": statistics.median(loop_walls),
+          "loop_wall_ms_per_block_spread": [min(loop_walls),
+                                            max(loop_walls)],
+          "loop_fm_stereo_rds_realtime_x": block_s / (
+              statistics.median(loop_walls) / 1e3),
+          "one_run_parts_ms": parts,
+          "capture_and_instantiate_s": sc.capture_s,
+          "first_run_s": first_s,
+          "eager_step_ms": eager_step_ms,
+          "eager_fm_stereo_rds_realtime_x": block_s / (eager_step_ms / 1e3),
+          "audio_max_abs_diff_vs_eager": a_err, "card": card})
+
+
+OPTION_CONFIGS = (("input filter + nsq + scan2",
+                   dict(rds="scan2", squelch="nsq", input_filter=True)),
+                  ("scan3", dict(rds="scan3")))
 
 
 def main() -> int:
@@ -1378,18 +1876,19 @@ def main() -> int:
                   device="cuda")
     fe_err, sc_err = phase_kernels(rx)
     a_err, b_err = phase_option_kernels()
+    phase_graph(card)
     wav, launches = phase_main()
     phase_reference(wav)
+    phase_runners(wav, card)
     opt_launches = phase_options(wav)
-    kernels = phase_times(rx, wav, fe_err, sc_err, launches, card)
+    kernels, step_ms = phase_times(rx, wav, fe_err, sc_err, launches, card)
     kernels += phase_option_times(a_err, b_err, opt_launches, card)
     phase_profile(rx, wav, card)
-    for what, options in (("input filter + nsq + scan2",
-                           dict(rds="scan2", squelch="nsq",
-                                input_filter=True)),
-                          ("scan3", dict(rds="scan3"))):
-        phase_profile(phase_config_step(wav, card, what, **options), wav,
-                      card, what)
+    phase_scanned(rx, wav, card, "main path", step_ms)
+    for what, options in OPTION_CONFIGS:
+        rx2, step_ms = phase_config_step(wav, card, what, **options)
+        phase_profile(rx2, wav, card, what)
+        phase_scanned(rx2, wav, card, what, step_ms)
     wav.unlink()                      # 74 MB: keep the output folder small
     (OUT / "kernels.json").write_text(json.dumps({"card": card,
                                                    "kernels": kernels},

@@ -9,11 +9,14 @@
 `rx` turns an IQ capture (a wav, or a headerless raw file with
 `--iq-format u8|i8|i16` at `--input-rate`) into 48 kHz (or 192 kHz) stereo
 audio and the RDS report, with the JAX CLI's flags and report keys for every
-receiver option.  It runs on the card unless `--device cpu` is given.  The
-flags of the runners, live and pipe sources, the control channel,
-checkpoints, AFC, the scopes and the PCM sink, and the `scan` subcommand,
-are not ported yet: they are refused with a message naming ROADMAP.md,
-never silently ignored.
+receiver option and runner: `--runner loop|scan` (`--chunk-blocks`),
+`--pcm-out`/`--pcm-pace` (the streaming runner), `--follow` (the live runner
+over the native ingest ring; `--no-pace`, `--loop-seconds`), pipe input
+(`--iq -` or a FIFO, with `--iq-format u8|i8|i16`) and `--log-meta`.  It
+runs on the card unless `--device cpu` is given.  The rtl_tcp and USB
+sources and their gains, the control channel, checkpoints, AFC, the scopes
+and the `scan` subcommand are not ported yet: they are refused with a
+message naming ROADMAP.md, never silently ignored.
 """
 
 from __future__ import annotations
@@ -27,23 +30,32 @@ import time
 UNPORTED_RX_FLAGS = (
     "--tune-hz", "--afc", "--spectra", "--lf-plot", "--lf-zoom",
     "--save-state", "--ckpt-backend", "--load-state", "--ckpt-dir",
-    "--ckpt-every", "--ckpt-keep", "--ckpt-keep-period", "--runner",
-    "--chunk-blocks", "--log-meta", "--pcm-out", "--pcm-pace", "--follow",
-    "--no-pace", "--loop-seconds", "--profile", "--control", "--gain",
-    "--agc", "--ppm", "--linearity", "--sensitivity", "--grdb",
-    "--lna-state", "--lna-gain", "--vga-gain", "--amp",
+    "--ckpt-every", "--ckpt-keep", "--ckpt-keep-period", "--profile",
+    "--control", "--gain", "--agc", "--ppm", "--linearity", "--sensitivity",
+    "--grdb", "--lna-state", "--lna-gain", "--vga-gain", "--amp",
     "--reconnect-timeout", "--stations", "--meter", "--config")
 
-# live and pipe sources of the JAX CLI's --iq (not ported yet)
+# the rtl_tcp and USB sources of the JAX CLI's --iq (not ported yet)
 _LIVE_PREFIXES = ("rtl_tcp://", "rtltcp://", "rtlsdr")
-_LIVE_NAMES = ("airspy", "hackrf", "sdrplay", "-")
+_LIVE_NAMES = ("airspy", "hackrf", "sdrplay")
+
+
+def _is_fifo(path: str) -> bool:
+    import os
+    import stat
+    try:
+        return stat.S_ISFIFO(os.stat(path).st_mode)
+    except OSError:
+        return False
 
 
 def _build_rx_parser(sub):
     p = sub.add_parser("rx", help="demodulate an IQ capture")
     p.add_argument("--iq", required=True,
-                   help="input IQ: a wav capture (I=left, Q=right) or a "
-                        "headerless raw file (needs --iq-format u8/i8/i16)")
+                   help="input IQ: a wav capture (I=left, Q=right), a "
+                        "headerless raw file (needs --iq-format u8/i8/i16), "
+                        "or '-'/a FIFO: a headerless stream from any SDR "
+                        "tool (streaming, needs --iq-format u8/i8/i16)")
     p.add_argument("--input-rate", type=int, default=0,
                    help="device-native sample rate of the capture (e.g. "
                         "2400000 rtl-sdr, 2500000 airspy); inserts the "
@@ -106,6 +118,37 @@ def _build_rx_parser(sub):
                    help="the 1 kHz/25 ms/2 s test-tone injector")
     p.add_argument("--taps", action="store_true",
                    help="emit the debug taps (incl. the input tap)")
+    p.add_argument("--runner", default="loop", choices=["loop", "scan"],
+                   help="block driver: the captured step replayed a block "
+                        "at a time with the host hooks between blocks, or "
+                        "over chunks of blocks staged on the device "
+                        "(fastest)")
+    p.add_argument("--chunk-blocks", type=int,
+                   help="with --runner scan: stage and fetch in chunks of "
+                        "this many blocks (bounds device memory for long "
+                        "captures; the same result)")
+    p.add_argument("--log-meta", help="write per-block metadata as JSON lines "
+                                      "(the reference's periodic freq/pilot "
+                                      "log, radio.cpp:1811-1823)")
+    p.add_argument("--pcm-out", help="stream raw s16le PCM as blocks complete "
+                                     "('-' = stdout; pipe to aplay/ffplay — "
+                                     "the live audioSink equivalent). Uses "
+                                     "the streaming runner.")
+    p.add_argument("--pcm-pace", action="store_true",
+                   help="throttle --pcm-out to real time")
+    p.add_argument("--follow", action="store_true",
+                   help="live streaming mode: pull blocks from the native "
+                        "C++ paced ring (real-time emission, overrun drops "
+                        "accounted) instead of loading the capture into "
+                        "memory — the reference's device-thread -> ring -> "
+                        "engine path (filehulp.cpp:159-202, "
+                        "fm-processor.cpp:387-417)")
+    p.add_argument("--no-pace", action="store_true",
+                   help="with --follow: stream at full speed instead of "
+                        "real time")
+    p.add_argument("--loop-seconds", type=float,
+                   help="with --follow: loop the capture and process this "
+                        "many seconds of signal (default: stop at EOF)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; cpu runs the "
                         "kernels' plain versions)")
@@ -153,6 +196,58 @@ def _load_iq(path: str, iq_fmt: str):
     return iq, rate, "c64"
 
 
+def _probe_follow(path: str, iq_fmt: str):
+    """(rate, wire format, is a wav) of a capture streamed with --follow:
+    a header-only probe, the native ring does the reading."""
+    from . import constants as C
+    from .io.wavio import is_riff, probe_wav
+    if not is_riff(path):
+        if iq_fmt not in ("u8", "i8", "i16"):
+            raise ValueError("raw (non-wav) capture: pass --iq-format u8, "
+                             "i8 (hackrf_transfer) or i16")
+        return C.INPUT_RATE, iq_fmt, False
+    if iq_fmt in ("u8", "i8"):
+        raise ValueError(f"--iq-format {iq_fmt} applies to raw captures; "
+                         "wav inputs use auto/c64/i16")
+    info = probe_wav(path)
+    pcm16 = info.fmt == 1 and info.sampwidth == 2 and info.channels == 2
+    if iq_fmt == "i16" and not pcm16:
+        raise ValueError("--iq-format i16 needs a 16-bit PCM stereo wav")
+    return info.rate, ("i16" if pcm16 and iq_fmt in ("auto", "i16")
+                       else "c64"), True
+
+
+class _FollowDumps:
+    """--dump-input/--dump-if/--dump-mpx under --follow: each block's taps
+    appended to the wav dumps while receiving (fm-processor.cpp:338-349,
+    448-455), byte for byte the offline dumps.  The JAX CLI's version also
+    serves --spectra and the control channel's dump buttons, which are not
+    ported yet."""
+
+    def __init__(self, args, cfg):
+        from .io.wavio import StreamingWavWriter
+        self.writers = [(tap, StreamingWavWriter(path, rate, ch))
+                        for path, tap, rate, ch in (
+                            (args.dump_input, "input_dc", cfg.input_rate, 2),
+                            (args.dump_if, "if_filtered", cfg.fm_rate, 2),
+                            (args.dump_mpx, "demod", cfg.fm_rate, 1))
+                        if path]
+
+    def on_taps(self, taps):
+        for tap, w in self.writers:
+            if tap in taps:
+                x = taps[tap].cpu().numpy()
+                if w.channels == 2:
+                    w.write_iq(x)
+                else:
+                    w.write(x)
+
+    def finish(self):
+        for _, w in self.writers:
+            w.close()
+            print(f"wrote {w.path}", file=sys.stderr)
+
+
 def cmd_rx(args) -> int:
     import numpy as np
     import torch
@@ -160,15 +255,33 @@ def cmd_rx(args) -> int:
     from .io.wavio import write_iq_wav, write_wav
     from .models.receiver import Receiver, ReceiverConfig
     from .rds.live import LiveRDSDecoder
-    from .runtime.stream import run_offline
+    from .runtime.stream import (run_live, run_offline, run_offline_scanned,
+                                 run_streaming)
 
     if args.iq.startswith(_LIVE_PREFIXES) or args.iq in _LIVE_NAMES:
-        print(f"rx: live and pipe sources ({args.iq}) are not ported to "
-              "sdrjfm_tpu_torch yet (ROADMAP.md, queue 1: runners)",
+        print(f"rx: the rtl_tcp and USB sources ({args.iq}) are not ported "
+              "to sdrjfm_tpu_torch yet (ROADMAP.md, queue 1)",
               file=sys.stderr)
         return 2
+    if args.chunk_blocks is not None and args.chunk_blocks < 1:
+        print("--chunk-blocks must be >= 1", file=sys.stderr)
+        return 2
+    is_pipe = args.iq == "-" or _is_fifo(args.iq)
+    iq, is_wav = None, False
     try:
-        iq, rate, iq_fmt = _load_iq(args.iq, args.iq_format)
+        if is_pipe:
+            # stdin / FIFO: a headerless stream from any external SDR tool
+            # (`rtl_sdr -f 95M - | rx --iq - --iq-format u8`), streaming
+            if args.iq_format not in ("u8", "i8", "i16"):
+                print("pipe/stdin input: pass --iq-format u8, i8 or i16",
+                      file=sys.stderr)
+                return 2
+            args.follow = True
+            rate, iq_fmt = C.INPUT_RATE, args.iq_format
+        elif args.follow:
+            rate, iq_fmt, is_wav = _probe_follow(args.iq, args.iq_format)
+        else:
+            iq, rate, iq_fmt = _load_iq(args.iq, args.iq_format)
     except (OSError, ValueError) as e:
         print(f"loading device failed: {args.iq}: {e}", file=sys.stderr)
         return 2
@@ -207,6 +320,11 @@ def cmd_rx(args) -> int:
         native_rate=(args.input_rate
                      if args.input_rate not in (0, C.INPUT_RATE) else 0),
         emit_input_tap=bool(args.dump_input or args.taps),
+        # the streaming sinks take the PCM16 quantized on the device (half
+        # the audio bytes back; s16le is what they emit) unless the user
+        # asked for float32 wav output
+        emit_audio_i16=bool((args.pcm_out or args.follow)
+                            and not args.float32),
         dc_remove=args.dc_remove == "on", iq_format=iq_fmt,
         test_tone=args.test_tone, **cfg_kw)
     try:
@@ -214,7 +332,7 @@ def cmd_rx(args) -> int:
     except (RuntimeError, ValueError) as e:
         print(f"rx: {e}", file=sys.stderr)
         return 2
-    if len(iq) < cfg.wire_len:
+    if iq is not None and len(iq) < cfg.wire_len:
         print(f"capture too short: need {cfg.wire_len} samples, got "
               f"{len(iq)}", file=sys.stderr)
         return 2
@@ -231,6 +349,10 @@ def cmd_rx(args) -> int:
         volume=f32(10.0 ** (args.volume_db / 20.0)),
         left_gain=f32(lg), right_gain=f32(rg), squelch_level=f32(sq_level))
     if sq_auto:
+        if args.follow:
+            print("--squelch-level auto needs the in-memory capture; "
+                  "pass an explicit level with --follow", file=sys.stderr)
+            return 2
         if args.squelch != "nsq":
             print("--squelch-level auto requires --squelch nsq (the profile "
                   "measures the noise-squelch band ratio)", file=sys.stderr)
@@ -247,15 +369,76 @@ def cmd_rx(args) -> int:
         controls = controls._replace(squelch_level=f32(lvl))
     live_rds = LiveRDSDecoder(pty_locale=args.pty_locale) if args.rds \
         else None
+    feed = live_rds.feed if live_rds else None
+    follow_dumps = _FollowDumps(args, cfg) if args.follow and want_taps \
+        else None
+    sink = None
+    if args.pcm_out:
+        from .io.pcmout import PCMSink
+        sink = PCMSink(args.pcm_out, cfg.audio_rate, pace=args.pcm_pace)
 
     t0 = time.time()
-    res = run_offline(rx, np.asarray(iq), controls, collect_taps=want_taps,
-                      rds_feedback=live_rds.feed if live_rds else None)
+    try:
+        if args.follow:
+            from .runtime.native_source import (NativePipeSource,
+                                                NativeRawSource,
+                                                NativeUnavailable,
+                                                NativeWavSource)
+            pace, loop = not args.no_pace, args.loop_seconds is not None
+            try:
+                if is_pipe:
+                    src = NativePipeSource(args.iq, fmt=iq_fmt,
+                                           rate=cfg.wire_rate)
+                elif iq_fmt == "c64":
+                    src = NativeWavSource(args.iq, pace=pace, loop=loop)
+                elif is_wav:
+                    src = NativeRawSource(args.iq, pace=pace, loop=loop)
+                else:
+                    src = NativeRawSource(args.iq, fmt=iq_fmt,
+                                          rate=cfg.wire_rate, pace=pace,
+                                          loop=loop)
+            except (OSError, ValueError, NativeUnavailable) as e:
+                print(f"loading device failed: {args.iq}: {e}",
+                      file=sys.stderr)
+                return 2
+            max_blocks = None
+            if args.loop_seconds:
+                max_blocks = max(1, int(args.loop_seconds * cfg.wire_rate)
+                                 // cfg.wire_len)
+            # capture the step BEFORE the producer starts: a paced source
+            # would overrun its ring during the capture and drop the head
+            # of the stream
+            rx.jit_step().prepare()
+            src.start()
+            try:
+                res = run_live(rx, src, controls, max_blocks=max_blocks,
+                               on_audio=sink.write if sink else None,
+                               rds_feedback=feed,
+                               on_taps=(follow_dumps.on_taps
+                                        if follow_dumps else None))
+            finally:
+                src.close()
+        elif args.pcm_out:
+            res = run_streaming(rx, iq, controls, on_audio=sink.write,
+                                rds_feedback=feed, collect_taps=want_taps)
+        elif args.runner == "scan":
+            res = run_offline_scanned(rx, iq, controls,
+                                      collect_taps=want_taps,
+                                      chunk_blocks=args.chunk_blocks)
+        else:
+            res = run_offline(rx, np.asarray(iq), controls,
+                              collect_taps=want_taps, rds_feedback=feed)
+    finally:
+        if sink is not None:
+            sink.close()
     dt = time.time() - t0
-    n_in = len(iq) // cfg.wire_len * cfg.wire_len
+    n_in = (len(res.meta) if args.follow
+            else len(iq) // cfg.wire_len) * cfg.wire_len
     rt = n_in / cfg.wire_rate / dt if dt > 0 else float("inf")
     print(f"processed {n_in} IQ samples in {dt:.2f}s ({rt:.1f}x real-time) "
           f"on {rx.device}", file=sys.stderr)
+    if args.follow:
+        print(f"ingest overrun drops: {res.dropped_total}", file=sys.stderr)
 
     if args.audio:
         write_wav(args.audio, res.audio, cfg.audio_rate, float32=args.float32)
@@ -266,7 +449,27 @@ def cmd_rx(args) -> int:
         "throughput_x_realtime": rt,
         "meta_last": res.meta[-1] if res.meta else {},
     }
+    if args.follow:
+        report["ingest_dropped"] = res.dropped_total
+        lats = sorted(m["latency_ms"] for m in res.meta[2:]
+                      if "latency_ms" in m)     # [2:]: past the first blocks
+        if lats:
+            q = lambda p: lats[min(len(lats) - 1,       # noqa: E731
+                                   int(p * len(lats)))]
+            report["latency_ms"] = {
+                "block": round(1e3 * cfg.block_fm / cfg.fm_rate, 1),
+                "p50": round(q(0.50), 1), "p95": round(q(0.95), 1),
+                "max": round(lats[-1], 1)}
+            print(f"end-to-end latency (ready->audio): p50 "
+                  f"{report['latency_ms']['p50']} ms, p95 "
+                  f"{report['latency_ms']['p95']} ms "
+                  f"(+{report['latency_ms']['block']} ms block accumulation)",
+                  file=sys.stderr)
     if live_rds is not None:
+        # the scan runner feeds the decoder once, after the run
+        if args.runner == "scan" and not (args.follow or args.pcm_out) \
+                and res.rds_bits is not None:
+            live_rds.feed(res.rds_bits)
         r = live_rds.result
         report["rds"] = live_rds.report()
         print(f"RDS: PI={report['rds']['pi_code']} "
@@ -274,6 +477,8 @@ def cmd_rx(args) -> int:
               f"groups={live_rds.sync.groups_decoded} "
               f"BER={live_rds.sync.bit_error_rate:.4f}",
               file=sys.stderr)
+    if follow_dumps is not None:
+        follow_dumps.finish()
     if args.dump_input and "input_dc" in res.taps:
         write_iq_wav(args.dump_input, res.taps["input_dc"], cfg.input_rate)
         print(f"wrote {args.dump_input}", file=sys.stderr)
@@ -281,6 +486,16 @@ def cmd_rx(args) -> int:
         write_iq_wav(args.dump_if, res.taps["if_filtered"], cfg.fm_rate)
     if args.dump_mpx and "demod" in res.taps:
         write_wav(args.dump_mpx, res.taps["demod"], cfg.fm_rate, float32=True)
+    if args.log_meta:
+        blk_s = cfg.block_fm / cfg.fm_rate
+        with open(args.log_meta, "w") as f:
+            for b, m in enumerate(res.meta):
+                rec = {"block": b, "t_s": round((b + 1) * blk_s, 6),
+                       "freq_offset_hz": args.freq_offset}
+                rec.update(m)
+                f.write(json.dumps(rec) + "\n")
+        print(f"wrote {args.log_meta} ({len(res.meta)} records)",
+              file=sys.stderr)
     if args.report:
         with open(args.report, "w") as f:
             json.dump(report, f, indent=2)

@@ -357,11 +357,21 @@ int launch(unsigned grid, cudaStream_t st, const void* wire, int mis, int T,
            const int* n0_mod, int dc_on, int q, float w_rad, float2* y,
            float2* new_carry, float2* dc_part, unsigned* ticket,
            float2* dc_mean) {
-  // > 48 KB of shared memory; set on every launch, for whichever device
-  const cudaError_t e = cudaFuncSetAttribute(
-      frontend_kernel<FMT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes<FMT>());
+  // > 48 KB of shared memory: set once per device (at the first launch,
+  // which runs before any graph capture), so that a launch recorded into a
+  // CUDA graph is the kernel launch alone
+  constexpr int MAX_DEVICES = 64;
+  static bool smem_set[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
+  if (dev >= MAX_DEVICES || !smem_set[dev]) {
+    e = cudaFuncSetAttribute(frontend_kernel<FMT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes<FMT>());
+    if (e != cudaSuccess) return (int)e;
+    if (dev < MAX_DEVICES) smem_set[dev] = true;
+  }
   frontend_kernel<FMT><<<grid, THREADS, smem_bytes<FMT>(), st>>>(
       wire, mis, T, carry, taps, lgain, rgain, rf_dc, lo_freq, n0_mod, dc_on,
       q, w_rad, y, new_carry, dc_part, ticket, dc_mean);

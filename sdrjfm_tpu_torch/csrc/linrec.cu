@@ -25,13 +25,15 @@
 //     recurrence (decay products formed by a scan tree lose more);
 //   * between chunks: each chunk publishes its aggregate (zero carry-in
 //     value at its end), then its inclusive prefix, each packed with a
-//     state and the call's epoch into one 64-bit word, stored and loaded
-//     as a whole (no separate flag to order).  A chunk's first warp reads
-//     32 predecessors at a time until it finds an inclusive prefix, and sums
-//     the aggregates in between with their decay powers.  Words of earlier
-//     calls carry another epoch and read as "not ready", so no launch has to
-//     clear them.  A chunk waits only on chunks of lower linear block index,
-//     which the hardware dispatches first (the premise of CUB's scans).
+//     state into one 64-bit word, stored and loaded as a whole (no separate
+//     flag to order).  A chunk's first warp reads 32 predecessors at a time
+//     until it finds an inclusive prefix, and sums the aggregates in between
+//     with their decay powers.  The launch's words are zeroed ("not ready")
+//     by a memset queued just before the kernel on the same stream, so no
+//     value that changes from call to call is a launch argument and a
+//     captured CUDA graph replays correctly.  A chunk waits only on chunks
+//     of lower linear block index, which the hardware dispatches first (the
+//     premise of CUB's scans).
 // Rounding of the look-back sum depends on which predecessors had
 // published their prefix, so results may differ in the last bits between
 // runs.  Measured: PERF.md (chip_smoke.py phase `times`).
@@ -51,10 +53,9 @@ constexpr unsigned FULL = 0xffffffffu;
 __device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
 
 __device__ __forceinline__ void publish(unsigned long long* slot,
-                                        unsigned epoch, unsigned state,
-                                        float v) {
+                                        unsigned state, float v) {
   const unsigned long long w =
-      ((unsigned long long)((epoch << 2) | state) << 32) | __float_as_uint(v);
+      ((unsigned long long)state << 32) | __float_as_uint(v);
   *reinterpret_cast<volatile unsigned long long*>(slot) = w;
 }
 
@@ -62,7 +63,7 @@ __global__ void __launch_bounds__(THREADS)
 linrec_kernel(const float* __restrict__ d, const float* __restrict__ g,
               const float* __restrict__ l2g, const float* __restrict__ y0,
               float* __restrict__ y, float* __restrict__ last, int T,
-              unsigned long long* __restrict__ status, unsigned epoch) {
+              unsigned long long* __restrict__ status) {
   __shared__ float buf[CHUNK + CHUNK / 32];
   __shared__ float wagg[WARPS], wexc[WARPS];
   __shared__ float s_carry;
@@ -122,7 +123,7 @@ linrec_kernel(const float* __restrict__ d, const float* __restrict__ g,
     if (chunk == 0) {
       E = y0[row];
     } else {
-      if (lane == 0) publish(st + chunk, epoch, AGG, agg);
+      if (lane == 0) publish(st + chunk, AGG, agg);
       E = 0.0f;
       int first = chunk - 1;                  // predecessor read by lane 0
       for (int win = 0;; ++win) {
@@ -135,7 +136,7 @@ linrec_kernel(const float* __restrict__ d, const float* __restrict__ g,
             const unsigned long long w =
                 *reinterpret_cast<volatile unsigned long long*>(st + pred);
             const unsigned hi = (unsigned)(w >> 32);
-            state = (hi >> 2) == epoch ? (hi & 3u) : 0u;
+            state = hi & 3u;
             val = __uint_as_float((unsigned)w);
           }
         } while (__any_sync(FULL, state == 0u));
@@ -151,7 +152,7 @@ linrec_kernel(const float* __restrict__ d, const float* __restrict__ g,
       }
     }
     if (lane == 0) {
-      publish(st + chunk, epoch, PFX, fmaf(gL, E, agg));
+      publish(st + chunk, PFX, fmaf(gL, E, agg));
       s_carry = E;
     }
   }
@@ -180,18 +181,23 @@ linrec_kernel(const float* __restrict__ d, const float* __restrict__ g,
 extern "C" {
 
 // d, y: [R, T] float32; g, l2g (log2 g), y0, last: [R] float32; all device
-// pointers.  status has R * sdr_linrec_chunks(T) 64-bit words, zeroed once;
-// epoch is in [1, 2^30) and differs from the previous launch's that used
-// the same status words (such launches must run in stream order).
-// Returns cudaGetLastError().
+// pointers.  status: R * ceil(T / sdr_linrec_chunk()) 64-bit words of
+// scratch that no other launch uses until this one has run (allocate them
+// per call); they are zeroed here, by a memset on `stream` before the
+// kernel.  Every argument is the same on each replay of a captured graph.
+// Returns the first CUDA error.
 int sdr_linrec(const void* d, const void* g, const void* l2g, const void* y0,
                void* y, void* last, int R, int T, void* status,
-               unsigned epoch, void* stream) {
+               void* stream) {
   if (R < 1 || R > 65535 || T < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((T + CHUNK - 1) / CHUNK), (unsigned)R);
-  linrec_kernel<<<grid, THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+  const unsigned nch = (unsigned)((T + CHUNK - 1) / CHUNK);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const cudaError_t e = cudaMemsetAsync(
+      status, 0, (size_t)R * nch * sizeof(unsigned long long), st);
+  if (e != cudaSuccess) return (int)e;
+  linrec_kernel<<<dim3(nch, (unsigned)R), THREADS, 0, st>>>(
       (const float*)d, (const float*)g, (const float*)l2g, (const float*)y0,
-      (float*)y, (float*)last, T, (unsigned long long*)status, epoch);
+      (float*)y, (float*)last, T, (unsigned long long*)status);
   return (int)cudaGetLastError();
 }
 
@@ -220,7 +226,9 @@ int sdr_linrec_chunk() { return CHUNK; }
 //     consecutive samples (on the card, 2048-sample chunks beat 1024: the
 //     look-back spans fewer chunks); blocks take their chunk from a ticket
 //     counter in the order they start, so a chunk waits only on chunks
-//     already running;
+//     already running.  The flags and the ticket are zeroed by a memset
+//     queued before each launch, so that every launch argument is the same
+//     from call to call (a captured CUDA graph replays correctly);
 //   * the chunk is staged in shared memory by coalesced loads (padded, so
 //     that a thread's 8 samples sit in 8 banks) and each sample is read
 //     once: per pole, the thread runs the zero-carry recurrence over its
@@ -230,7 +238,7 @@ int sdr_linrec_chunk() { return CHUNK; }
 //   * the chunk's carry-in, P complex values, comes from a decoupled
 //     look-back: each chunk publishes its aggregate (the zero-carry state at
 //     its end), then its inclusive prefix, into payload arrays, and only
-//     then release-stores the flag word (the call's epoch and the state), so
+//     then release-stores the flag word (its state), so
 //     a reader that acquire-loads a ready flag finds the payload.  Warp 0
 //     reads LOOK = 64 predecessors' flags at a time (two a lane: one step
 //     covers a 131072-sample row) until one holds a prefix, and sums the
@@ -297,16 +305,15 @@ __device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
   asm volatile("st.release.gpu.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
-// flags [B * nch] (epoch << 2 | state), agg / pfx [B * nch * P] complex64:
-// each chunk's aggregate and inclusive prefix; ticket: one counter, the
-// launch's tickets are base .. base + B * nch - 1.
+// flags [B * nch] (the state, 0 until published), agg / pfx [B * nch * P]
+// complex64: each chunk's aggregate and inclusive prefix; ticket: one
+// counter, 0 at the launch, whose tickets are 0 .. B * nch - 1.
 __global__ void __launch_bounds__(THREADS)
 pole_bank_kernel(const float* __restrict__ d, const float2* __restrict__ tab,
                  const float2* __restrict__ w0, float* __restrict__ y,
                  float2* __restrict__ wT, int P, int T, int nch,
                  unsigned* __restrict__ flags, float2* __restrict__ agg,
-                 float2* __restrict__ pfx, unsigned* __restrict__ ticket,
-                 unsigned base, unsigned epoch) {
+                 float2* __restrict__ pfx, unsigned* __restrict__ ticket) {
   __shared__ float buf[CHUNK + CHUNK / 32];
   __shared__ float2 s_tab[MAXP][NTAB];
   __shared__ float2 s_w[MAXP][WARPS];   // warp ends, then the state before
@@ -314,7 +321,7 @@ pole_bank_kernel(const float* __restrict__ d, const float2* __restrict__ tab,
   __shared__ float2 s_wloc[MAXP];
   __shared__ unsigned s_ticket;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if (tid == 0) s_ticket = atomicAdd(ticket, 1u) - base;
+  if (tid == 0) s_ticket = atomicAdd(ticket, 1u);
   __syncthreads();
   const int b = (int)(s_ticket / (unsigned)nch);
   const int c = (int)(s_ticket % (unsigned)nch);
@@ -390,7 +397,7 @@ pole_bank_kernel(const float* __restrict__ d, const float2* __restrict__ tab,
         __threadfence();
       }
       __syncwarp();
-      if (lane == 0) st_release(flags + slot, (epoch << 2) | AGG);
+      if (lane == 0) st_release(flags + slot, AGG);
       // lane p < P ends with pole p's sum; the window's power in `mult`
       float2 mult = make_float2(1.0f, 0.0f);
       for (int first = c - 1;; first -= LOOK) {
@@ -406,7 +413,7 @@ pole_bank_kernel(const float* __restrict__ d, const float2* __restrict__ tab,
             st[k] = PFX;                        // before chunk 0: never read
             if (pred >= 0) {
               const unsigned f = ld_acquire(flags + (slot - c + pred));
-              st[k] = (f >> 2) == epoch ? (f & 3u) : 0u;
+              st[k] = f & 3u;
             }
             wait |= st[k] == 0u;
           }
@@ -464,7 +471,7 @@ pole_bank_kernel(const float* __restrict__ d, const float2* __restrict__ tab,
       __threadfence();
     }
     __syncwarp();
-    if (lane == 0) st_release(flags + slot, (epoch << 2) | PFX);
+    if (lane == 0) st_release(flags + slot, PFX);
   }
   __syncthreads();
 
@@ -497,28 +504,31 @@ pole_bank_kernel(const float* __restrict__ d, const float2* __restrict__ tab,
 extern "C" {
 
 // d, y: [B, T] float32; tab: [B, P, sdr_pole_ntab()] complex64 (float2),
-// the per-pole table; w0, wT: [B, P] complex64.  The look-back scratch:
-// flags: B * nch 32-bit words, zeroed once; agg, pfx: B * nch * P complex64
-// each; ticket: one 32-bit counter, zeroed once, which each launch advances
-// by B * nch (base: its value before this launch, mod 2^32).  nch =
-// ceil(T / sdr_pole_chunk()).  epoch is in [1, 2^30) and differs from the
-// previous launch's that used the same flags (such launches must run in
-// stream order).  All device pointers; one launch on `stream`.  Returns
-// cudaGetLastError().
+// the per-pole table; w0, wT: [B, P] complex64.  The look-back scratch,
+// which no other launch uses until this one has run (allocate it per
+// call): flags, B * nch + 1 32-bit words, the last of them the ticket
+// counter, zeroed here by a memset on `stream` before the kernel; agg, pfx:
+// B * nch * P complex64 each.  nch = ceil(T / sdr_pole_chunk()).  All
+// device pointers; one memset and one launch on `stream`, with the same
+// arguments on each replay of a captured graph.  Returns the first CUDA
+// error.
 int sdr_pole_bank(const void* d, const void* tab, const void* w0, void* y,
                   void* wT, int B, int P, int T, void* flags, void* agg,
-                  void* pfx, void* ticket, unsigned base, unsigned epoch,
-                  void* stream) {
+                  void* pfx, void* stream) {
   if (B < 1 || P < 1 || P > poles::MAXP || T < 1
-      || T > 0x7fffffff - poles::CHUNK || epoch < 1u || epoch >= (1u << 30))
+      || T > 0x7fffffff - poles::CHUNK)
     return (int)cudaErrorInvalidValue;
   const long long nch = (T + poles::CHUNK - 1) / poles::CHUNK;
   if (nch * B > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  poles::pole_bank_kernel<<<(unsigned)(nch * B), poles::THREADS, 0,
-                            reinterpret_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  unsigned* fl = (unsigned*)flags;
+  const cudaError_t e =
+      cudaMemsetAsync(fl, 0, (size_t)(nch * B + 1) * sizeof(unsigned), st);
+  if (e != cudaSuccess) return (int)e;
+  poles::pole_bank_kernel<<<(unsigned)(nch * B), poles::THREADS, 0, st>>>(
       (const float*)d, (const float2*)tab, (const float2*)w0, (float*)y,
-      (float2*)wT, P, T, (int)nch, (unsigned*)flags, (float2*)agg,
-      (float2*)pfx, (unsigned*)ticket, base, epoch);
+      (float2*)wT, P, T, (int)nch, fl, (float2*)agg, (float2*)pfx,
+      fl + nch * B);
   return (int)cudaGetLastError();
 }
 

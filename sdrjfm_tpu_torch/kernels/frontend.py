@@ -107,8 +107,14 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
 
 
 class FrontendKernel:
-    """Callable wrapper with a launch counter (`launches` counts kernel
-    launches only; CPU calls of the plain version do not count)."""
+    """Callable wrapper with a launch counter.  `launches` counts eager
+    launches and captures into a CUDA graph, not a graph's replays; CPU
+    calls of the plain version do not count.
+
+    Safe to replay from a CUDA graph as it stands: the outputs and the DC
+    partial sums are allocated per call, and the DC ticket is persistent
+    but each launch's last block leaves it at 0, so no launch argument
+    changes between replays and no buffer a graph holds is freed."""
 
     def __init__(self):
         self.launches = 0

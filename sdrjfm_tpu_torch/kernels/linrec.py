@@ -21,6 +21,11 @@ Each wrapper launches its kernel on a CUDA tensor (built with nvcc at the
 first launch, never at import) and runs its plain version on a CPU tensor;
 the plain versions, chunked scans in torch ops, are also the kernels'
 references on the card.
+
+Both kernels are safe to capture in a CUDA graph: the look-back scratch is
+allocated per call (from the graph's pool while a graph captures) and
+zeroed by a memset queued before the kernel, so every launch argument is
+the same on each replay and no buffer a graph holds is ever freed.
 """
 
 from __future__ import annotations
@@ -36,7 +41,6 @@ from . import build
 SOURCE = "linrec.cu"
 CHUNK = 128               # plain version: in-chunk matrix size
 KERNEL_CHUNK = 2048       # samples per thread block (csrc CHUNK)
-EPOCHS = 2 ** 30          # the kernel's epoch field is 30 bits
 
 
 def linrec_plain(drive: torch.Tensor, g: Sequence,
@@ -80,23 +84,23 @@ def linrec_plain(drive: torch.Tensor, g: Sequence,
 
 
 class LinrecKernel:
-    """Callable wrapper with a launch counter (`launches` counts kernel
-    launches only; CPU calls of the plain version do not count)."""
+    """Callable wrapper with a launch counter.  `launches` counts the calls
+    that launched the kernel eagerly or recorded it into a CUDA graph being
+    captured; a graph's replays launch it again without passing through
+    here, so they are not counted.  CPU calls of the plain version do not
+    count."""
 
     def __init__(self):
         self.launches = 0
         self._fn = None
         self._g: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
-        self._status: Dict[torch.device, torch.Tensor] = {}
-        self._epoch = 0
 
     def _entry(self):
         if self._fn is None:
             lib = build.load(SOURCE)
             fn = lib.sdr_linrec
             fn.argtypes = [ctypes.c_void_p] * 6 + [
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint,
-                ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
             fn.restype = ctypes.c_int
             if lib.sdr_linrec_chunk() != KERNEL_CHUNK:
                 raise RuntimeError("linrec: csrc CHUNK != wrapper CHUNK")
@@ -114,15 +118,6 @@ class LinrecKernel:
                  torch.tensor(l2g, dtype=torch.float32, device=dev))
             self._g[key] = t
         return t
-
-    def _status_words(self, n: int, dev) -> torch.Tensor:
-        """The look-back words, zeroed once per device and grown on demand;
-        the epoch tells one launch's words from the last's."""
-        st = self._status.get(dev)
-        if st is None or st.numel() < n:
-            st = torch.zeros(max(n, 1024), dtype=torch.int64, device=dev)
-            self._status[dev] = st
-        return st
 
     def __call__(self, drive: torch.Tensor, g: Sequence[float],
                  y0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -148,14 +143,15 @@ class LinrecKernel:
         dev = drive.device
         fn = self._entry()
         g_t, l2g_t = self._g_tensors(g, dev)
-        status = self._status_words(R * -(-T // KERNEL_CHUNK), dev)
-        self._epoch = self._epoch % (EPOCHS - 1) + 1
+        # the look-back words of this launch (the entry point zeroes them)
+        status = torch.empty(R * -(-T // KERNEL_CHUNK), dtype=torch.int64,
+                             device=dev)
         y = torch.empty_like(drive)
         last = torch.empty(R, dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             rc = fn(drive.data_ptr(), g_t.data_ptr(), l2g_t.data_ptr(),
                     y0.data_ptr(), y.data_ptr(), last.data_ptr(), R, T,
-                    status.data_ptr(), self._epoch,
+                    status.data_ptr(),
                     torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"linrec kernel launch failed: CUDA error {rc}")
@@ -269,7 +265,8 @@ def pole_bank_constants(specs, device) -> PoleBank:
 
 class PoleBankKernel:
     """Callable wrapper of kernel A with a launch counter (`launches`
-    counts launches; CPU calls do not count).
+    counts eager launches and captures into a CUDA graph, not a graph's
+    replays; CPU calls do not count).
 
     __call__(drive [B, T] f32, bank: PoleBank of B banks, w0s: B tensors
     [P_b] complex64) -> (y [B, T] f32, [wT_b [P_b] complex64])."""
@@ -277,17 +274,13 @@ class PoleBankKernel:
     def __init__(self):
         self.launches = 0
         self._fn = None
-        self._scratch: Dict[torch.device, Dict[str, torch.Tensor]] = {}
-        self._tickets: Dict[torch.device, int] = {}
-        self._epoch = 0
 
     def _entry(self):
         if self._fn is None:
             lib = build.load(SOURCE)
             fn = lib.sdr_pole_bank
             fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                           + [ctypes.c_void_p] * 4 + [ctypes.c_uint] * 2
-                           + [ctypes.c_void_p])
+                           + [ctypes.c_void_p] * 4)
             fn.restype = ctypes.c_int
             geom = (lib.sdr_pole_chunk(), lib.sdr_pole_seg(),
                     lib.sdr_pole_maxp(), lib.sdr_pole_look(),
@@ -298,24 +291,6 @@ class PoleBankKernel:
                                    f"wrapper's")
             self._fn = fn
         return self._fn
-
-    def _lookback(self, slots: int, dev) -> Dict[str, torch.Tensor]:
-        """The look-back flags (zeroed when allocated; the epoch tells one
-        launch's from the last's), the aggregate and prefix payloads
-        (POLE_MAXP complex values a chunk) and the ticket counter, per
-        device, grown on demand."""
-        sc = self._scratch.get(dev)
-        if sc is None:
-            sc = {"ticket": torch.zeros(1, dtype=torch.int32, device=dev)}
-            self._tickets[dev] = 0
-            self._scratch[dev] = sc
-        if "flags" not in sc or sc["flags"].numel() < slots:
-            n = max(slots, 1024)
-            sc["flags"] = torch.zeros(n, dtype=torch.int32, device=dev)
-            sc["agg"] = torch.empty(n * POLE_MAXP, dtype=torch.complex64,
-                                    device=dev)
-            sc["pfx"] = torch.empty_like(sc["agg"])
-        return sc
 
     def __call__(self, drive: torch.Tensor, bank: PoleBank, w0s):
         dev = drive.device
@@ -350,22 +325,23 @@ class PoleBankKernel:
             nch, blocks = pole_grid(B, T)
             if blocks >= 2 ** 31:
                 raise ValueError(f"pole_bank: shape {(B, T)} out of range")
-            sc = self._lookback(blocks, dev)
-            self._epoch = self._epoch % (EPOCHS - 1) + 1
+            # this launch's look-back scratch: the flags and, last, the
+            # ticket counter (the entry point zeroes both), and the
+            # aggregate and prefix payloads, P complex values a chunk
+            flags = torch.empty(blocks + 1, dtype=torch.int32, device=dev)
+            agg = torch.empty(blocks * P, dtype=torch.complex64, device=dev)
+            pfx = torch.empty_like(agg)
             y = torch.empty_like(drive)
             wT = torch.empty(B, P, dtype=torch.complex64, device=dev)
             with torch.cuda.device(dev):
                 rc = self._entry()(
                     drive.data_ptr(), tab.data_ptr(), w0.data_ptr(),
-                    y.data_ptr(), wT.data_ptr(), B, P, T,
-                    sc["flags"].data_ptr(), sc["agg"].data_ptr(),
-                    sc["pfx"].data_ptr(), sc["ticket"].data_ptr(),
-                    self._tickets[dev], self._epoch,
+                    y.data_ptr(), wT.data_ptr(), B, P, T, flags.data_ptr(),
+                    agg.data_ptr(), pfx.data_ptr(),
                     torch.cuda.current_stream(dev).cuda_stream)
             if rc != 0:
                 raise RuntimeError(f"pole_bank kernel launch failed: CUDA "
                                    f"error {rc}")
-            self._tickets[dev] = (self._tickets[dev] + blocks) % 2 ** 32
             self.launches += 1
         return y, [wT[b, :n] for b, n in enumerate(bank.sizes)]
 

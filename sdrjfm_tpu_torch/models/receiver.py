@@ -753,6 +753,18 @@ class Receiver:
         return new_state, out
 
     # ------------------------------------------------------------------
+    def jit_step(self):
+        """The step as a runtime.graph.StepGraph, called as
+        `step(state, controls, iq)` like `step` but replayed from a CUDA
+        graph on the card (the name of JAX's jax.jit wrapper, memoized the
+        same way: one capture per receiver).  It returns views of static
+        buffers that the next call overwrites."""
+        if getattr(self, "_jit_step_fn", None) is None:
+            from ..runtime.graph import StepGraph
+            self._jit_step_fn = StepGraph(self)
+        return self._jit_step_fn
+
+    # ------------------------------------------------------------------
     def request_rds_resync(self, state: ReceiverState) -> ReceiverState:
         """Arm decoder 3's bit-clock re-acquisition for the next block (the
         block synchronizer's >3 sync errors, fed back by the runner).  A

@@ -733,7 +733,12 @@ class StagePlan(NamedTuple):
 class RdsScanKernel:
     """Wrapper of one decoder's kernels with launch counters: `launches`
     counts decoder calls on the card, `stage_launches` each stage's kernel
-    launches (CPU calls of the plain version count in neither).
+    launches, both eager or recorded into a CUDA graph being captured (a
+    graph's replays do not pass through here and are not counted; CPU calls
+    of the plain version count in neither).
+
+    Safe to replay from a CUDA graph as it stands: `plan` allocates every
+    buffer per call and no launch argument is a host counter.
 
     __call__(z [T] complex64, cfg, state, cap, want_iq, consts) -> (bits
     [cap] int8, count int32, iq [cap] complex64, iq stream [T] or None, new
