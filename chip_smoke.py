@@ -20,11 +20,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
              segments of a clean baseband from a warmed-up state (B3's first
              with a resync), the FIR pre-pass stages of B1 and B2 and B3's
              lowpass outputs, history and clock phase chain bit for bit
-             against their host functions.
+             against their host functions.  The front end's row form (R
+             rows in one launch) against frontend_rows_plain: 4 stations on
+             one int16 block, 19 on one complex64 block, the band scan's
+             19 x 4 rows on 4 blocks; each row of the 4-station launch and
+             an R = 1 launch bit for bit equal to the one-station entry; an
+             out-of-range block index gives that row NaN; one device kernel
+             per call.
 3b. graph  — the look-back kernels under CUDA-graph replay: two real-scan
-             calls (R=2, R=1) and one pole-bank call at the squelch's
-             shapes captured in one graph, replayed three times on new
-             inputs, each replay against the plain versions.
+             calls (R=2, R=1), one pole-bank call at the squelch's shapes
+             and a 4-row front-end launch captured in one graph, replayed
+             three times on new inputs, each replay against the plain
+             versions.
 4. main    — synthesises an 8 s stereo+RDS capture and drives it through
              `python -m sdrjfm_tpu_torch.app rx` (in process) on cuda at
              block_fm=131072 with the int16 wire: PI/PS/RT back at BER 0,
@@ -56,7 +63,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
              before it; a decoder call launches each of its stages once)
              and its device launches from a profiler trace, as in main,
              and its first two blocks of audio against the same
-             run on the CPU; emit_audio_i16 against the host quantizer.
+             run on the CPU; emit_audio_i16 against the host quantizer;
+             `rx --afc` on a capture with a 1500 Hz residual offset pulls
+             in (the offsets replayed from its --log-meta); `rx --spectra`
+             offline (two taps) and under --follow writes its keys.
+5c. multistation — an 8 s capture of four stations (-600/-200/+300/+700
+             kHz, each its own PI, PS and tones) through
+             demodulate_stations (the n-station step, one front-end launch
+             for every station, as a CUDA graph replayed over the capture):
+             each station within 1e-5 of its own single-station run_offline
+             on the card, RDS bits equal, PI/PS at BER 0, pilot locked;
+             scan=False against scan=True; the wrappers' counts over the
+             run and one front-end launch a block under the graph
+             (profiler); mesh= refused; then for n = 1, 4 and 19 (every
+             raster channel of the +-900 kHz window) device ms per step,
+             wall ms per block (median and spread of 7), host us per
+             replay(), capture seconds and station-seconds of air per
+             second.
+5d. scan   — `python -m sdrjfm_tpu_torch.app scan --identify --stations`
+             on that capture on the card: exactly the four offsets, each
+             named, the station list written, the hits equal to the CPU
+             run's; BandScanner.decide's device time at 19 x 4 rows beside
+             76 one-row scans.
 6. times   — per-block step time and real-time factor (the main path, the
              heaviest option config: input filter + nsq + scan2, and the
              main path with RDS decoder 3); each
@@ -82,6 +110,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
              run_offline (rx's default loop runner), the host's time per
              replay(), capture and instantiate seconds, device time per
              step and busy share (profiler), beside the eager step time.
+   The row form's times at R = 4, 19 and 76 (and 76 one-row launches)
+             follow phase times; its line in the kernels JSON is
+             `frontend_rows`, its launches from the multistation run.
 
 Then one line {"kernels": [...]}, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}.  Outputs go to
@@ -137,6 +168,38 @@ def emit(obj) -> None:
 def need(cond, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+PROFILE_TRIES = 3                  # traces of one call before an empty one
+                                   # fails the run
+
+
+def _traced(fn):
+    """(fn(), wall seconds of the traced call, the device events of its
+    torch.profiler trace).  A trace holding no device event at all recorded
+    nothing: the profiler's collection dropped the window (seen on an H100
+    for a one-launch window after an earlier trace in the process), not a
+    call that launched nothing.  Such a call is traced again, PROFILE_TRIES
+    times at most, and the run fails if every trace comes back empty; the
+    checks read the first trace that holds device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            w0 = time.perf_counter()
+            ret = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - w0
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.count > 0]
+        if ev:
+            return ret, wall, ev
+        print("chip_smoke: a profiler trace came back with no device "
+              "event; tracing the call again", file=sys.stderr, flush=True)
+    need(False, f"{PROFILE_TRIES} profiler traces in a row held no device "
+         f"event")
 
 
 def card_line() -> str:
@@ -344,19 +407,13 @@ def phase_kernels(rx):
     fe_blocks("u8", 137_000, 12 * 1000, C.INPUT_RATE - 300, True, offset=3)
     fe_blocks("c64", 137_000, 12 * 1000, 0, True)
     # one launch per block: no reduction or division kernels beside it
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     x = _fe_inputs(rng, "i16", T, dev)
     args = (s(0.9, torch.float32), s(1.1, torch.float32),
             s(0.003 - 0.02j, torch.complex64), s(137_000, torch.int32),
             s(5, torch.int32), True)
     z = torch.zeros(306, dtype=torch.complex64, device=dev)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        frontend(x, "i16", z, rx.k_decim12, *args)
-        torch.cuda.synchronize()
-    fe_kernels = [e.key for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and e.count > 0]
+    _, _, ev = _traced(lambda: frontend(x, "i16", z, rx.k_decim12, *args))
+    fe_kernels = [e.key for e in ev]
     emit({"phase": "kernels", "kernel": "frontend", "atol": FE_ATOL,
           "rtol": FE_RTOL, "max_abs_err": fe_err,
           "device_kernels_per_call": fe_kernels, "cases": fe_rows})
@@ -424,6 +481,111 @@ def phase_kernels(rx):
     emit({"phase": "kernels", "kernel": "linrec", "rtol_of_max": SCAN_RTOL,
           "max_abs_err": sc_err, "cases": sc_rows})
     return fe_err, sc_err
+
+
+# the row form of the front end at block_fm=131072: (what, wire format,
+# offsets, blocks); row i * blocks + b runs offset i on block b
+ROW_CASES = (("4 stations on one int16 block", "i16", 4, 1),
+             ("19 stations on one complex64 block", "c64", 19, 1),
+             ("19 offsets x 4 complex64 blocks (the band scan)", "c64", 19,
+              4))
+
+
+def _row_params(rng, R: int, dev):
+    """Per-row carry, gains, DC state, LO and NCO phase of a row launch."""
+    from sdrjfm_tpu_torch import constants as C
+    t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a)).to(  # noqa: E731
+        dev, dt)
+    carry = 0.3 * (rng.standard_normal((R, 306))
+                   + 1j * rng.standard_normal((R, 306)))
+    dc = 0.02 * (rng.standard_normal(R) + 1j * rng.standard_normal(R))
+    return (t(carry.astype(np.complex64), torch.complex64),
+            t(rng.uniform(0.5, 1.5, R).astype(np.float32), torch.float32),
+            t(rng.uniform(0.5, 1.5, R).astype(np.float32), torch.float32),
+            t(dc.astype(np.complex64), torch.complex64),
+            t(rng.integers(-900_000, 900_001, R).astype(np.int32),
+              torch.int32),
+            t(rng.integers(0, C.INPUT_RATE, R).astype(np.int32),
+              torch.int32))
+
+
+def _rows_case(rng, fmt, n_off, nb, T, dev):
+    """(wire [nb, ...], block_index, row parameters) of a row launch."""
+    wire = torch.stack([_fe_inputs(rng, fmt, T, dev) for _ in range(nb)])
+    bidx = torch.arange(nb, dtype=torch.int32, device=dev).repeat(n_off)
+    return wire, bidx, _row_params(rng, n_off * nb, dev)
+
+
+def phase_row_kernels(rx):
+    """The front end over R rows in one launch against frontend_rows_plain
+    (row by row) at block_fm=131072, within FE_ATOL / FE_RTOL: ROW_CASES;
+    every row of the 4-station launch bit for bit equal to the one-station
+    entry on that row's inputs; R = 1 bit for bit equal to the one-station
+    entry; a row whose block index is out of range comes back NaN; one
+    device kernel per call (profiler)."""
+    from sdrjfm_tpu_torch.kernels.frontend import (frontend, frontend_rows,
+                                                   frontend_rows_plain)
+    dev = rx.device
+    T = rx.cfg.block_in
+    rng = np.random.default_rng(21)
+    taps = rx.k_decim12
+    rows, err_max = [], 0.0
+    for what, fmt, n_off, nb in ROW_CASES:
+        wire, bidx, p = _rows_case(rng, fmt, n_off, nb, T, dev)
+        y, nc, dm = frontend_rows(wire, fmt, bidx, p[0], taps, *p[1:], True)
+        yp, ncp, dmp = frontend_rows_plain(wire, fmt, bidx, p[0], taps,
+                                           *p[1:], True)
+        torch.cuda.synchronize()
+        err = (y - yp).abs()
+        cerr = float((nc - ncp).abs().max())
+        derr = float((dm - dmp).abs().max())
+        ok = bool((err <= FE_ATOL + FE_RTOL * yp.abs()).all())
+        err_max = max(err_max, float(err.max()), cerr)
+        row = {"case": what, "rows": n_off * nb, "blocks": nb, "fmt": fmt,
+               "max_abs_err": float(err.max()), "carry_err": cerr,
+               "dc_err": derr}
+        if n_off == 4:
+            # each row == the one-station entry on that row's inputs
+            same = True
+            for r in range(n_off * nb):
+                ys, cs, ds = frontend(wire[int(bidx[r])], fmt, p[0][r], taps,
+                                      *(q[r] for q in p[1:]), True)
+                same &= bool(torch.equal(ys, y[r]) and torch.equal(cs, nc[r])
+                             and torch.equal(ds, dm[r]))
+            row["rows_equal_one_station_bit_for_bit"] = same
+            ok &= same
+        rows.append(row)
+        need(ok and cerr <= FE_ATOL and derr <= 1e-6,
+             f"frontend rows: {row}")
+    # R = 1 through the row entry == the one-station entry, bit for bit
+    wire, bidx, p = _rows_case(rng, "i16", 1, 1, T, dev)
+    y1, c1, d1 = frontend_rows(wire, "i16", bidx, p[0], taps, *p[1:], True)
+    ys, cs, ds = frontend(wire[0], "i16", p[0][0], taps,
+                          *(q[0] for q in p[1:]), True)
+    r1 = bool(torch.equal(y1[0], ys) and torch.equal(c1[0], cs)
+              and torch.equal(d1[0], ds))
+    # a block index past the wire: that row NaN, the others untouched
+    bad = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    p2 = tuple(q[:1].repeat(2, *([1] * (q.dim() - 1))).contiguous()
+               for q in p)
+    yb, cb, db = frontend_rows(wire, "i16", bad, p2[0], taps, *p2[1:], True)
+    nan_ok = bool(torch.isnan(yb[1]).all() and torch.isnan(cb[1]).all()
+                  and torch.isnan(db[1]) and torch.equal(yb[0], ys))
+    # one device kernel for the 76-row call
+    wire, bidx, p = _rows_case(rng, "c64", 19, 4, T, dev)
+    _, _, ev = _traced(lambda: frontend_rows(wire, "c64", bidx, p[0], taps,
+                                             *p[1:], True))
+    ks = [e.key for e in ev]
+    emit({"phase": "kernels", "kernel": "frontend_rows", "atol": FE_ATOL,
+          "rtol": FE_RTOL, "max_abs_err": err_max, "cases": rows,
+          "r1_equals_one_station_bit_for_bit": r1,
+          "out_of_range_row_nan": nan_ok,
+          "device_kernels_per_76_row_call": ks})
+    need(r1, "frontend rows: R = 1 differs from the one-station entry")
+    need(nan_ok, "frontend rows: an out-of-range block index")
+    need(len(ks) == 1 and "frontend_kernel" in ks[0],
+         f"frontend rows: one kernel per call, got {ks}")
+    return err_max
 
 
 def phase_main():
@@ -646,8 +808,6 @@ HAND_KERNELS = ("frontend", "linrec", "pole_", "costas_", "fir_kernel",
 def phase_profile(rx, wav, card, what: str = "main path"):
     """torch.profiler over a steady window of steps: the device's busy
     share of the wall time and the ops that take the device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from sdrjfm_tpu_torch.io.wavio import read_iq_wav_raw
 
     T = rx.cfg.block_in
@@ -656,21 +816,18 @@ def phase_profile(rx, wav, card, what: str = "main path"):
               for b in range(6)]
     state, ctl = rx.init_state(), rx.initial_controls()
     state, _ = rx.step(state, ctl, blocks[0])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        w0 = time.perf_counter()
+
+    def steps():
+        nonlocal state
         for blk in blocks[1:]:
             state, _ = rx.step(state, ctl, blk)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - w0
+
+    _, wall, ev = _traced(steps)
     nstep = len(blocks) - 1
     # device-side events only (kernels, memcpy/memset): the CPU-side op
     # events carry the same device time again
-    rows = [(e.self_device_time_total, e.key, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    rows = [(e.self_device_time_total, e.key, e.count) for e in ev
+            if e.self_device_time_total > 0]
     rows.sort(reverse=True)
     dev_total_us = sum(r[0] for r in rows)
     launches = sum(r[2] for r in rows)
@@ -1153,9 +1310,67 @@ def _run_options(wav, dev, cmp_dev, tmp):
     emit({"phase": "options", "option": "emit_audio_i16",
           "mismatches_vs_host_quantizer": mism})
     need(mism == 0, "emit_audio_i16 != host quantizer")
+    results += _afc_and_spectra(wav, dev, tmp)
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "options.json").write_text(json.dumps(results, indent=2))
     return launches_by_kernel
+
+
+AFC_OFFSET_HZ = 1500.0             # a residual carrier offset past the 3 Hz
+                                   # deadband
+
+
+def _afc_and_spectra(wav, dev, tmp):
+    """`rx --afc` on a capture with a 1500 Hz residual carrier offset
+    (block_fm 32768, 4 s): the AFC offset, replayed from the logged dc_if
+    through AFCTracker as the CLI's loop computes it, pulls in as
+    tests/test_tuner_scan.py asks (within 400 Hz and half the offset);
+    then `rx --spectra` offline (the demod and the rds_demod taps) and
+    under --follow writes its keys, finite, at their shapes."""
+    from sdrjfm_tpu_torch import app
+    from sdrjfm_tpu_torch.models.tuner import AFCTracker
+    rows = []
+    cap, log = tmp / "afc.wav", tmp / "afc.jsonl"
+    need(app.main(["synth", "--out", str(cap), "--seconds", "4",
+                   "--carrier-offset", str(AFC_OFFSET_HZ), "--int16"]) == 0,
+         "afc synth")
+    rc = app.main(["rx", "--iq", str(cap), "--afc", "--mode", "mono",
+                   "--block-fm", "32768", "--log-meta", str(log),
+                   "--report", str(tmp / "afc.json"), "--device", dev])
+    need(rc == 0, f"rx --afc exited {rc}")
+    afc = AFCTracker()
+    offs = [afc.update(json.loads(ln)["dc_if"])
+            for ln in log.read_text().splitlines()]
+    row = {"option": "afc", "blocks": len(offs), "afc_offset_hz": offs[-1],
+           "afc_offsets_hz": offs, "want_hz": AFC_OFFSET_HZ}
+    rows.append(row)
+    emit({"phase": "options", **row})
+    need(abs(offs[-1] - AFC_OFFSET_HZ) < min(400.0, 0.5 * AFC_OFFSET_HZ),
+         f"rx --afc did not pull in: {row}")
+    want = {"hf_spectrum_db": (512,), "lf_x_axis_khz": (512,),
+            "rds_constellation": (101, 101)}
+    for name, flags in (("spectra_demod", []),
+                        ("spectra_rds_demod", ["--lf-plot", "rds_demod",
+                                               "--lf-zoom", "2"]),
+                        ("spectra_follow", ["--follow", "--no-pace"])):
+        npz = tmp / f"{name}.npz"
+        rc = app.main(["rx", "--iq", str(wav), "--rds", "--spectra",
+                       str(npz), "--block-fm", str(BLOCK_FM), "--report",
+                       str(tmp / f"{name}.json"), "--device", dev, *flags])
+        need(rc == 0, f"rx {name} exited {rc}")
+        z = np.load(npz)
+        shapes = {k: list(z[k].shape) for k in z.files}
+        row = {"option": name, "flags": flags, "keys": shapes}
+        rows.append(row)
+        emit({"phase": "options", **row})
+        keys = set(want) | {"lf_waterfall_db"} | (
+            set() if "--follow" in flags else {"hf_rate"})
+        need(set(z.files) == keys
+             and all(tuple(z[k].shape) == v for k, v in want.items())
+             and z["lf_waterfall_db"].shape[1] == 512
+             and all(np.isfinite(z[k]).all() for k in z.files),
+             f"rx {name}: {row}")
+    return rows
 
 
 # The latency microkernel (csrc/rds_scan.cu sdr_rds_latency, built with the
@@ -1428,15 +1643,20 @@ def phase_config_step(wav, card, what: str, **options):
           "card": card})
     return rx, step_ms
 
-def phase_graph(card):
+def phase_graph(card, rx):
     """The look-back kernels under CUDA-graph replay: two real-scan calls
-    (R=2, then R=1, as the main path launches them) and one pole-bank call
-    at the squelch's 2 x 10 poles x 131072, captured in one graph and
+    (R=2, then R=1, as the main path launches them), one pole-bank call
+    at the squelch's 2 x 10 poles x 131072 and one 4-row front-end launch
+    (4 stations on one int16 block), captured in one graph and
     replayed three times, with new random inputs copied into the static
     inputs between replays; each replay against the plain versions
     (SCAN_RTOL of max|y|, POLE_RTOL of the bank's scale, also against
-    float64).  A replay that faults is recorded and fails the phase."""
+    float64; FE_ATOL / FE_RTOL for the front end, whose DC tickets each
+    launch leaves at 0).  A replay that faults is recorded and fails the
+    phase."""
     from sdrjfm_tpu_torch import constants as C
+    from sdrjfm_tpu_torch.kernels.frontend import (frontend_rows,
+                                                   frontend_rows_plain)
     from sdrjfm_tpu_torch.kernels.linrec import (linrec, linrec_plain,
                                                  pole_bank,
                                                  pole_bank_constants,
@@ -1452,6 +1672,7 @@ def phase_graph(card):
     y02, y01 = torch.zeros(2, device=dev), torch.zeros(1, device=dev)
     x = torch.zeros(2, M, device=dev)
     w0 = [torch.zeros(10, dtype=torch.complex64, device=dev) for _ in specs]
+    fe_wire, fe_idx, fe_p = _rows_case(rng, "i16", 4, 1, 12 * M, dev)
 
     def rand(*shape, scale=1.0, cplx=False):
         v = scale * rng.standard_normal(shape)
@@ -1468,10 +1689,15 @@ def phase_graph(card):
         x.copy_(rand(2, M, scale=0.3))
         for w in w0:
             w.copy_(rand(10, scale=0.05, cplx=True))
+        fe_wire.copy_(_fe_inputs(rng, "i16", 12 * M, dev)[None])
+        for buf, v in zip(fe_p, _row_params(rng, 4, dev)):
+            buf.copy_(v)
 
     def body():
         return (linrec(d2, g2, y02), linrec(d1, g1, y01),
-                pole_bank(x, bank, w0))
+                pole_bank(x, bank, w0),
+                frontend_rows(fe_wire, "i16", fe_idx, fe_p[0], rx.k_decim12,
+                              *fe_p[1:], True))
 
     new_inputs()
     side = torch.cuda.Stream()
@@ -1516,9 +1742,21 @@ def phase_graph(card):
         st = float((torch.stack(wT) - wTp).abs().max())
         row["pole_state_max_abs_err"] = st
         ok &= st <= 10 * POLE_RTOL * float(wTp.abs().max())
-    emit({"phase": "graph", "what": "2 real scans (R=2, R=1) and 1 pole "
-          "bank in one CUDA graph, 3 replays on new inputs", "ok": bool(ok),
+        y, nc, dm = outs[3]
+        yp, ncp, dmp = frontend_rows_plain(fe_wire, "i16", fe_idx, fe_p[0],
+                                           rx.k_decim12, *fe_p[1:], True)
+        fe_e = (y - yp).abs()
+        row["frontend_rows4_max_abs_err"] = float(fe_e.max())
+        row["frontend_rows4_carry_err"] = float((nc - ncp).abs().max())
+        row["frontend_rows4_dc_err"] = float((dm - dmp).abs().max())
+        ok &= (bool((fe_e <= FE_ATOL + FE_RTOL * yp.abs()).all())
+               and row["frontend_rows4_carry_err"] <= FE_ATOL
+               and row["frontend_rows4_dc_err"] <= 1e-6)
+    emit({"phase": "graph", "what": "2 real scans (R=2, R=1), 1 pole bank "
+          "and a 4-row front end in one CUDA graph, 3 replays on new "
+          "inputs", "ok": bool(ok),
           "scan_rtol_of_max": SCAN_RTOL, "pole_rtol_of_scale": POLE_RTOL,
+          "fe_atol": FE_ATOL, "fe_rtol": FE_RTOL,
           "replays": rows, "card": card})
     need(ok, f"graph replays: {rows}")
 
@@ -1560,13 +1798,7 @@ def _device_launches(fn):
     """(fn(), device kernel launches by counter name over it), the
     launches read from a profiler trace: the wrappers' host counters do
     not see a graph's replays."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        ret = fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    ret, _, ev = _traced(fn)
     return ret, {k: sum(e.count for e in ev if n in e.key)
                  for k, n in DEVICE_KERNELS.items()}
 
@@ -1767,8 +1999,6 @@ def phase_scanned(rx, wav, card, what: str, eager_step_ms: float,
     from sdrjfm_tpu_torch.io.wavio import read_iq_wav_raw
     from sdrjfm_tpu_torch.runtime.stream import (_wire_blocks, run_offline,
                                                  run_offline_scanned)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     iq, _ = read_iq_wav_raw(str(wav))
     T = rx.cfg.wire_len
     nblk = len(iq) // T
@@ -1822,15 +2052,9 @@ def phase_scanned(rx, wav, card, what: str, eager_step_ms: float,
     timed("replays_ms", replays)
     timed("fetch_ms", lambda: sc.fetch(nblk))
     host_us = parts["enqueue_ms"] / nblk * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        w0 = time.perf_counter()
-        run_offline_scanned(rx, iq)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - w0
-    rows = [(e.self_device_time_total, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    _, wall, ev = _traced(lambda: run_offline_scanned(rx, iq))
+    rows = [(e.self_device_time_total, e.count) for e in ev
+            if e.self_device_time_total > 0]
     dev_us = sum(r[0] for r in rows)
     wall_ms = statistics.median(walls)
     emit({"phase": "times", "what": f"scanned, {what}", "blocks": nblk,
@@ -1859,6 +2083,392 @@ def phase_scanned(rx, wav, card, what: str, eager_step_ms: float,
           "audio_max_abs_diff_vs_eager": a_err, "card": card})
 
 
+# phase multistation: four stations of one 8 s capture, each with its own
+# LO offset, PI, PS and tones (left, right); n = 19 is every raster channel
+# of the +-900 kHz window
+MS_STATIONS = ((-600_000, 0x1111, "STATION1", 700.0, 1100.0),
+               (-200_000, 0x2222, "STATION2", 1300.0, 500.0),
+               (300_000, 0x3333, "STATION3", 900.0, 1700.0),
+               (700_000, 0x4444, "STATION4", 1900.0, 400.0))
+MS_SECONDS = 8.0
+MS_AMPLITUDE = 0.22                # each station; the sum stays under 1 in
+                                   # the int16 wav
+RASTER_19 = tuple(range(-900_000, 900_001, 100_000))
+SCAN_CONTRAST_ATOL_DB = 1e-3       # card vs CPU scan contrast: f32 FFTs of
+                                   # the same rows in two libraries
+
+
+def _write_stations_capture(path, seconds: float = MS_SECONDS):
+    """MS_STATIONS summed into one int16 IQ wav at 2.304 MS/s, each a
+    stereo FM station with its own RDS PI and PS (group 0A), plus a little
+    noise; made from a seed."""
+    from sdrjfm_tpu_torch import constants as C
+    from sdrjfm_tpu_torch.io import synth
+    from sdrjfm_tpu_torch.io.wavio import write_iq_wav
+    from sdrjfm_tpu_torch.rds import encode
+    n = int(seconds * C.FM_RATE)
+    t = np.arange(n) / C.FM_RATE
+    total = None
+    for off, pi, name, fl, fr in MS_STATIONS:
+        bits = []
+        for _ in range(int(seconds * 1187.5 / 104 / 4) + 2):
+            for seg in range(4):
+                bits.extend(encode.group_0a(pi, 10, seg,
+                                            name[2 * seg:2 * seg + 2]))
+        syms = encode.differential_encode(np.asarray(bits, np.int8))
+        mpx = synth.synth_mpx(0.6 * np.sin(2 * np.pi * fl * t),
+                              0.6 * np.sin(2 * np.pi * fr * t),
+                              synth.MPXParams(rds_level=0.08), rds_bits=syms)
+        iq = synth.fm_modulate(mpx, C.FM_RATE, carrier_offset_hz=off,
+                               amplitude=MS_AMPLITUDE)
+        total = iq if total is None else total + iq
+    rng = np.random.default_rng(17)
+    total = total + 0.003 * (rng.standard_normal(len(total))
+                             + 1j * rng.standard_normal(len(total)))
+    write_iq_wav(str(path), total.astype(np.complex64), C.INPUT_RATE,
+                 float32=False)
+
+
+def _station_ok(bits, meta, pi: int, name: str):
+    """A station's PI and PS back at BER 0 with its pilot locked."""
+    from sdrjfm_tpu_torch.rds.live import LiveRDSDecoder
+    dec = LiveRDSDecoder()
+    dec.feed(bits)
+    rep = dec.report()
+    d = {"pi": rep["pi_code"], "ps": rep["station_label"],
+         "ber": rep["bit_error_rate"], "groups": rep["groups_decoded"],
+         "pilot_locked": bool(meta["pilot_locked"])}
+    ok = (d["pi"] == f"0x{pi:04X}" and d["ps"].strip() == name
+          and d["ber"] == 0.0 and d["pilot_locked"])
+    return ok, d
+
+
+def _ms_times(rx, iq, offsets, card, passes: int = 7):
+    """demodulate_stations over the capture for these offsets: the first
+    call (warm-up steps and capture), then `passes` calls: wall ms per
+    block (median, spread), station-seconds of air per second; the host's
+    us per replay(), capture and instantiate seconds, and the device ms per
+    step and busy share from a profiled call."""
+    from sdrjfm_tpu_torch import constants as C
+    from sdrjfm_tpu_torch.models.multistation import demodulate_stations
+    from sdrjfm_tpu_torch.runtime.stream import _wire_blocks
+    n = len(offsets)
+    T = rx.cfg.wire_len
+    nblk = len(iq) // T
+    block_s = rx.cfg.block_in / C.INPUT_RATE
+    t0 = time.perf_counter()
+    demodulate_stations(rx, iq, offsets)
+    first_s = time.perf_counter() - t0
+    walls = []
+    for _ in range(passes):
+        t0 = time.perf_counter()
+        demodulate_stations(rx, iq, offsets)
+        walls.append((time.perf_counter() - t0) / nblk * 1e3)
+    msr = rx.stations()
+    sg = msr.jit_step().for_stations(n)
+    sc = sg.scan(nblk)
+    sg.load(msr.init_states(n), msr.controls_for(offsets))
+    sc.load_blocks(_wire_blocks(iq, rx.cfg, nblk))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(nblk):
+        sc.step()
+    host_us = (time.perf_counter() - t0) / nblk * 1e6
+    torch.cuda.synchronize()
+    _, wall, ev = _traced(lambda: demodulate_stations(rx, iq, offsets))
+    rows = [(e.self_device_time_total, e.count) for e in ev
+            if e.self_device_time_total > 0]
+    dev_us = sum(r[0] for r in rows)
+    wall_ms = statistics.median(walls)
+    row = {"phase": "multistation", "what": "times", "stations": n,
+           "blocks": nblk, "passes": passes,
+           "wall_ms_per_block": wall_ms, "wall_ms_per_block_all": walls,
+           "wall_ms_per_block_spread": [min(walls), max(walls)],
+           "station_seconds_per_second": n * block_s / (wall_ms / 1e3),
+           "device_ms_per_step": (dev_us / nblk / 1e3 if rows
+                                  else "not measured"),
+           "device_busy_share": (dev_us / 1e6 / wall if rows
+                                 else "not measured"),
+           "device_events_per_step": sum(r[1] for r in rows) / nblk,
+           "host_us_per_replay": host_us,
+           "capture_and_instantiate_s": sc.capture_s,
+           "first_call_s": first_s, "card": card}
+    emit(row)
+    return row
+
+
+def phase_multistation(card):
+    """Four stations of one 8 s capture through demodulate_stations (the
+    n-station step as a CUDA graph replayed over the capture, one front-end
+    launch a block for every station), each station against its own
+    single-station run_offline on the card (audio within
+    RUNNER_AUDIO_ATOL, RDS bits equal), PI/PS at BER 0 and the pilot
+    locked; scan=False against scan=True; the wrappers' counts over the
+    main path's run and the device launches under the graph (profiler);
+    mesh= refused; then the times at n = 1, 4 and 19.  Returns (the
+    capture, its rx, the wrappers' counts)."""
+    from sdrjfm_tpu_torch.io.wavio import read_iq_wav_raw
+    from sdrjfm_tpu_torch.kernels.frontend import frontend
+    from sdrjfm_tpu_torch.kernels.linrec import linrec
+    from sdrjfm_tpu_torch.models.multistation import demodulate_stations
+    from sdrjfm_tpu_torch.models.receiver import Receiver, ReceiverConfig
+    from sdrjfm_tpu_torch.runtime.graph import WARMUP_STEPS
+    from sdrjfm_tpu_torch.runtime.stream import run_offline
+    wav = ROOT / "chiprun_work" / "stations.wav"
+    wav.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    _write_stations_capture(wav)
+    synth_s = time.perf_counter() - t0
+    iq, _ = read_iq_wav_raw(str(wav))
+    rx = Receiver(ReceiverConfig(block_fm=BLOCK_FM, rds="block",
+                                 audio_filter_hz=15000, iq_format="i16"),
+                  device="cuda")
+    offsets = [st[0] for st in MS_STATIONS]
+    n = len(offsets)
+    nblk = len(iq) // rx.cfg.wire_len
+    # the main path, the wrappers' counts set to 0 just before it
+    frontend.launches = 0
+    linrec.launches = 0
+    t0 = time.perf_counter()
+    res = demodulate_stations(rx, iq, offsets)
+    secs = time.perf_counter() - t0
+    launches = {"frontend": frontend.launches, "linrec": linrec.launches}
+    steps = WARMUP_STEPS + 1
+    emit({"phase": "multistation", "what": "main path", "stations": n,
+          "blocks": nblk, "synth_s": synth_s, "s": secs,
+          "launches": launches, "warmup_steps": WARMUP_STEPS})
+    need(launches == {"frontend": steps, "linrec": 2 * n * steps},
+         f"multistation: wrapper launches {launches}, want {steps} front "
+         f"ends (one a step for all {n} stations) and {2 * n * steps} scans")
+    res_loop = demodulate_stations(rx, iq, offsets, scan=False)
+    for s, (off, pi, name, _, _) in enumerate(MS_STATIONS):
+        r = res[s]
+        single = run_offline(rx, iq, rx.initial_controls()._replace(
+            lo_freq_hz=torch.tensor(off, dtype=torch.int32, device="cuda")))
+        a_err = (float(np.abs(r["audio"] - single.audio).max())
+                 if r["audio"].shape == single.audio.shape else float("inf"))
+        bits_eq = bool(np.array_equal(r["rds_bits"], single.rds_bits))
+        l_err = float(np.abs(r["audio"] - res_loop[s]["audio"]).max())
+        l_eq = bool(np.array_equal(r["rds_bits"], res_loop[s]["rds_bits"]))
+        ok, dec = _station_ok(r["rds_bits"], r["meta"], pi, name)
+        rms = float(np.sqrt(np.mean(r["audio"][len(r["audio"]) // 2:]
+                                    .astype(np.float64) ** 2)))
+        row = {"phase": "multistation", "station": name, "offset_hz": off,
+               "audio_max_abs_diff_vs_single": a_err,
+               "rds_bits_equal_single": bits_eq,
+               "scan_false_audio_max_abs_diff": l_err,
+               "scan_false_rds_bits_equal": l_eq, "decode": dec,
+               "audio_rms_2nd_half": rms, "audio_atol": RUNNER_AUDIO_ATOL}
+        emit(row)
+        need(a_err <= RUNNER_AUDIO_ATOL and bits_eq and ok
+             and l_err <= RUNNER_AUDIO_ATOL and l_eq and 0.05 < rms < 1.0,
+             f"multistation {name}: {row}")
+    # one front-end launch a block under the graph (captured before the
+    # trace, so no warm-up step is in it)
+    _, dl = _device_launches(lambda: demodulate_stations(rx, iq, offsets))
+    emit({"phase": "multistation", "what": "device launches under the graph "
+          "(profiler)", "blocks": nblk, "device_launches": dl})
+    need(dl["frontend"] == nblk and dl["linrec"] == 2 * n * nblk,
+         f"multistation: device launches {dl}, want {nblk} front ends and "
+         f"{2 * n * nblk} scans")
+    try:
+        demodulate_stations(rx, iq, offsets, mesh=object())
+        need(False, "multistation: mesh= was not refused")
+    except NotImplementedError as e:
+        need("#24" in str(e), f"multistation: mesh= message {e}")
+    times = {k: _ms_times(rx, iq, offs, card)
+             for k, offs in ((1, offsets[:1]), (4, offsets),
+                             (19, list(RASTER_19)))}
+    return wav, iq, rx, launches, times
+
+
+def _row_times(rx):
+    """Device ms of the row launch at the multi-station and scan paths'
+    shapes (R = 4 on one int16 block, 19 and 76 on one and four complex64
+    blocks; inputs rotated past the 50 MB L2), 76 one-row launches beside
+    the 76-row one, the plain version and a conv1d yardstick at R = 4, and
+    each shape's bound."""
+    from sdrjfm_tpu_torch.kernels.frontend import (HALO, NTAPS, frontend,
+                                                   frontend_rows,
+                                                   frontend_rows_plain)
+    import torch.nn.functional as F
+    dev = rx.device
+    T, M = rx.cfg.block_in, rx.cfg.block_fm
+    rng = np.random.default_rng(23)
+    taps = rx.k_decim12
+    it = iter(range(10 ** 9))
+    out = {}
+    for (what, fmt, n_off, nb), sets in zip(ROW_CASES, (10, 5, 2)):
+        cases = [_rows_case(rng, fmt, n_off, nb, T, dev)
+                 for _ in range(sets)]
+        R = n_off * nb
+
+        def call(c):
+            wire, bidx, p = c
+            return frontend_rows(wire, fmt, bidx, p[0], taps, *p[1:], True)
+        ms, host_us = device_ms(lambda: call(cases[next(it) % sets]),
+                                f"frontend rows R={R}")
+        wire_b = 8 if fmt == "c64" else 4
+        nbytes = (nb * T * wire_b + R * (M * 8 + 2 * HALO * 8 + 5 * 4 + 8)
+                  + NTAPS * 4)
+        flops = R * (4 * NTAPS * M + 10 * T)
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S)
+        out[R] = {"case": what, "ms": ms, "host_us_per_call": host_us,
+                  "bound_ms": bound * 1e3,
+                  "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                               >= flops / FP32_FLOP_PER_S
+                               else "operations")}
+        if R == 76:
+            def one_rows(c):
+                wire, bidx, p = c
+                for r in range(R):
+                    frontend(wire[r % nb], fmt, p[0][r], taps,
+                             *(q[r] for q in p[1:]), True)
+            out[R]["ms_76_one_row_launches"], out[R][
+                "host_us_76_one_row_launches"] = device_ms(
+                lambda: one_rows(cases[next(it) % sets]),
+                "frontend 76 one-row launches", iters=4)
+        if R == 4:
+            wire, bidx, p = cases[0]
+            out[R]["plain_ms"] = paced_ms(lambda: frontend_rows_plain(
+                wire, fmt, bidx, p[0], taps, *p[1:], True))
+            planes = [torch.randn(2 * R, 1, T + NTAPS - 12, device=dev)
+                      for _ in range(3)]
+            wk = taps.flip(0)[None, None, :].contiguous()
+            out[R]["library_ms"], _ = device_ms(
+                lambda: F.conv1d(planes[next(it) % 3], wk, stride=12),
+                "conv1d R=4")
+    return out
+
+
+def rows_kernel_entry(rx, rows_err, launches, card):
+    """The row form's line of the kernels JSON: times at the multi-station
+    path's shape (R = 4 stations on one int16 block) with the plain version,
+    the conv1d yardstick and the bound, and the times and bounds at R = 19
+    and 76; `launches` from the multi-station main path's run."""
+    t = _row_times(rx)
+    emit({"phase": "times", "what": "frontend rows", "card": card,
+          "rows": {str(r): v for r, v in t.items()}})
+    four = t[4]
+    return {"name": "frontend_rows", "route": "cuda",
+            "source": "sdrjfm_tpu_torch/csrc/frontend.cu",
+            "replaces": "sdrjfm_tpu/ops/pallas_frontend.py:71",
+            "launches": launches["frontend"], "max_abs_err": rows_err,
+            "ms": four["ms"], "plain_ms": four["plain_ms"],
+            "bound_ms": four["bound_ms"], "bound_by": four["bound_by"],
+            "library_ms": four["library_ms"],
+            "host_us_per_call": four["host_us_per_call"],
+            "ms_by_rows": {str(r): v["ms"] for r, v in t.items()},
+            "bound_ms_by_rows": {str(r): v["bound_ms"] for r, v in t.items()},
+            "ms_76_one_row_launches": t[76]["ms_76_one_row_launches"],
+            "shape": f"R rows in one launch; ms at R = 4: int16 [1, "
+                     f"{rx.cfg.block_in}, 2] -> complex64 [4, "
+                     f"{rx.cfg.block_fm}] (4 stations on one block); also "
+                     f"R = 19 (one complex64 block) and 76 (4 blocks)"}
+
+
+def phase_scan(card, wav):
+    """`python -m sdrjfm_tpu_torch.app scan --iq ... --identify
+    --stations ...` on the card over the four-station capture: exactly the
+    four offsets, each named (PI, PS) and written to the station list; its
+    hits against the same scan on the CPU (offsets equal, contrast within
+    SCAN_CONTRAST_ATOL_DB); the wrappers' counts over the card's run; then
+    BandScanner.decide's device time at 19 x 4 rows against 76 one-row
+    scans."""
+    import contextlib
+    import io
+    from sdrjfm_tpu_torch import app
+    from sdrjfm_tpu_torch.io.wavio import read_iq_wav
+    from sdrjfm_tpu_torch.kernels.frontend import frontend
+    from sdrjfm_tpu_torch.kernels.linrec import linrec
+    from sdrjfm_tpu_torch.models.bandscan import BandScanner
+    from sdrjfm_tpu_torch.models.receiver import Receiver, ReceiverConfig
+
+    def scan(dev, *flags):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = app.main(["scan", "--iq", str(wav), "--block-fm",
+                           str(BLOCK_FM), "--device", dev, *flags])
+        need(rc == 0, f"scan on {dev} exited {rc}")
+        return json.loads(out.getvalue())["hits"], time.perf_counter() - t0
+
+    stations = ROOT / "chiprun_work" / "stations.json"
+    stations.unlink(missing_ok=True)
+    frontend.launches = 0
+    linrec.launches = 0
+    hits, secs = scan("cuda", "--identify", "--seconds", str(MS_SECONDS),
+                      "--stations", str(stations))
+    launches = {"frontend": frontend.launches, "linrec": linrec.launches}
+    cpu_hits, cpu_s = scan("cpu")
+    listed = json.loads(stations.read_text())["stations"]
+    row = {"phase": "scan", "hits": hits, "s": secs, "cpu_s": cpu_s,
+           "launches": launches,
+           "station_list": [(e["name"], e["frequency_hz"]) for e in listed]}
+    emit(row)
+    want = {off: (pi, name) for off, pi, name, _, _ in MS_STATIONS}
+    need(sorted(h["offset_hz"] for h in hits) == sorted(want),
+         f"scan: hits at {[h['offset_hz'] for h in hits]}, want "
+         f"{sorted(want)}")
+    for h in hits:
+        pi, name = want[h["offset_hz"]]
+        need(h.get("pi_code") == f"0x{pi:04X}" and h.get("station") == name
+             and h.get("pilot_locked"), f"scan: {h}")
+    need(sorted(e["name"] for e in listed)
+         == sorted(name for _, _, name, _, _ in MS_STATIONS),
+         f"scan: station list {listed}")
+    need([h["offset_hz"] for h in cpu_hits] == [h["offset_hz"] for h in hits]
+         and all(abs(a["contrast_db"] - b["contrast_db"])
+                 <= SCAN_CONTRAST_ATOL_DB for a, b in zip(hits, cpu_hits)),
+         f"scan: card hits {hits} vs cpu {cpu_hits}")
+    # the wrappers over the card's run: one front end for every row of the
+    # scan, then the identify step's warm-up steps and capture
+    from sdrjfm_tpu_torch.runtime.graph import WARMUP_STEPS
+    steps = WARMUP_STEPS + 1
+    need(launches == {"frontend": 1 + steps,
+                      "linrec": 2 * len(MS_STATIONS) * steps},
+         f"scan: wrapper launches {launches}")
+    # BandScanner.decide's rows against 76 one-row scans, on the card
+    iq, _ = read_iq_wav(str(wav))
+    rx = Receiver(ReceiverConfig(block_fm=BLOCK_FM, rds="off"),
+                  device="cuda")
+    T = rx.cfg.block_in
+    nb = 4
+    idx = np.linspace(0, len(iq) // T - 1, nb).round().astype(int)
+    wire = torch.from_numpy(np.stack([iq[i * T:(i + 1) * T]
+                                      for i in idx])).cuda()
+    sc = BandScanner(rx)
+    offs = list(RASTER_19)
+    rows_ms, rows_host = device_ms(lambda: sc.scan(wire, offs),
+                                   "band scan 19 x 4 rows", iters=4)
+
+    def one_rows():
+        for o in offs:
+            for b in range(nb):
+                sc.scan(wire[b:b + 1], [o])
+    # 76 scans are ~7,000 launches, more than the launch queue holds while
+    # a device sleep runs: their device time is the sum of their kernels'
+    # times (profiler), beside the same sum for the row call and the wall
+    # time of each between CUDA events (host-paced where the host is slower)
+    emit({"phase": "scan", "what": "BandScanner.decide device time",
+          "rows": len(offs) * nb, "rows_ms": rows_ms,
+          "rows_host_us": rows_host,
+          "rows_kernel_sum_ms": _kernel_sum_ms(lambda: sc.scan(wire, offs)),
+          "rows_event_ms": paced_ms(lambda: sc.scan(wire, offs), iters=4),
+          "one_row_scans_kernel_sum_ms": _kernel_sum_ms(one_rows),
+          "one_row_scans_event_ms": paced_ms(one_rows, reps=3, iters=1),
+          "card": card})
+    return launches
+
+
+def _kernel_sum_ms(fn) -> float:
+    """The summed device time of the kernels of one call of fn (profiler),
+    after a warm-up call."""
+    fn()
+    _, _, ev = _traced(fn)
+    return sum(e.self_device_time_total for e in ev) / 1e3
+
+
 OPTION_CONFIGS = (("input filter + nsq + scan2",
                    dict(rds="scan2", squelch="nsq", input_filter=True)),
                   ("scan3", dict(rds="scan3")))
@@ -1875,14 +2485,19 @@ def main() -> int:
                                  audio_filter_hz=15000, iq_format="i16"),
                   device="cuda")
     fe_err, sc_err = phase_kernels(rx)
+    rows_err = phase_row_kernels(rx)
     a_err, b_err = phase_option_kernels()
-    phase_graph(card)
+    phase_graph(card, rx)
     wav, launches = phase_main()
     phase_reference(wav)
     phase_runners(wav, card)
     opt_launches = phase_options(wav)
+    ms_wav, _, _, ms_launches, _ = phase_multistation(card)
+    phase_scan(card, ms_wav)
+    ms_wav.unlink()
     kernels, step_ms = phase_times(rx, wav, fe_err, sc_err, launches, card)
     kernels += phase_option_times(a_err, b_err, opt_launches, card)
+    kernels.append(rows_kernel_entry(rx, rows_err, ms_launches, card))
     phase_profile(rx, wav, card)
     phase_scanned(rx, wav, card, "main path", step_ms)
     for what, options in OPTION_CONFIGS:

@@ -6,17 +6,24 @@
     python -m sdrjfm_tpu_torch.app rx --iq iq.wav --audio out.wav \
         --rds --report report.json [--device cuda|cpu]
 
+    python -m sdrjfm_tpu_torch.app scan --iq band.wav --identify \
+        --stations stations.json [--device cuda|cpu]
+
 `rx` turns an IQ capture (a wav, or a headerless raw file with
 `--iq-format u8|i8|i16` at `--input-rate`) into 48 kHz (or 192 kHz) stereo
 audio and the RDS report, with the JAX CLI's flags and report keys for every
 receiver option and runner: `--runner loop|scan` (`--chunk-blocks`),
 `--pcm-out`/`--pcm-pace` (the streaming runner), `--follow` (the live runner
 over the native ingest ring; `--no-pace`, `--loop-seconds`), pipe input
-(`--iq -` or a FIFO, with `--iq-format u8|i8|i16`) and `--log-meta`.  It
-runs on the card unless `--device cpu` is given.  The rtl_tcp and USB
-sources and their gains, the control channel, checkpoints, AFC, the scopes
-and the `scan` subcommand are not ported yet: they are refused with a
-message naming ROADMAP.md, never silently ignored.
+(`--iq -` or a FIFO, with `--iq-format u8|i8|i16`), `--log-meta`, `--afc`
+and the scopes (`--spectra`, `--lf-plot`, `--lf-zoom`).  `scan` finds the
+stations of a wav or raw capture (every channel of the window as a row of
+one front-end call) and with `--identify` demodulates all of them at once
+(`models.multistation`).  Both run on the card unless `--device cpu` is
+given.  The rtl_tcp and USB sources and their gains (and with them `scan`'s
+hardware sweep), the control channel, checkpoints, `--stations` on `rx` and
+`--meter` are not ported yet: they are refused with a message naming
+ROADMAP.md, never silently ignored.
 """
 
 from __future__ import annotations
@@ -28,8 +35,7 @@ import time
 
 # rx flags of the JAX CLI that this port does not take yet
 UNPORTED_RX_FLAGS = (
-    "--tune-hz", "--afc", "--spectra", "--lf-plot", "--lf-zoom",
-    "--save-state", "--ckpt-backend", "--load-state", "--ckpt-dir",
+    "--tune-hz", "--save-state", "--ckpt-backend", "--load-state", "--ckpt-dir",
     "--ckpt-every", "--ckpt-keep", "--ckpt-keep-period", "--profile",
     "--control", "--gain", "--agc", "--ppm", "--linearity", "--sensitivity",
     "--grdb", "--lna-state", "--lna-gain", "--vga-gain", "--amp",
@@ -97,6 +103,10 @@ def _build_rx_parser(sub):
                         "numeric value implies --input-filter)")
     p.add_argument("--dc-remove", default="on", choices=["on", "off"],
                    help="input DC-removal servo")
+    p.add_argument("--afc", action="store_true",
+                   help="automatic frequency control: close the loop around "
+                        "the demodulator's DC component every block "
+                        "(radio.cpp:1786-1809; loop/pcm-out/follow runners)")
     p.add_argument("--squelch", default="off", choices=["off", "nsq", "lsq"])
     p.add_argument("--squelch-level", default="0",
                    help="0..100, or 'auto' (nsq only: profile the first "
@@ -118,6 +128,19 @@ def _build_rx_parser(sub):
                    help="the 1 kHz/25 ms/2 s test-tone injector")
     p.add_argument("--taps", action="store_true",
                    help="emit the debug taps (incl. the input tap)")
+    p.add_argument("--spectra", help="write hf/lf spectra + waterfall + RDS "
+                                     "constellation to an npz")
+    p.add_argument("--lf-plot", default="demod",
+                   choices=["if_filtered", "demod", "af_sum", "af_diff",
+                            "af_left_filtered", "af_right_filtered",
+                            "af_mono_filtered", "rds_input", "rds_baseband",
+                            "rds_demod"],
+                   help="LF scope tap for --spectra (ELfPlot, "
+                        "fm-processor.h:84-86; rds_input/rds_demod need "
+                        "--rds)")
+    p.add_argument("--lf-zoom", type=int, default=1,
+                   help="LF spectrum zoom factor (ls-scope.cpp:131-176 "
+                        "display fold)")
     p.add_argument("--runner", default="loop", choices=["loop", "scan"],
                    help="block driver: the captured step replayed a block "
                         "at a time with the host hooks between blocks, or "
@@ -149,6 +172,44 @@ def _build_rx_parser(sub):
     p.add_argument("--loop-seconds", type=float,
                    help="with --follow: loop the capture and process this "
                         "many seconds of signal (default: stop at EOF)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda; cpu runs the "
+                        "kernels' plain versions)")
+    return p
+
+
+def _build_scan_parser(sub):
+    p = sub.add_parser("scan", help="band-scan a capture, identify stations")
+    p.add_argument("--iq", required=True,
+                   help="IQ capture: wav, or a headerless raw file "
+                        "(rtl_sdr/hackrf convention; needs --iq-format).  "
+                        "The hardware sweep over rtl_tcp://, rtlsdr or "
+                        "hackrf is not ported yet")
+    p.add_argument("--iq-format", default="auto",
+                   choices=["auto", "c64", "i16", "i8", "u8"],
+                   help="raw-capture wire format (wav inputs: auto)")
+    p.add_argument("--grid", type=int, default=100_000,
+                   help="scan grid in Hz (the FM band raster)")
+    p.add_argument("--threshold", type=float, default=20.0,
+                   help="signal/noise contrast threshold in dB")
+    p.add_argument("--identify", action="store_true",
+                   help="demodulate every hit at once and decode its RDS "
+                        "(PI/station/PTY)")
+    p.add_argument("--seconds", type=float, default=3.0,
+                   help="capture seconds to demodulate per station")
+    p.add_argument("--stations", help="write/update a station list JSON")
+    p.add_argument("--block-fm", type=int, default=32768)
+    p.add_argument("--scan-blocks", type=int, default=4,
+                   help="blocks averaged per decision (clearAverage depth, "
+                        "fm-processor.cpp:480-495; a station flickering in "
+                        "one block is not a hit)")
+    p.add_argument("--band-start", type=float, default=87.5,
+                   help="hardware sweep start in MHz")
+    p.add_argument("--band-stop", type=float, default=108.0,
+                   help="hardware sweep stop in MHz")
+    p.add_argument("--settle-ms", type=int, default=30,
+                   help="hardware sweep: stale-sample discard after each "
+                        "retune (tuner PLL settle)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; cpu runs the "
                         "kernels' plain versions)")
@@ -217,21 +278,63 @@ def _probe_follow(path: str, iq_fmt: str):
                        else "c64"), True
 
 
-class _FollowDumps:
-    """--dump-input/--dump-if/--dump-mpx under --follow: each block's taps
-    appended to the wav dumps while receiving (fm-processor.cpp:338-349,
-    448-455), byte for byte the offline dumps.  The JAX CLI's version also
-    serves --spectra and the control channel's dump buttons, which are not
-    ported yet."""
+def _lf_row(block, rate: int, zoom: int, device):
+    """One LF-scope waterfall row (dB) + its kHz axis from one block's tap
+    (shared by the offline spectra writer and the live follow-mode one)."""
+    import numpy as np
+    import torch
+    from .models import scopes
+    x = torch.as_tensor(block).to(device=device, dtype=torch.complex64)
+    xa, amp, _ = scopes.lf_spectrum(x, rate, zoom_factor=zoom)
+    return (20.0 * np.log10(np.maximum(amp.cpu().numpy(), 1e-10)),
+            np.asarray(xa))
 
-    def __init__(self, args, cfg):
+
+def _lf_rate(args, cfg) -> int:
+    return cfg.rds_rate if args.lf_plot.startswith("rds") else cfg.fm_rate
+
+
+def _write_spectra(args, hf, hf_rate, lf_rows, lf_axis, rds_iq) -> None:
+    """The --spectra npz: the HF spectrum (and its rate, so a native-rate
+    capture's axis is not misread), the LF waterfall and its axis, the RDS
+    constellation, each where the run has it."""
+    import numpy as np
+    from .models import scopes
+    out_npz = {}
+    if hf is not None:
+        out_npz["hf_spectrum_db"] = hf
+        if hf_rate is not None:
+            out_npz["hf_rate"] = np.asarray(hf_rate)
+    if lf_rows:
+        out_npz["lf_waterfall_db"] = scopes.waterfall(lf_rows)
+        out_npz["lf_x_axis_khz"] = lf_axis
+    if rds_iq is not None:
+        out_npz["rds_constellation"] = scopes.iq_constellation(rds_iq)
+    np.savez(args.spectra, **out_npz)
+    print(f"wrote {args.spectra}", file=sys.stderr)
+
+
+class _FollowDumps:
+    """--dump-input/--dump-if/--dump-mpx and --spectra under --follow: each
+    block's taps appended to the wav dumps while receiving
+    (fm-processor.cpp:338-349, 448-455), byte for byte the offline dumps;
+    --spectra accumulates its LF waterfall per block (the offline math) and
+    takes the HF spectrum from the first block's input tap.  The JAX CLI's
+    version also serves the control channel's dump buttons, which are not
+    ported yet (ROADMAP.md, queue 1 #22)."""
+
+    def __init__(self, args, cfg, device):
         from .io.wavio import StreamingWavWriter
+        self.args, self.cfg, self.device = args, cfg, device
         self.writers = [(tap, StreamingWavWriter(path, rate, ch))
                         for path, tap, rate, ch in (
                             (args.dump_input, "input_dc", cfg.input_rate, 2),
                             (args.dump_if, "if_filtered", cfg.fm_rate, 2),
                             (args.dump_mpx, "demod", cfg.fm_rate, 1))
                         if path]
+        self.lf_rows = []
+        self.lf_axis = None
+        self.hf = None
 
     def on_taps(self, taps):
         for tap, w in self.writers:
@@ -241,11 +344,23 @@ class _FollowDumps:
                     w.write_iq(x)
                 else:
                     w.write(x)
+        if self.args.spectra:
+            from .models import scopes
+            if self.hf is None and "input_dc" in taps:
+                self.hf = scopes.spectrum_db(taps["input_dc"]).cpu().numpy()
+            if self.args.lf_plot in taps:
+                row, self.lf_axis = _lf_row(
+                    taps[self.args.lf_plot], _lf_rate(self.args, self.cfg),
+                    self.args.lf_zoom, self.device)
+                self.lf_rows.append(row)
 
-    def finish(self):
+    def finish(self, res):
         for _, w in self.writers:
             w.close()
             print(f"wrote {w.path}", file=sys.stderr)
+        if self.args.spectra:
+            _write_spectra(self.args, self.hf, None, self.lf_rows,
+                           self.lf_axis, res.rds_iq)
 
 
 def cmd_rx(args) -> int:
@@ -292,8 +407,13 @@ def cmd_rx(args) -> int:
         str(args.deemphasis).lower(), None)
     if deemph_us is None:
         deemph_us = float(args.deemphasis)
-    want_taps = bool(args.dump_if or args.dump_mpx or args.dump_input
-                     or args.taps)
+    want_taps = bool(args.dump_if or args.dump_mpx or args.spectra
+                     or args.dump_input or args.taps)
+    if args.afc and not args.follow and args.runner == "scan" \
+            and not args.pcm_out:
+        print("--afc closes a per-block host loop; use --runner loop, "
+              "--pcm-out, or --follow", file=sys.stderr)
+        return 2
     # setBandwidth semantics: 'off' disables the channel filter, a number
     # (re)designs it at that bandwidth and turns it on
     input_filter = args.input_filter
@@ -319,7 +439,10 @@ def cmd_rx(args) -> int:
         frontend=args.frontend, emit_taps=want_taps,
         native_rate=(args.input_rate
                      if args.input_rate not in (0, C.INPUT_RATE) else 0),
-        emit_input_tap=bool(args.dump_input or args.taps),
+        # follow-mode --spectra takes its HF spectrum from the input tap
+        # (there is no in-memory capture to transform)
+        emit_input_tap=bool(args.dump_input or args.taps
+                            or (args.spectra and args.follow)),
         # the streaming sinks take the PCM16 quantized on the device (half
         # the audio bytes back; s16le is what they emit) unless the user
         # asked for float32 wav output
@@ -370,8 +493,19 @@ def cmd_rx(args) -> int:
     live_rds = LiveRDSDecoder(pty_locale=args.pty_locale) if args.rds \
         else None
     feed = live_rds.feed if live_rds else None
-    follow_dumps = _FollowDumps(args, cfg) if args.follow and want_taps \
-        else None
+    controls_update = None
+    if args.afc:
+        from .models.tuner import AFCTracker
+        _afc = AFCTracker(cfg.fm_rate)
+        _base_lo = int(args.freq_offset)
+
+        def controls_update(ctl, meta):
+            off = _afc.update(meta["dc_if"])
+            return ctl._replace(lo_freq_hz=torch.tensor(
+                int(round(_base_lo + off)), dtype=torch.int32,
+                device=rx.device))
+    follow_dumps = _FollowDumps(args, cfg, rx.device) \
+        if args.follow and want_taps else None
     sink = None
     if args.pcm_out:
         from .io.pcmout import PCMSink
@@ -414,20 +548,23 @@ def cmd_rx(args) -> int:
                 res = run_live(rx, src, controls, max_blocks=max_blocks,
                                on_audio=sink.write if sink else None,
                                rds_feedback=feed,
+                               controls_update=controls_update,
                                on_taps=(follow_dumps.on_taps
                                         if follow_dumps else None))
             finally:
                 src.close()
         elif args.pcm_out:
             res = run_streaming(rx, iq, controls, on_audio=sink.write,
-                                rds_feedback=feed, collect_taps=want_taps)
+                                rds_feedback=feed, collect_taps=want_taps,
+                                controls_update=controls_update)
         elif args.runner == "scan":
             res = run_offline_scanned(rx, iq, controls,
                                       collect_taps=want_taps,
                                       chunk_blocks=args.chunk_blocks)
         else:
             res = run_offline(rx, np.asarray(iq), controls,
-                              collect_taps=want_taps, rds_feedback=feed)
+                              collect_taps=want_taps, rds_feedback=feed,
+                              controls_update=controls_update)
     finally:
         if sink is not None:
             sink.close()
@@ -478,7 +615,7 @@ def cmd_rx(args) -> int:
               f"BER={live_rds.sync.bit_error_rate:.4f}",
               file=sys.stderr)
     if follow_dumps is not None:
-        follow_dumps.finish()
+        follow_dumps.finish(res)
     if args.dump_input and "input_dc" in res.taps:
         write_iq_wav(args.dump_input, res.taps["input_dc"], cfg.input_rate)
         print(f"wrote {args.dump_input}", file=sys.stderr)
@@ -486,6 +623,27 @@ def cmd_rx(args) -> int:
         write_iq_wav(args.dump_if, res.taps["if_filtered"], cfg.fm_rate)
     if args.dump_mpx and "demod" in res.taps:
         write_wav(args.dump_mpx, res.taps["demod"], cfg.fm_rate, float32=True)
+    if args.spectra and not args.follow:
+        from .models import scopes
+        from .models.bandscan import raw_to_c64
+        iq_c = raw_to_c64(np.asarray(iq[: cfg.wire_len]), iq_fmt)
+        hf = scopes.spectrum_db(torch.from_numpy(iq_c).to(rx.device)
+                                ).cpu().numpy()
+        lf_rows, xa = [], None
+        if args.lf_plot in res.taps:
+            d = res.taps[args.lf_plot]
+            blk = (cfg.block_rds if args.lf_plot.startswith("rds")
+                   else cfg.block_fm)
+            for i in range(len(d) // blk):
+                row, xa = _lf_row(d[i * blk:(i + 1) * blk],
+                                  _lf_rate(args, cfg), args.lf_zoom,
+                                  rx.device)
+                lf_rows.append(row)
+        elif args.lf_plot != "demod":
+            print(f"--lf-plot {args.lf_plot}: tap not present in this "
+                  "config", file=sys.stderr)
+        # the HF axis spans ±wire_rate/2
+        _write_spectra(args, hf, cfg.wire_rate, lf_rows, xa, res.rds_iq)
     if args.log_meta:
         blk_s = cfg.block_fm / cfg.fm_rate
         with open(args.log_meta, "w") as f:
@@ -503,6 +661,82 @@ def cmd_rx(args) -> int:
     else:
         json.dump(report, sys.stdout, indent=2)
         print()
+    return 0
+
+
+def cmd_scan(args) -> int:
+    import numpy as np
+    from . import constants as C
+    from .io.wavio import is_riff, read_iq_raw, read_iq_wav
+    from .models.bandscan import decode_rds_hit, raw_to_c64, scan_capture
+    from .models.receiver import Receiver, ReceiverConfig
+
+    if args.iq.startswith(_LIVE_PREFIXES) or args.iq in _LIVE_NAMES:
+        # the full-band hardware sweep steps a device across the raster
+        # (models.bandscan.scan_band takes any retunable source); the
+        # rtl_tcp and USB sources themselves are not ported yet
+        print(f"scan: the hardware sweep needs the rtl_tcp and USB sources "
+              f"({args.iq}), not ported to sdrjfm_tpu_torch yet (ROADMAP.md, "
+              f"queue 1 #22)", file=sys.stderr)
+        return 2
+    try:
+        if is_riff(args.iq):
+            iq, _ = read_iq_wav(args.iq)
+        else:
+            # headerless raw capture: converted to complex host-side with
+            # the device conventions (rtlsdr-handler.cpp:285-294 for u8)
+            if args.iq_format not in ("u8", "i8", "i16"):
+                print("raw (non-wav) capture: pass --iq-format u8, i8 "
+                      "or i16", file=sys.stderr)
+                return 2
+            iq = raw_to_c64(read_iq_raw(args.iq, args.iq_format),
+                            args.iq_format)
+    except (OSError, ValueError) as e:
+        print(f"loading device failed: {args.iq}: {e}", file=sys.stderr)
+        return 2
+    try:
+        rx = Receiver(ReceiverConfig(block_fm=args.block_fm, rds="off"),
+                      device=args.device)
+    except (RuntimeError, ValueError) as e:
+        print(f"scan: {e}", file=sys.stderr)
+        return 2
+    T = rx.cfg.block_in
+    if len(iq) < T:
+        print(f"capture too short: need {T} samples", file=sys.stderr)
+        return 1
+    # decision averaged over blocks spread across the capture (clearAverage
+    # depth, fm-processor.cpp:480-495) — not just the first block
+    results = scan_capture(rx, iq, grid_hz=args.grid,
+                           threshold_db=args.threshold,
+                           max_blocks=args.scan_blocks)
+    found = [e["offset_hz"] for e in results]
+    print(f"scan: {len(found)} hit(s) at offsets {found}", file=sys.stderr)
+    if args.identify and found:
+        # every hit in one n-station step a block (models.multistation —
+        # the reference identifies serially, one retune at a time)
+        from .models.multistation import demodulate_stations
+        n = min(len(iq), int(args.seconds * C.INPUT_RATE))
+        rx = Receiver(ReceiverConfig(block_fm=args.block_fm, rds="block",
+                                     audio_filter_hz=15000),
+                      device=args.device)
+        per_station = demodulate_stations(rx, iq[:n], found)
+        for entry, res in zip(results, per_station):
+            entry["pilot_locked"] = bool(res["meta"]["pilot_locked"])
+            if res["rds_bits"] is not None:
+                entry.update(decode_rds_hit(res["rds_bits"]))
+            print(f"  offset {entry['offset_hz']:+d} Hz: {entry}",
+                  file=sys.stderr)
+    if args.stations:
+        from .io.stations import StationList
+        sl = StationList.load(args.stations)
+        for e in results:
+            if e.get("station"):
+                sl.add(e["station"], e["offset_hz"],
+                       pi_code=int(e["pi_code"], 16), pty=e.get("pty"))
+        sl.save(args.stations)
+        print(f"wrote {args.stations}", file=sys.stderr)
+    json.dump({"hits": results}, sys.stdout, indent=2)
+    print()
     return 0
 
 
@@ -535,14 +769,11 @@ def cmd_synth(args) -> int:
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:]) if argv is None else list(argv)
-    if argv and argv[0] == "scan":
-        print("scan is not ported to sdrjfm_tpu_torch yet (ROADMAP.md, "
-              "queue 1: tuner/scanner/bandscan)", file=sys.stderr)
-        return 2
     ap = argparse.ArgumentParser(prog="sdrjfm_tpu_torch",
                                  description=__doc__.split("\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
     _build_rx_parser(sub)
+    _build_scan_parser(sub)
     _build_synth_parser(sub)
     args, unknown = ap.parse_known_args(argv)
     if unknown:
@@ -556,6 +787,8 @@ def main(argv=None) -> int:
         ap.error(f"unrecognized arguments: {' '.join(unknown)}")
     if args.cmd == "rx":
         return cmd_rx(args)
+    if args.cmd == "scan":
+        return cmd_scan(args)
     return cmd_synth(args)
 
 

@@ -17,6 +17,15 @@
 //     thread block that finishes last turns the per-tile sums into the mean,
 //     so the DC servo needs no second read of the input and no second launch.
 //
+// Rows: under jax.vmap the Pallas call gains a grid axis (stations over one
+// shared block, the band scan's offsets x blocks).  Here one launch runs R
+// rows; row r reads wire block block_index[r] of an [nb, ...] wire tensor
+// with its own LO, NCO phase, gains, DC state and carry, and writes its own
+// outputs.  The row is blockIdx.x, the fastest-varying index, so the R rows
+// of one wire tile are scheduled together and the tile is read from HBM
+// about once and from L2 by the other rows.  Each row keeps its own DC
+// partials and ticket.  R = 1 is the one-station front end, bit for bit.
+//
 // Output alignment (blockops.fir_decimate with factor 12):
 //   xp = concat(carry[306], mixed block);  y[m] = sum_k hc[k] xp[12m+317-k].
 //
@@ -150,7 +159,8 @@ __host__ __device__ constexpr float wire_scale() {
 
 template <int FMT>
 __global__ void __launch_bounds__(THREADS, 2)
-frontend_kernel(const void* __restrict__ wire, int mis, int T,
+frontend_kernel(const void* __restrict__ wire, long long block_bytes,
+                int nb, const int* __restrict__ block_index, int T,
                 const float2* __restrict__ carry,
                 const float* __restrict__ taps,
                 const float* __restrict__ lgain,
@@ -171,8 +181,38 @@ frontend_kernel(const void* __restrict__ wire, int mis, int T,
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int M = T / DECIM;
-  const int m0 = blockIdx.x * TILE;
+  // the row is the fastest-varying block index, so the rows that read one
+  // wire tile run together and all but the first find it in L2
+  const int row = blockIdx.x, tile = blockIdx.y, ntiles = gridDim.y;
+  const int m0 = tile * TILE;
   const int base = DECIM * m0 - LEAD;         // block index of window[0]
+  // this row's parameters, state and outputs
+  carry += (long long)row * HALO;
+  lgain += row;
+  rgain += row;
+  rf_dc += row;
+  lo_freq += row;
+  n0_mod += row;
+  y += (long long)row * M;
+  new_carry += (long long)row * HALO;
+  dc_part += (long long)row * ntiles;
+  ticket += row;
+  dc_mean += row;
+  const int bidx = block_index[row];
+  if (bidx < 0 || bidx >= nb) {               // no such wire block: NaN out
+    const float nan = __int_as_float(0x7fc00000);
+    for (int t = tid; t < TILE; t += THREADS)
+      if (m0 + t < M) y[m0 + t] = make_float2(nan, nan);
+    if (tile == ntiles - 1)
+      for (int t = tid; t < HALO; t += THREADS)
+        new_carry[t] = make_float2(nan, nan);
+    if (dc_on && tile == 0 && tid == 0) *dc_mean = make_float2(nan, nan);
+    return;                                   // no ticket is drawn
+  }
+  wire = static_cast<const char*>(wire) + bidx * block_bytes;
+  // the wire block's misalignment to the 16-byte grid, in samples
+  const int mis = (int)((reinterpret_cast<uintptr_t>(wire) & 15u)
+                        / (16 / SPT));
 
   // ---- the raw window -> shared memory ---------------------------------
   // 16-byte cp.async copies, all in flight at once.  Vector k holds wire
@@ -238,7 +278,7 @@ frontend_kernel(const void* __restrict__ wire, int mis, int T,
       s.y += __shfl_xor_sync(0xffffffffu, s.y, off);
     }
     if (lane == 0) {
-      dc_part[blockIdx.x] = s;
+      dc_part[tile] = s;
       cuda::atomic_ref<unsigned, cuda::thread_scope_device> t(*ticket);
       my_ticket = t.fetch_add(1u, cuda::memory_order_acq_rel);
     }
@@ -286,10 +326,10 @@ frontend_kernel(const void* __restrict__ wire, int mis, int T,
 
   // the last ticket: every tile's sum is visible (acquire), add them
   if (dc_on && warp == 0 &&
-      __shfl_sync(0xffffffffu, my_ticket, 0) == gridDim.x - 1) {
+      __shfl_sync(0xffffffffu, my_ticket, 0) == (unsigned)ntiles - 1) {
     __threadfence();                          // lane 0 acquired for the warp
     float2 s = make_float2(0.0f, 0.0f);
-    for (int i = lane; i < (int)gridDim.x; i += 32) {
+    for (int i = lane; i < ntiles; i += 32) {
       const float2 v = __ldcg(dc_part + i);
       s.x += v.x;
       s.y += v.y;
@@ -351,12 +391,12 @@ frontend_kernel(const void* __restrict__ wire, int mis, int T,
 }
 
 template <int FMT>
-int launch(unsigned grid, cudaStream_t st, const void* wire, int mis, int T,
-           const float2* carry, const float* taps, const float* lgain,
-           const float* rgain, const float2* rf_dc, const int* lo_freq,
-           const int* n0_mod, int dc_on, int q, float w_rad, float2* y,
-           float2* new_carry, float2* dc_part, unsigned* ticket,
-           float2* dc_mean) {
+int launch(dim3 grid, cudaStream_t st, const void* wire, long long block_bytes,
+           int nb, const int* block_index, int T, const float2* carry,
+           const float* taps, const float* lgain, const float* rgain,
+           const float2* rf_dc, const int* lo_freq, const int* n0_mod,
+           int dc_on, int q, float w_rad, float2* y, float2* new_carry,
+           float2* dc_part, unsigned* ticket, float2* dc_mean) {
   // > 48 KB of shared memory: set once per device (at the first launch,
   // which runs before any graph capture), so that a launch recorded into a
   // CUDA graph is the kernel launch alone
@@ -373,8 +413,9 @@ int launch(unsigned grid, cudaStream_t st, const void* wire, int mis, int T,
     if (dev < MAX_DEVICES) smem_set[dev] = true;
   }
   frontend_kernel<FMT><<<grid, THREADS, smem_bytes<FMT>(), st>>>(
-      wire, mis, T, carry, taps, lgain, rgain, rf_dc, lo_freq, n0_mod, dc_on,
-      q, w_rad, y, new_carry, dc_part, ticket, dc_mean);
+      wire, block_bytes, nb, block_index, T, carry, taps, lgain, rgain, rf_dc,
+      lo_freq, n0_mod, dc_on, q, w_rad, y, new_carry, dc_part, ticket,
+      dc_mean);
   return (int)cudaGetLastError();
 }
 
@@ -382,28 +423,36 @@ int launch(unsigned grid, cudaStream_t st, const void* wire, int mis, int T,
 
 extern "C" {
 
-// fmt: 0 complex64 [T], 1 int16 [T,2], 2 uint8 [T,2], 3 int8 [T,2]; the
-// wire pointer must be aligned to its sample size.  Scalars are device
-// pointers (no host sync): lgain/rgain f32, rf_dc complex64, lo_freq/n0_mod
-// int32.  With dc_on, dc_part has ceil(T / 12 / TILE) float2 slots, ticket
-// is one unsigned that is 0 between launches (zero it once), and dc_mean
-// receives the complex64 mean of x[::64]; launches that share a ticket must
-// run in stream order.  Returns cudaGetLastError().
-int sdr_frontend(const void* wire, int fmt, long long T, const void* carry,
-                 const void* taps, const void* lgain, const void* rgain,
-                 const void* rf_dc, const void* lo_freq, const void* n0_mod,
-                 int dc_on, int q, float w_rad, void* y, void* new_carry,
-                 void* dc_part, void* ticket, void* dc_mean, void* stream) {
-  const unsigned grid = (unsigned)((T / DECIM + TILE - 1) / TILE);
-  const int mis = (int)((reinterpret_cast<uintptr_t>(wire) & 15u)
-                        / (fmt == 0 ? 8u : fmt == 1 ? 4u : 2u));
+// R rows in one launch.  Row r runs the front end on wire block
+// block_index[r] (int32 on the device; a row whose index is outside
+// [0, nb) gets NaN outputs) of a contiguous [nb, T] complex64 (fmt 0) or
+// [nb, T, 2] int16 / uint8 / int8 (fmt 1, 2, 3) wire, whose base pointer is
+// aligned to its sample size; each block may sit anywhere on the 16-byte
+// grid.  Per row, all device arrays: lgain[R], rgain[R] f32, rf_dc[R]
+// complex64, lo_freq[R], n0_mod[R] int32, carry[R, 306] complex64; out
+// y[R, T/12], new_carry[R, 306] complex64.  With dc_on, dc_part has
+// R * ceil(T / 12 / TILE) float2 slots, ticket R unsigned words that are 0
+// between launches (zero them once; each row's last tile resets its own),
+// and dc_mean[R] receives each row's complex64 mean of x[::64]; launches
+// that share tickets must run in stream order.  The rows are the grid's x
+// axis and the tiles its y axis (at most 65535 tiles).  Returns
+// cudaGetLastError().
+int sdr_frontend_rows(const void* wire, int fmt, long long T, int nb,
+                      int rows, const void* block_index, const void* carry,
+                      const void* taps, const void* lgain, const void* rgain,
+                      const void* rf_dc, const void* lo_freq,
+                      const void* n0_mod, int dc_on, int q, float w_rad,
+                      void* y, void* new_carry, void* dc_part, void* ticket,
+                      void* dc_mean, void* stream) {
+  const dim3 grid((unsigned)rows, (unsigned)((T / DECIM + TILE - 1) / TILE));
+  const long long block_bytes = T * (fmt == 0 ? 8 : fmt == 1 ? 4 : 2);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-#define SDR_FE_ARGS                                                       \
-  grid, st, wire, mis, (int)T, (const float2*)carry, (const float*)taps,  \
-      (const float*)lgain, (const float*)rgain, (const float2*)rf_dc,     \
-      (const int*)lo_freq, (const int*)n0_mod, dc_on, q, w_rad,           \
-      (float2*)y, (float2*)new_carry, (float2*)dc_part, (unsigned*)ticket, \
-      (float2*)dc_mean
+#define SDR_FE_ARGS                                                         \
+  grid, st, wire, block_bytes, nb, (const int*)block_index, (int)T,         \
+      (const float2*)carry, (const float*)taps, (const float*)lgain,        \
+      (const float*)rgain, (const float2*)rf_dc, (const int*)lo_freq,       \
+      (const int*)n0_mod, dc_on, q, w_rad, (float2*)y, (float2*)new_carry,  \
+      (float2*)dc_part, (unsigned*)ticket, (float2*)dc_mean
   switch (fmt) {
     case 0: return launch<0>(SDR_FE_ARGS);
     case 1: return launch<1>(SDR_FE_ARGS);

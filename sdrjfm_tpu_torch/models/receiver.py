@@ -48,6 +48,7 @@ from ..rds import scan_decoders as SD
 from ..rds.bitrecovery import (PHASE_SUB, BitBlock, BitRecoveryState,
                                bitrecovery_zero_state,
                                make_bitrecovery_config, recover_bits)
+from ..runtime.graph import tree_index, tree_stack
 
 Tensor = torch.Tensor
 
@@ -533,6 +534,47 @@ class Receiver:
             dc_last = torch.zeros_like(state.rf_dc)
         return v, (dc_last, input_tail, tail1, tail2, input_tap, rate_carry)
 
+    def front_end_rows(self, states: ReceiverState, controls: Controls,
+                       wire: Tensor, block_index: Tensor):
+        """`front_end` over R rows, the counterpart of `vmap(front_end)`:
+        `states` and `controls` carry a leading [R] axis on every leaf, row
+        r runs on wire block block_index[r] (int32 [R] on the receiver's
+        device) of `wire` [NB, wire_len(, 2)].  Only the front end's leaves
+        of `states` are read.  Returns (v [R, block_fm], fe_updates: the
+        per-row updates that `step` hands to `fm_chain`, each with a
+        leading [R] axis, None where the config has none).
+
+        On the fused path one kernel launch runs every row; the split paths
+        (input filter, `reference` cascade, input tap, native rate) run
+        `front_end` row by row."""
+        cfg = self.cfg
+        if self.fused_frontend and not cfg.native_rate:
+            v, tail1, sub_mean = frontend.rows(
+                wire, cfg.iq_format, block_index, states.band1,
+                self.k_decim12, controls.input_lgain, controls.input_rgain,
+                states.rf_dc, controls.lo_freq_hz, states.n0_mod,
+                cfg.dc_remove, cfg.input_rate)
+            dc_last = (self._dc_update(states.rf_dc, sub_mean)
+                       if cfg.dc_remove else torch.zeros_like(states.rf_dc))
+            upd = dict(rf_dc=dc_last, input_filt=None, band1=tail1,
+                       band2=states.band2, input_tap=None,
+                       rate_carry=states.rate_carry)
+        else:
+            vs, parts = [], []
+            for r in range(block_index.shape[0]):
+                blk = wire.index_select(0, block_index[r:r + 1])[0]
+                v_r, (dc, itail, t1, t2, itap, rc) = self.front_end(
+                    tree_index(states, r), tree_index(controls, r), blk)
+                vs.append(v_r)
+                parts.append(dict(rf_dc=dc, input_filt=itail, band1=t1,
+                                  band2=t2, input_tap=itap, rate_carry=rc))
+            v = torch.stack(vs)
+            upd = tree_stack(parts)
+            if not cfg.input_filter:
+                upd["input_filt"] = None
+        upd["n0_mod"] = (states.n0_mod + cfg.block_in) % cfg.input_rate
+        return v, upd
+
     # ------------------------------------------------------------------
     def step(self, state: ReceiverState, controls: Controls,
              iq: Tensor) -> Tuple[ReceiverState, Output]:
@@ -763,6 +805,16 @@ class Receiver:
             from ..runtime.graph import StepGraph
             self._jit_step_fn = StepGraph(self)
         return self._jit_step_fn
+
+    def stations(self):
+        """This receiver's `models.multistation.MultiStationReceiver`, one
+        per receiver (memoized like `jit_step`), so that repeated
+        `demodulate_stations` calls replay the n-station graph they
+        captured."""
+        if getattr(self, "_stations", None) is None:
+            from .multistation import MultiStationReceiver
+            self._stations = MultiStationReceiver(self)
+        return self._stations
 
     # ------------------------------------------------------------------
     def request_rds_resync(self, state: ReceiverState) -> ReceiverState:

@@ -1,5 +1,6 @@
 """`Receiver.step` captured as a CUDA graph: what `Receiver.jit_step()`
-returns.
+returns (and, for the n-station step of `models.multistation`, what
+`MultiStationReceiver.jit_step()` replays).
 
 This module has no counterpart module in the JAX package.  There, the
 runners step `jax.jit(rx.step)` (`Receiver.jit_step`) or a `lax.scan` over
@@ -7,6 +8,10 @@ it, and XLA dispatches the compiled step as one program.  PyTorch dispatches
 each of a step's ~1,700-2,000 device operations from Python, so the port
 records the step once into a `torch.cuda.CUDAGraph` and replays it a block
 at a time.
+
+The tree helpers at the top (`tree_leaves`, `tree_rebuild`, `tree_index`,
+`tree_stack`, `tree_broadcast`) are what the station axis is written with:
+a state or controls tree with a leading [n] axis on every leaf.
 
 `StepGraph` holds static device buffers for the wire block, the
 `ReceiverState` leaves, the `Controls` leaves and the `Output` leaves.  A
@@ -101,6 +106,25 @@ def tree_clone(tree):
     return tree_rebuild(tree, [t.clone() for t in tree_leaves(tree)])
 
 
+def tree_index(tree, i: int):
+    """`tree` with every tensor replaced by its row i (a view)."""
+    return tree_rebuild(tree, [t[i] for t in tree_leaves(tree)])
+
+
+def tree_stack(trees):
+    """One tree of the same structure as each of `trees`, every tensor
+    stacked along a new leading axis (the trees' None leaves stay None)."""
+    cols = zip(*(tree_leaves(t) for t in trees))
+    return tree_rebuild(trees[0], [torch.stack(c) for c in cols])
+
+
+def tree_broadcast(tree, n: int):
+    """`tree` with every tensor repeated along a new leading [n] axis (a
+    contiguous copy, so each row can be written on its own)."""
+    return tree_rebuild(tree, [t.unsqueeze(0).expand(n, *t.shape).clone()
+                               for t in tree_leaves(tree)])
+
+
 def wire_shape(cfg):
     T = cfg.wire_len
     return (T,) if cfg.iq_format == "c64" else (T, 2)
@@ -126,7 +150,12 @@ def _copy_leaf(buf: Tensor, v: Tensor, what: str) -> None:
 
 class StepGraph:
     """`Receiver.step` with static buffers, replayed from a CUDA graph on
-    the card and run eagerly on the CPU (see the module docstring)."""
+    the card and run eagerly on the CPU (see the module docstring).
+
+    `rx` is any stepper with `cfg` (its wire block's shape and format),
+    `device`, `init_state()`, `initial_controls()` and `step(state,
+    controls, iq)`: a `Receiver`, or the n-station step of
+    `models.multistation`."""
 
     def __init__(self, rx):
         self.rx = rx

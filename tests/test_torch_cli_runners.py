@@ -156,8 +156,8 @@ def test_fifo_input(capture, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--afc"], ["--control", "-"], ["--gain", "10"], ["--spectra", "s.npz"],
-    ["--save-state", "s.npz"], ["--meter"]])
+    ["--stations", "s.json"], ["--control", "-"], ["--gain", "10"],
+    ["--config", "c.json"], ["--save-state", "s.npz"], ["--meter"]])
 def test_unported_flags_exit_2_naming_roadmap(capture, capsys, argv):
     d, wav, _ = capture
     assert app.main(["rx", "--iq", str(wav), "--device", "cpu", *argv]) == 2

@@ -39,7 +39,11 @@ def test_cli_import_pulls_in_no_jax():
     code = ("import sys, sdrjfm_tpu_torch.app, sdrjfm_tpu_torch.convert, "
             "sdrjfm_tpu_torch.runtime.stream, "
             "sdrjfm_tpu_torch.runtime.native_source, "
-            "sdrjfm_tpu_torch.io.source; "
+            "sdrjfm_tpu_torch.io.source, sdrjfm_tpu_torch.io.stations, "
+            "sdrjfm_tpu_torch.models.multistation, "
+            "sdrjfm_tpu_torch.models.bandscan, "
+            "sdrjfm_tpu_torch.models.tuner, "
+            "sdrjfm_tpu_torch.models.scopes; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'sdrjfm_tpu', 'triton')]; print(bad); "
             "sys.exit(1 if bad else 0)")

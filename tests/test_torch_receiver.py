@@ -192,8 +192,9 @@ def test_cli_drive_decodes_rds(tmp_path, capsys):
 
 
 def test_cli_refuses_unported_flags(tmp_path, capsys):
-    assert app.main(["rx", "--iq", "x.wav", "--afc", "--device", "cpu"]) == 2
+    assert app.main(["rx", "--iq", "x.wav", "--meter", "--device",
+                     "cpu"]) == 2
     assert "ROADMAP" in capsys.readouterr().err
-    assert app.main(["scan", "--iq", "x.wav"]) == 2
+    assert app.main(["scan", "--iq", "x.wav", "--device", "cpu"]) == 2
     assert app.main(["rx", "--iq", str(tmp_path / "missing.wav"),
                      "--device", "cpu"]) == 2

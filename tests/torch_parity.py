@@ -36,6 +36,33 @@ def station_iq(seconds: float, seed: int = 0, noise: float = 0.01,
     return iq.astype(np.complex64)
 
 
+def stations_iq(stations, seconds: float, noise: float = 0.01,
+                seed: int = 0) -> np.ndarray:
+    """Complex64 2.304 MS/s capture of several stereo+RDS stations, each
+    (offset_hz, pi, 8-char name, tone) with its PI and name in group 0A and
+    its tone on the left, 1.5 x the tone on the right."""
+    n = int(seconds * JC.FM_RATE)
+    t = np.arange(n) / JC.FM_RATE
+    total = None
+    for off, pi, name, tone in stations:
+        bits = []
+        for _ in range(int(seconds * 3) + 2):
+            for seg in range(4):
+                bits.extend(jencode.group_0a(pi, 10, seg,
+                                             name[2 * seg:2 * seg + 2]))
+        syms = jencode.differential_encode(np.asarray(bits, np.int8))
+        mpx = jsynth.synth_mpx(0.6 * np.sin(2 * np.pi * tone * t),
+                               0.6 * np.sin(2 * np.pi * tone * 1.5 * t),
+                               jsynth.MPXParams(rds_level=0.08),
+                               rds_bits=syms)
+        iq = jsynth.fm_modulate(mpx, JC.FM_RATE, carrier_offset_hz=off)
+        total = iq if total is None else total + iq
+    rng = np.random.default_rng(seed)
+    total = total + noise * (rng.standard_normal(len(total))
+                             + 1j * rng.standard_normal(len(total)))
+    return total.astype(np.complex64)
+
+
 def wire_blocks(iq: np.ndarray, cfg, fmt: str):
     """The capture in wire format, cut into cfg.wire_len blocks."""
     if fmt == "i16":
