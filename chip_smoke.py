@@ -85,6 +85,37 @@ Phases, each printing one JSON line; any failure exits non-zero:
              named, the station list written, the hits equal to the CPU
              run's; BandScanner.decide's device time at 19 x 4 rows beside
              76 one-row scans.
+5e. sources — every live hardware source through `rx` on the card at
+             block_fm=131072 (airspy at 147456, the width nearest it that
+             2.5 MS/s tiles and the RDS block decoder's phase sub-block
+             divides), each streaming the 8 s capture once at 8x real
+             time: rtl_tcp over an in-script server (header, u8
+             frames, a record of every command) with --tune-hz --gain
+             --ppm --meter, and rtlsdr (u8), hackrf (i8), sdrplay (i16) and
+             airspy (i16 at 2.5 MS/s) on the fake vendor libraries
+             (tests/fake_lib*.c built with cc).  Each decodes PI/PS/RT at
+             BER 0 with no drop; the wrappers count the warm-up steps and
+             the capture; a profiler trace of each run holds one front-end
+             launch a block (airspy's after the rate map); the server saw
+             the rate, ppm, gain mode, gain and frequency commands.
+5f. control — a command script (tune from the -600 kHz station to the
+             +300 kHz one, volume, mute and unmute, sound, squelch, status,
+             iqbalance, quit) through CommandProcessor.apply as run_live's
+             hook over the four-station capture, on the card and on the
+             CPU: audio within 1e-3, the same responses, the PI flipping
+             at BER 0, retune_reset fired once; the host us of an idle, a
+             dirty and a retuning apply (CUDA's sync debug mode raising);
+             then `rx --follow --control <socket>` over the rtl_tcp server,
+             `tune` outside the window and back: two frequency commands,
+             control.hw_retunes 2.
+5g. checkpoint — `rx --ckpt-dir --ckpt-every 4 --ckpt-keep 2` leaves steps
+             4 and 8; `rx --load-state` on the capture from block 8 on
+             within 1e-5 of the uninterrupted run (RDS bits equal through
+             the runners), the card's checkpoint resumed on the CPU within
+             1e-3, another config's load exits 2 with the fingerprint
+             message, `rx --profile` writes a trace with one front-end
+             launch a block; the ms of a save and the loop runner's ms per
+             block with and without a save every block.
 6. times   — per-block step time and real-time factor (the main path, the
              heaviest option config: input filter + nsq + scan2, and the
              main path with RDS decoder 3); each
@@ -122,6 +153,7 @@ chiprun_out/chip_smoke/.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -2461,6 +2493,670 @@ def phase_scan(card, wav):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases sources, control, checkpoint: the live hardware sources, the
+# control channel and checkpoints on the card
+# ---------------------------------------------------------------------------
+
+SOURCE_PACE_X = 8.0                # the mock devices stream at this many
+                                   # times real time: a block arrives every
+                                   # 85 ms, far slower than the card takes
+                                   # one, so the 4 Mi-frame ring never fills
+                                   # (the fakes' sleeps may pace slower)
+FAKE_LIBS = ("rtlsdr", "airspy", "hackrf", "sdrplay")
+AIRSPY_BLOCK_FM = 147456           # 12 x 12288: the width nearest the main
+                                   # path's that 2.5 MS/s tiles and the RDS
+                                   # block decoder's 2048-sample carrier
+                                   # phase sub-block divides (122880 fails
+                                   # the latter: block_rds 15360)
+CONTROL_LO_FROM, CONTROL_LO_TO = -600_000, 300_000   # STATION1 -> STATION3
+CONTROL_SCRIPT = {2: ["status", f"tune {CONTROL_LO_TO}"], 3: ["volume -6"],
+                  4: ["mute on"], 5: ["mute off", "sound swapped"],
+                  6: ["squelch 10"], 7: ["status"], 8: ["iqbalance 20"],
+                  9: ["quit"]}
+
+
+class MockRtlTcp:
+    """An rtl_tcp server on 127.0.0.1 for one client: the 12-byte header
+    ("RTL0", tuner type 5, 29 gains), the u8 frames paced at SOURCE_PACE_X
+    times real time (once, or looped), and a record of every 5-byte
+    command."""
+
+    def __init__(self, frames: np.ndarray, loop: bool = False):
+        import socket
+        import threading
+        self.payload = np.ascontiguousarray(frames, np.uint8).tobytes()
+        self.loop = loop
+        self.commands = []
+        self._srv = socket.socket()
+        self._srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._srv.bind(("127.0.0.1", 0))
+        self._srv.listen(1)
+        self._srv.settimeout(120)
+        self.port = self._srv.getsockname()[1]
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._serve, daemon=True)
+        self._thread.start()
+
+    def _commands(self, conn):
+        buf = b""
+        while not self._stop.is_set():
+            try:
+                data = conn.recv(256)
+            except OSError:
+                return
+            if not data:
+                return
+            buf += data
+            while len(buf) >= 5:
+                self.commands.append((buf[0],
+                                      int.from_bytes(buf[1:5], "big")))
+                buf = buf[5:]
+
+    def _serve(self):
+        import socket
+        import threading
+        try:
+            conn, _ = self._srv.accept()
+        except OSError:
+            return
+        threading.Thread(target=self._commands, args=(conn,),
+                         daemon=True).start()
+        bps = 2 * 2_304_000 * SOURCE_PACE_X
+        try:
+            conn.sendall(b"RTL0" + (5).to_bytes(4, "big")
+                         + (29).to_bytes(4, "big"))
+            t0, sent, pos = time.perf_counter(), 0, 0
+            while not self._stop.is_set():
+                if pos >= len(self.payload):
+                    if not self.loop:
+                        break
+                    pos = 0
+                part = self.payload[pos:pos + 262144]
+                conn.sendall(part)
+                pos += len(part)
+                sent += len(part)
+                ahead = t0 + sent / bps - time.perf_counter()
+                if ahead > 0:
+                    time.sleep(ahead)
+                else:
+                    # behind (the client was not reading yet): the
+                    # schedule moves, no burst makes the time up
+                    t0 -= ahead
+            conn.shutdown(socket.SHUT_WR)
+            time.sleep(0.5)               # the client drains, sends the rest
+        except OSError:
+            pass
+        finally:
+            conn.close()
+
+    def close(self):
+        self._stop.set()
+        self._srv.close()
+        self._thread.join(10)
+
+
+def _card_captures(wav):
+    """The 8 s synth capture in each live wire format: u8 and i8 (the
+    rtl_sdr and hackrf conventions) and i16 at 2.304 MS/s, and the airspy's
+    12-bit i16 at 2.5 MS/s."""
+    from scipy.signal import resample_poly
+    from sdrjfm_tpu_torch.io.synth import iq_to_i8, iq_to_u8
+    from sdrjfm_tpu_torch.io.wavio import read_iq_wav
+    iq, _ = read_iq_wav(str(wav))
+
+    def i16(x, scale):
+        out = np.empty((len(x), 2), np.int16)
+        out[:, 0] = np.round(x.real * scale)
+        out[:, 1] = np.round(x.imag * scale)
+        return out
+    return {"u8": iq_to_u8(iq), "i8": iq_to_i8(iq * 0.95),
+            "i16": i16(iq, 4095),
+            "airspy": i16(resample_poly(iq, 625, 576).astype(np.complex64),
+                          2047)}
+
+
+def _build_fake_libs(outdir):
+    """The four fake vendor libraries (tests/fake_lib*.c) built with cc,
+    all together."""
+    native = ROOT / "sdrjfm_tpu_torch" / "runtime" / "native"
+
+    def build(name):
+        so = outdir / f"libfake{name}.so"
+        subprocess.run([os.environ.get("CC", "cc"), "-shared", "-fPIC",
+                        "-O2", f"-I{native}", "-o", str(so),
+                        str(ROOT / "tests" / f"fake_lib{name}.c"),
+                        "-lpthread"], check=True, capture_output=True)
+        return name, str(so)
+    with ThreadPoolExecutor(len(FAKE_LIBS)) as ex:
+        return dict(ex.map(build, FAKE_LIBS))
+
+
+def _cli_run(argv, counters=("frontend", "linrec")):
+    """`rx` in process with its stderr kept: (exit code, stderr, the
+    wrappers' launch counts over the run, set to 0 just before it)."""
+    import contextlib
+    import io
+    from sdrjfm_tpu_torch import app
+    cs = _counters()
+    for k in counters:
+        cs[k].launches = 0
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = app.main(argv)
+    return rc, err.getvalue(), {k: cs[k].launches for k in counters}
+
+
+def _live_ok(rep, pi="0x10F0", ps="TPU FM", rt="VERIFY RUN"):
+    rds = rep.get("rds", {})
+    return (rds.get("pi_code") == pi and rds.get("station_label", "").strip()
+            == ps and (rt is None or rds.get("radio_text") == rt)
+            and rds.get("bit_error_rate") == 0.0
+            and rep["meta_last"].get("pilot_locked")
+            and rep.get("ingest_dropped") == 0)
+
+
+def phase_sources(card, wav):
+    """Every live hardware source through `rx` on the card at block_fm
+    131072 (airspy at AIRSPY_BLOCK_FM): rtl_tcp over MockRtlTcp with the
+    device flags, and the four in-process USB devices on their fake vendor
+    libraries, each streaming the 8 s synth capture once at SOURCE_PACE_X
+    times real time.  Each decodes PI/PS/RT at BER 0 with no drop; the
+    wrappers count the warm-up steps and the capture; a profiler trace of
+    the same run holds one front-end launch a block (airspy's too: the
+    kernel reads its stream after the torch rate map).  The rtl_tcp server saw the rate, ppm, gain
+    mode, gain and frequency commands."""
+    import shutil
+    from sdrjfm_tpu_torch.runtime.graph import WARMUP_STEPS
+    tmp = ROOT / "chiprun_work" / "sources"
+    tmp.mkdir(parents=True, exist_ok=True)
+    try:
+        caps = _card_captures(wav)
+        libs = _build_fake_libs(tmp)
+        steps = WARMUP_STEPS + 1
+        rows = []
+
+        def run(name, argv, env=None):
+            rep = tmp / f"{name}.json"
+
+            def once():
+                if env is not None:
+                    env()
+                return _cli_run(["rx", *argv, "--rds", "--report", str(rep),
+                                 "--device", "cuda"])
+            t0 = time.perf_counter()
+            (rc, err, launches), device = _device_launches(once)
+            secs = time.perf_counter() - t0
+            need(rc == 0, f"sources {name}: rx exited {rc}: {err[-2000:]}")
+            r = json.loads(rep.read_text())
+            row = {"phase": "sources", "source": name, "blocks": r["blocks"],
+                   "launches": launches, "device_launches": device,
+                   "rds": {k: r["rds"][k] for k in
+                           ("pi_code", "station_label", "radio_text",
+                            "bit_error_rate", "groups_decoded")},
+                   "ingest_dropped": r["ingest_dropped"],
+                   "latency_ms": r.get("latency_ms"),
+                   "throughput_x_realtime": r["throughput_x_realtime"],
+                   "pace_x": SOURCE_PACE_X, "s": secs,
+                   # the wait for the next block, which run_live reads
+                   # before it fetches this block's audio (JAX's order):
+                   # the part of latency_ms that the pacing sets
+                   "arrival_ms_at_pace": (r["latency_ms"]["block"]
+                                          / SOURCE_PACE_X
+                                          if "latency_ms" in r else None),
+                   "card": card}
+            if "device" in r:
+                row["device"] = r["device"]
+            rows.append(row)
+            emit(row)
+            need(_live_ok(r), f"sources {name}: decode {row}")
+            want = {"frontend": steps, "linrec": 2 * steps}
+            need(launches == want, f"sources {name}: wrapper launches "
+                 f"{launches}, want {want}")
+            need(device["frontend"] == r["blocks"] + WARMUP_STEPS,
+                 f"sources {name}: {device['frontend']} front ends under "
+                 f"the graph for {r['blocks']} blocks")
+            return r, err
+
+        # rtl_tcp, with the device flags and the meter
+        srv = {}
+
+        def serve():
+            if "s" in srv:
+                srv["s"].close()
+            srv["s"] = MockRtlTcp(caps["u8"])
+            srv["url"] = f"rtl_tcp://127.0.0.1:{srv['s'].port}"
+        serve()
+        argv = ["--iq", "{url}", "--follow", "--tune-hz", "98000000",
+                "--gain", "300", "--ppm", "5", "--meter", "--block-fm",
+                str(BLOCK_FM)]
+
+        def rtltcp_env():
+            if srv["s"].commands:            # a traced rerun: a new server
+                serve()
+            argv[1] = srv["url"]
+        rtltcp_env()
+        r, err = run("rtl_tcp", argv, rtltcp_env)
+        time.sleep(0.3)
+        cmds = list(srv["s"].commands)
+        srv["s"].close()
+        emit({"phase": "sources", "source": "rtl_tcp", "commands": cmds,
+              "meter_lines": err.count("\r"), "card": card})
+        need(cmds[:5] == [(2, 2_304_000), (5, 5), (3, 1), (4, 300),
+                          (1, 98_000_000)],
+             f"sources rtl_tcp: the server saw {cmds}")
+        need(r["device"] == {"tuner_type": 5, "tuner_gain_count": 29,
+                             "reconnects": 0} and "pilot=LOCK" in err,
+             f"sources rtl_tcp: device {r.get('device')}, meter")
+        # the in-process devices on their fakes
+        for name, fmt, dev_argv, block_fm in (
+                ("rtlsdr", "u8", ["--iq", "rtlsdr:0", "--gain", "297"],
+                 BLOCK_FM),
+                ("hackrf", "i8", ["--iq", "hackrf", "--lna-gain", "24"],
+                 BLOCK_FM),
+                ("sdrplay", "i16", ["--iq", "sdrplay", "--follow", "--grdb",
+                                    "40"], BLOCK_FM),
+                ("airspy", "airspy", ["--iq", "airspy", "--linearity", "12"],
+                 AIRSPY_BLOCK_FM)):
+            cap = tmp / f"{name}.raw"
+            caps[fmt].tofile(cap)
+            env = name.upper()
+            rate = 2_500_000 if name == "airspy" else 2_304_000
+            os.environ[f"SDRJFM_LIB{env}"] = libs[name]
+            os.environ[f"FAKE_{env}_IQ"] = str(cap)
+            os.environ[f"FAKE_{env}_FPS"] = str(int(rate * SOURCE_PACE_X))
+            os.environ[f"FAKE_{env}_LOOP"] = "0"
+            try:
+                run(name, [*dev_argv, "--tune-hz", "98000000", "--block-fm",
+                           str(block_fm)])
+            finally:
+                for k in (f"SDRJFM_LIB{env}", f"FAKE_{env}_IQ",
+                          f"FAKE_{env}_FPS", f"FAKE_{env}_LOOP"):
+                    os.environ.pop(k, None)
+            cap.unlink()
+        return rows
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+class _Script:
+    """A control channel stand-in: `poll` hands out the commands scripted
+    for each block in turn, `respond` keeps the responses."""
+
+    def __init__(self, script):
+        self.script, self.n, self.responses = dict(script), 0, []
+
+    def poll(self):
+        self.n += 1
+        return self.script.get(self.n - 1, [])
+
+    def respond(self, obj):
+        self.responses.append(obj)
+
+
+def _scripted_run(ms_wav, dev):
+    """CONTROL_SCRIPT through CommandProcessor.apply as run_live's
+    command_hook over an unpaced NativeRawSource of the four-station
+    capture: (result, responses, the PI decoded before the retune, the
+    RDS decoder, the wrappers' launches over the run, retune_reset count)."""
+    from sdrjfm_tpu_torch.models.receiver import Receiver, ReceiverConfig
+    from sdrjfm_tpu_torch.rds.live import LiveRDSDecoder
+    from sdrjfm_tpu_torch.runtime.control import CommandProcessor
+    from sdrjfm_tpu_torch.runtime.graph import upload
+    from sdrjfm_tpu_torch.runtime.native_source import NativeRawSource
+    from sdrjfm_tpu_torch.runtime.stream import run_live
+    rx = Receiver(ReceiverConfig(block_fm=BLOCK_FM, rds="block",
+                                 audio_filter_hz=15000, iq_format="i16"),
+                  device=dev)
+    live = LiveRDSDecoder()
+    seen = {}
+    resets = [0]
+    reset = rx.retune_reset
+
+    def counted_reset(state):
+        resets[0] += 1
+        return reset(state)
+    rx.retune_reset = counted_reset
+
+    def on_retune():
+        seen["pi"] = live.result.pi_code
+        seen["ber"] = live.sync.bit_error_rate
+        live.reset()
+    chan = _Script(CONTROL_SCRIPT)
+    proc = CommandProcessor(rx, chan, lo_hz=CONTROL_LO_FROM,
+                            on_retune=on_retune)
+    ctl = rx.initial_controls()._replace(
+        lo_freq_hz=upload(CONTROL_LO_FROM, torch.int32, rx.device))
+    proc.seed_from(ctl)
+    cs = _counters()
+    for k in ("frontend", "linrec"):
+        cs[k].launches = 0
+    rx.jit_step().prepare()               # before the producer starts
+    with NativeRawSource(str(ms_wav), pace=False) as src:
+        res = run_live(rx, src, ctl, rds_feedback=live.feed,
+                       command_hook=proc.apply)
+    launches = {k: cs[k].launches for k in ("frontend", "linrec")}
+    return res, chan.responses, seen, live, launches, resets[0], proc
+
+
+def _apply_us(dev, script, n: int = 200) -> float:
+    """Median host us of CommandProcessor.apply with `script(i)` queued
+    before call i, on the captured step's buffers (no device sync asked
+    for; a synchronising CUDA call inside raises)."""
+    from sdrjfm_tpu_torch.models.receiver import Receiver, ReceiverConfig
+    from sdrjfm_tpu_torch.runtime.control import CommandProcessor
+    rx = Receiver(ReceiverConfig(block_fm=BLOCK_FM, rds="block",
+                                 audio_filter_hz=15000, iq_format="i16"),
+                  device=dev)
+    sg = rx.jit_step()
+    sg.prepare()
+    chan = _Script({i: script(i) for i in range(n)})
+    proc = CommandProcessor(rx, chan)
+    state, ctl = sg.state, sg.controls
+    meta = {"pilot_locked": True, "dc_if": 0.0}
+    times = []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(n):
+            t0 = time.perf_counter()
+            state, new_ctl, _ = proc.apply(state, ctl, meta)
+            times.append((time.perf_counter() - t0) * 1e6)
+            sg.load(state, new_ctl)       # what the next step takes in
+            ctl = new_ctl
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return statistics.median(times), ctl
+
+
+def phase_control(card, ms_wav, wav):
+    """The control channel on the card.  CONTROL_SCRIPT (tune from STATION1
+    to STATION3, volume, mute and unmute, sound, iqbalance, squelch,
+    status, quit) through CommandProcessor.apply as run_live's hook over
+    the four-station capture, on the card and on the CPU: the card's audio
+    within OPT_AUDIO_ATOL of the CPU's, the responses equal (the status
+    metadata within 1e-3), PI 0x1111 before the retune and 0x3333 after,
+    each at BER 0, retune_reset fired once; the wrappers' counts over the
+    card's run.  The host us of an idle apply, a dirty one and a retune,
+    with CUDA's sync debug mode set to raise.  Then `rx --follow --control
+    <socket>` over MockRtlTcp: `tune` outside the window and back, two
+    frequency commands on the wire and control.hw_retunes 2."""
+    import socket
+    import threading
+    from sdrjfm_tpu_torch.runtime.graph import WARMUP_STEPS
+    runs = {dev: _scripted_run(ms_wav, dev) for dev in ("cuda", "cpu")}
+    (res, resp, seen, live, launches, resets, proc) = runs["cuda"]
+    (cres, cresp, cseen, clive, _, cresets, _) = runs["cpu"]
+    same_shape = res.audio.shape == cres.audio.shape
+    a_err = (float(np.abs(res.audio.astype(np.float64)
+                          - cres.audio.astype(np.float64)).max())
+             if same_shape else float("inf"))
+
+    def strip(rs):
+        return [{k: v for k, v in r.items() if k != "meta"} for r in rs]
+    # the status metadata within 1e-3; latency_ms is the host's clock
+    metas_close = all(
+        abs(a["meta"][k] - b["meta"][k]) <= 1e-3 * max(1, abs(b["meta"][k]))
+        for a, b in zip(resp, cresp) if "meta" in a
+        for k in b["meta"] if k != "latency_ms")
+    pis = (seen.get("pi"), live.result.pi_code)
+    row = {"phase": "control", "what": "scripted run", "blocks":
+           len(res.meta), "cpu_blocks": len(cres.meta),
+           "audio_max_abs_diff_vs_cpu": a_err, "atol": OPT_AUDIO_ATOL,
+           "responses": strip(resp), "responses_equal":
+           strip(resp) == strip(cresp) and metas_close,
+           "pi_before": f"0x{pis[0] or 0:04X}", "pi_after":
+           f"0x{pis[1]:04X}", "ber_before": seen.get("ber"),
+           "ber_after": live.sync.bit_error_rate,
+           "retune_resets": resets, "launches": launches, "card": card}
+    emit(row)
+    need(len(res.meta) == len(cres.meta) == 10 and a_err <= OPT_AUDIO_ATOL,
+         f"control: card vs cpu {row}")
+    need(row["responses_equal"], f"control: responses {resp} vs {cresp}")
+    need(pis == (0x1111, 0x3333) and seen.get("ber") == 0.0
+         and live.sync.bit_error_rate == 0.0
+         and (cseen.get("pi"), clive.result.pi_code) == pis,
+         f"control: PI flip {row}")
+    need(resets == cresets == 1 and proc.retunes == 1,
+         f"control: retune_reset fired {resets} times")
+    steps = WARMUP_STEPS + 1
+    need(launches == {"frontend": steps, "linrec": 2 * steps},
+         f"control: wrapper launches {launches}")
+    # the host cost of apply on the card
+    idle_us, _ = _apply_us("cuda", lambda i: [])
+    dirty_us, ctl = _apply_us("cuda", lambda i: [f"volume {-(i % 7)}"])
+    tune_us, _ = _apply_us("cuda", lambda i: [
+        f"tune {(1 - 2 * (i % 2)) * 400_000}"])
+    emit({"phase": "control", "what": "apply host us (median of 200; sync "
+          "debug mode raising)", "idle_us": idle_us, "dirty_us": dirty_us,
+          "retune_us": tune_us, "card": card})
+    need(abs(float(ctl.volume.cpu()) - 10.0 ** (-(199 % 7) / 20.0)) < 1e-6,
+         "control: the last dirty apply's volume")
+    # the CLI over rtl_tcp, steered through a socket
+    caps = _card_captures(wav)
+    tmp = ROOT / "chiprun_work" / "control"
+    tmp.mkdir(parents=True, exist_ok=True)
+    ctl_path, rep = tmp / "ctl.sock", tmp / "rep.json"
+    srv = MockRtlTcp(caps["u8"], loop=True)
+    got, box = [], {}
+
+    def client():
+        deadline = time.time() + 120
+        while not ctl_path.exists() and time.time() < deadline:
+            time.sleep(0.05)
+        cli = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        cli.connect(str(ctl_path))
+        cli.settimeout(120)
+        buf = b""
+        try:
+            for line in ("status", "tune 99500000", "tune 98000000",
+                         "status", "quit"):
+                time.sleep(0.5)
+                cli.sendall(line.encode() + b"\n")
+                while b"\n" not in buf:
+                    buf += cli.recv(65536)
+                out, buf = buf.split(b"\n", 1)
+                got.append(json.loads(out))
+        finally:
+            cli.close()
+    th = threading.Thread(target=client, daemon=True)
+    th.start()
+    try:
+        rc, err, cli_launches = _cli_run([
+            "rx", "--iq", f"rtl_tcp://127.0.0.1:{srv.port}", "--follow",
+            "--block-fm", str(BLOCK_FM), "--rds", "--control", str(ctl_path),
+            "--report", str(rep), "--device", "cuda"])
+        th.join(60)
+        time.sleep(0.3)
+    finally:
+        srv.close()
+    need(rc == 0, f"control CLI: rx exited {rc}: {err[-2000:]}")
+    r = json.loads(rep.read_text())
+    freqs = [p for c, p in srv.commands if c == 0x01]
+    row = {"phase": "control", "what": "rx --follow --control over "
+           "rtl_tcp", "responses": [{k: v for k, v in g.items()
+                                     if k not in ("meta", "rds")}
+                                    for g in got],
+           "freq_commands": freqs, "report_control": r.get("control"),
+           "blocks": r["blocks"], "launches": cli_launches, "card": card}
+    emit(row)
+    need(len(got) == 5 and freqs == [99_500_000, 98_000_000]
+         and r["control"]["hw_retunes"] == 2
+         and r["control"]["tuned_hz"] == 98_000_000
+         and got[3]["center_hz"] == 98_000_000, f"control CLI: {row}")
+    need(cli_launches == {"frontend": steps, "linrec": 2 * steps},
+         f"control CLI: wrapper launches {cli_launches}")
+    ctl_path.unlink(missing_ok=True)
+
+
+def _wav_head(src, dst, first_block: int):
+    """The capture from block `first_block` on, as an int16 wav."""
+    from sdrjfm_tpu_torch.io.wavio import read_iq_wav_raw, write_iq_wav
+    iq, rate = read_iq_wav_raw(str(src))
+    x = np.asarray(iq[first_block * BLOCK_FM * 12:], np.float32) / 32768.0
+    write_iq_wav(str(dst), (x[:, 0] + 1j * x[:, 1]).astype(np.complex64),
+                 rate, float32=False)
+
+
+def _trace_kernels(path) -> dict:
+    """Device kernel launches in an exported Chrome trace, by counter name
+    (DEVICE_KERNELS: a name holding the kernel's)."""
+    ev = [e for e in json.loads(Path(path).read_text())["traceEvents"]
+          if e.get("cat") == "kernel"]
+    return {k: sum(n in e.get("name", "") for e in ev)
+            for k, n in DEVICE_KERNELS.items()} if ev else {}
+
+
+def phase_checkpoint(card, wav):
+    """Checkpoints on the main path (the 8 s capture, 11 blocks).  `rx
+    --ckpt-dir D --ckpt-every 4 --ckpt-keep 2` leaves steps 4 and 8; `rx
+    --load-state D` on the capture from block 8 on gives audio within
+    RUNNER_AUDIO_ATOL of the uninterrupted run's blocks 8-10 (float32
+    wavs), and through the runners the RDS bits equal; the card's
+    checkpoint resumes on the CPU within OPT_AUDIO_ATOL; another config's
+    load exits 2 with the fingerprint message; `rx --profile DIR` writes a
+    trace holding one front-end launch a block.  Times: ms per
+    CheckpointManager.save of the card's state, and run_offline's wall ms
+    per block with and without a save every block."""
+    import shutil
+    from sdrjfm_tpu_torch.io.wavio import read_iq_wav_raw, read_wav
+    from sdrjfm_tpu_torch.models.receiver import Receiver, ReceiverConfig
+    from sdrjfm_tpu_torch.runtime.checkpoint import (CheckpointManager,
+                                                     load_state)
+    from sdrjfm_tpu_torch.runtime.graph import WARMUP_STEPS, tree_leaves
+    from sdrjfm_tpu_torch.runtime.stream import run_offline
+    tmp = ROOT / "chiprun_work" / "checkpoint"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    try:
+        base = ["--rds", "--block-fm", str(BLOCK_FM), "--float32",
+                "--device", "cuda"]
+        ck = tmp / "ck"
+        rc, err, launches = _cli_run([
+            "rx", "--iq", str(wav), "--ckpt-dir", str(ck), "--ckpt-every",
+            "4", "--ckpt-keep", "2", "--audio", str(tmp / "full.wav"),
+            "--report", str(tmp / "full.json"), *base])
+        need(rc == 0, f"checkpoint: rx --ckpt-dir exited {rc}: {err[-2000:]}")
+        steps = sorted(os.listdir(ck))
+        tail = tmp / "tail.wav"
+        _wav_head(wav, tail, 8)
+        rc, err, rlaunches = _cli_run([
+            "rx", "--iq", str(tail), "--load-state", str(ck), "--audio",
+            str(tmp / "rest.wav"), "--report", str(tmp / "rest.json"),
+            *base])
+        need(rc == 0, f"checkpoint: rx --load-state exited {rc}: "
+             f"{err[-2000:]}")
+        full, _ = read_wav(str(tmp / "full.wav"))
+        rest, _ = read_wav(str(tmp / "rest.wav"))
+        ba = 8 * (BLOCK_FM // 4)
+        same = rest.shape == full[ba:].shape
+        cli_err = (float(np.abs(rest - full[ba:]).max()) if same
+                   else float("inf"))
+        # the same through the runners, for the bits; and on the CPU
+        iq, _ = read_iq_wav_raw(str(wav))
+        cfg = ReceiverConfig(block_fm=BLOCK_FM, rds="block",
+                             audio_filter_hz=15000, iq_format="i16")
+        rx = Receiver(cfg, device="cuda")
+        mgr = CheckpointManager(str(tmp / "api"), cfg=cfg, max_to_keep=1)
+        uninterrupted = run_offline(rx, iq, on_state=lambda b, s: (
+            mgr.save(b, s) if b == 8 else None))
+        mgr.close()
+        T = cfg.wire_len
+        rx2 = Receiver(cfg, device="cuda")
+        state, _ = load_state(str(tmp / "api"), rx2.init_state(), cfg=cfg)
+        resumed = run_offline(rx2, iq[8 * T:], init_state=state)
+        bits_after = uninterrupted.rds_bits[-len(resumed.rds_bits):]
+        api_err = float(np.abs(resumed.audio - uninterrupted.audio[ba:]).max())
+        rx_cpu = Receiver(cfg, device="cpu")
+        cstate, _ = load_state(str(tmp / "api"), rx_cpu.init_state(),
+                               cfg=cfg)
+        on_cpu = run_offline(rx_cpu, iq[8 * T:], init_state=cstate)
+        cpu_err = float(np.abs(on_cpu.audio - uninterrupted.audio[ba:]).max())
+        # another configuration's load
+        rc_bad, err_bad, _ = _cli_run([
+            "rx", "--iq", str(tail), "--load-state", str(ck),
+            "--rds-decoder", "scan2", *base])
+        # --profile: one front end a block in the trace
+        prof = tmp / "prof"
+        for _ in range(PROFILE_TRIES):
+            shutil.rmtree(prof, ignore_errors=True)
+            rc_p, err_p, _ = _cli_run([
+                "rx", "--iq", str(wav), "--profile", str(prof), "--report",
+                str(tmp / "prof.json"), *base])
+            need(rc_p == 0, f"checkpoint: rx --profile exited {rc_p}")
+            traces = list(prof.glob("trace_*.json"))
+            kern = _trace_kernels(traces[0]) if traces else {}
+            if kern:
+                break
+            print("chip_smoke: rx --profile's trace held no device event; "
+                  "tracing the run again", file=sys.stderr, flush=True)
+        pblocks = json.loads((tmp / "prof.json").read_text())["blocks"]
+        row = {"phase": "checkpoint", "steps": steps,
+               "cli_resume_audio_max_abs_diff": cli_err,
+               "api_resume_audio_max_abs_diff": api_err,
+               "resume_bits_equal": bool(np.array_equal(resumed.rds_bits,
+                                                        bits_after)),
+               "cpu_resume_audio_max_abs_diff": cpu_err,
+               "atol": RUNNER_AUDIO_ATOL, "cpu_atol": OPT_AUDIO_ATOL,
+               "other_config_exit": rc_bad,
+               "other_config_message": err_bad.strip().splitlines()[-1],
+               "profile_trace_frontend": kern.get("frontend", 0),
+               "profile_blocks": pblocks, "launches": launches,
+               "resume_launches": rlaunches, "leaves": len(tree_leaves(
+                   rx.init_state())), "card": card}
+        emit(row)
+        need(steps == ["ckpt_000000000004.npz", "ckpt_000000000008.npz"],
+             f"checkpoint: steps {steps}")
+        need(cli_err <= RUNNER_AUDIO_ATOL and api_err <= RUNNER_AUDIO_ATOL
+             and row["resume_bits_equal"] and len(resumed.rds_bits) > 0,
+             f"checkpoint: resume {row}")
+        need(cpu_err <= OPT_AUDIO_ATOL, f"checkpoint: CPU resume {cpu_err}")
+        need(rc_bad == 2 and "different receiver configuration" in err_bad,
+             f"checkpoint: another config's load: {rc_bad} {err_bad[-500:]}")
+        need(row["profile_trace_frontend"] == pblocks + WARMUP_STEPS,
+             f"checkpoint: --profile trace {kern}")
+        wsteps = WARMUP_STEPS + 1
+        for what, got in (("--ckpt-dir", launches), ("--load-state",
+                                                     rlaunches)):
+            need(got == {"frontend": wsteps, "linrec": 2 * wsteps},
+                 f"checkpoint: {what} wrapper launches {got}")
+        # times: a save of the card's state, the loop runner with and
+        # without a save every block
+        sg = rx.jit_step()
+        saver = CheckpointManager(str(tmp / "timed"), cfg=cfg, max_to_keep=2)
+        save_ms = []
+        for i in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            saver.save(i + 1, sg.state)
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+        saver.close()
+
+        def per_block(on_state):
+            walls = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = run_offline(rx, iq, on_state=on_state)
+                walls.append((time.perf_counter() - t0) * 1e3 / len(r.meta))
+            return statistics.median(walls), min(walls), max(walls)
+        every = CheckpointManager(str(tmp / "every"), cfg=cfg, max_to_keep=2)
+        plain = per_block(None)
+        saving = per_block(lambda b, s: every.save(b, s))
+        every.close()
+        emit({"phase": "checkpoint", "what": "times", "save_ms_median":
+              statistics.median(save_ms), "save_ms_min": min(save_ms),
+              "save_ms_max": max(save_ms), "state_bytes": sum(
+                  t.numel() * t.element_size()
+                  for t in tree_leaves(sg.state)),
+              "loop_ms_per_block": plain[0], "loop_ms_spread": plain[1:],
+              "loop_ckpt_every_1_ms_per_block": saving[0],
+              "loop_ckpt_every_1_spread": saving[1:], "card": card})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _kernel_sum_ms(fn) -> float:
     """The summed device time of the kernels of one call of fn (profiler),
     after a warm-up call."""
@@ -2494,7 +3190,10 @@ def main() -> int:
     opt_launches = phase_options(wav)
     ms_wav, _, _, ms_launches, _ = phase_multistation(card)
     phase_scan(card, ms_wav)
+    phase_sources(card, wav)
+    phase_control(card, ms_wav, wav)
     ms_wav.unlink()
+    phase_checkpoint(card, wav)
     kernels, step_ms = phase_times(rx, wav, fe_err, sc_err, launches, card)
     kernels += phase_option_times(a_err, b_err, opt_launches, card)
     kernels.append(rows_kernel_entry(rx, rows_err, ms_launches, card))

@@ -4,9 +4,8 @@ equivalent for a headless box.
 The reference plays audio through portaudio (src/output/audiosink.cpp:29-56:
 stream open, callback drains an SPSC ring, zero-filling underruns).  In this
 environment there is no audio device, so the sink writes raw interleaved
-s16le PCM to a file, FIFO, or stdout, playable with `aplay -f S16_LE -r
-48000 -c 2` (the port's CLI does not wire it to `--pcm-out` yet: ROADMAP.md,
-queue 1).  A FIFO gives the same
+s16le PCM to a file, FIFO, or stdout (`rx --pcm-out`), playable with
+`aplay -f S16_LE -r 48000 -c 2`.  A FIFO gives the same
 decoupled producer/consumer shape as the reference's ring buffer: the pipe
 buffer is the ring, the reading player is the callback thread.
 

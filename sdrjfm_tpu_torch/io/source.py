@@ -10,8 +10,8 @@ protocol below carries the same contract.
 Implementations here (numpy only):
   WavFileSource    — whole-capture wav replay (devices/filereader semantics)
   SynthSource      — procedurally generated stereo+RDS broadcast signal
-  open_source      — the factory; 'native:' and 'pipe:' wrap the C++ ring
-                     sources of runtime/native_source
+  open_source      — the factory; 'native:', 'pipe:' and 'rtltcp://' wrap
+                     the C++ ring sources of runtime/native_source
 """
 
 from __future__ import annotations
@@ -154,12 +154,48 @@ class SynthSource(_BaseSource):
 
 def open_source(spec: str, **kw) -> Source:
     """Source factory: 'file:path.wav', 'native:path.wav', 'synth',
-    'pipe:-'/'pipe:fifo' (headerless stream from any SDR tool; kw:
-    fmt='u8'|'i8'|'i16').  'rtltcp://host:port' is refused (not ported
-    yet)."""
+    'rtltcp://host:port' (live network SDR), 'pipe:-'/'pipe:fifo'
+    (headerless stream from any SDR tool; kw: fmt='u8'|'i8'|'i16')."""
     if spec.startswith(("rtltcp:", "rtl_tcp:")):
-        raise ValueError(f"{spec}: the rtl_tcp source is not ported to "
-                         "sdrjfm_tpu_torch yet (ROADMAP.md, queue 1)")
+        from ..runtime.native_source import RtlTcpSource
+
+        class _RtlTcpAdapter(_BaseSource):
+            """deviceHandler-shaped wrapper: set_vfo_frequency really tunes
+            the remote dongle (rtl_tcp command 0x01, the network twin of
+            rtlsdr-handler's setVFOFrequency); get_samples converts u8 ->
+            complex on the host for protocol users (the rx CLI feeds the
+            raw u8 frames to the device instead, rtlsdr-handler.cpp:
+            285-294)."""
+
+            def __init__(self, hostport):
+                host, _, port = hostport.partition(":")
+                self._src = RtlTcpSource(host, int(port or 1234), **kw)
+                super().__init__(self._src.rate)
+                self._src.start()
+
+            def set_vfo_frequency(self, hz: int) -> None:
+                super().set_vfo_frequency(hz)
+                self._src.set_frequency(int(hz))
+
+            def bit_depth(self) -> int:
+                return 8
+
+            def samples(self) -> int:
+                return self._src.available()
+
+            def get_samples(self, n: int) -> np.ndarray:
+                u8 = self._src.read_block(n)
+                return (((u8[:, 0].astype(np.float32) - 127.0)
+                         + 1j * (u8[:, 1].astype(np.float32) - 127.0))
+                        / 128.0).astype(np.complex64)
+
+            def reset_buffer(self) -> None:
+                pass
+
+            def stop_reader(self) -> None:
+                self._src.stop()
+
+        return _RtlTcpAdapter(spec.split(":", 1)[1].lstrip("/"))
     if spec.startswith("pipe:"):
         from ..runtime.native_source import NativePipeSource
 

@@ -832,11 +832,12 @@ class Receiver:
     def retune_reset(self, state: ReceiverState) -> ReceiverState:
         """triggerFrequencyChange: a >=100 kHz retune fires the audio mute
         ramp, resets the PSS adaptation and the RDS bit decoder (block or
-        scan)."""
+        scan).  Builds its new leaves without waiting for the card (the
+        ramp from pinned memory, the zero states by fills)."""
+        from ..runtime.graph import upload
         s = state._replace(
-            ramp_remaining=torch.tensor(self.cfg.working_rate // 2,
-                                        dtype=torch.int32,
-                                        device=self.device),
+            ramp_remaining=upload(self.cfg.working_rate // 2, torch.int32,
+                                  self.device),
             pss=pss_zero_state(self.pss_cfg, device=self.device))
         if s.bitrec is not None:
             s = s._replace(bitrec=self._bitrec_zero_state())

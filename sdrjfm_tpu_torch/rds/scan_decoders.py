@@ -148,8 +148,10 @@ class Decoder2State(NamedTuple):
 
 def decoder2_zero_state(cfg: Decoder2Config, device=None) -> Decoder2State:
     c = lambda n=(): torch.zeros(n, dtype=torch.complex64, device=device)  # noqa: E731
-    f = lambda v: torch.tensor(v, dtype=torch.float32, device=device)  # noqa: E731
-    i = lambda v: torch.tensor(v, dtype=torch.int32, device=device)  # noqa: E731
+    # fills, not host copies: a retune's reset builds these between
+    # replays without waiting for the card
+    f = lambda v: torch.full((), v, dtype=torch.float32, device=device)  # noqa: E731
+    i = lambda v: torch.full((), v, dtype=torch.int32, device=device)  # noqa: E731
     return Decoder2State(c(len(cfg.rrc) - 1), f(9.0), costas_zero_state(device),
                          c(), c(), c(), i(0), i(3), f(0.0),
                          torch.zeros((), dtype=torch.bool, device=device), c())
@@ -179,7 +181,7 @@ class Decoder3State(NamedTuple):
 
 def decoder3_zero_state(cfg: Decoder3Config, device=None) -> Decoder3State:
     f = lambda n=(): torch.zeros(n, dtype=torch.float32, device=device)  # noqa: E731
-    b = lambda v: torch.tensor(v, dtype=torch.bool, device=device)  # noqa: E731
+    b = lambda v: torch.full((), v, dtype=torch.bool, device=device)  # noqa: E731
     return Decoder3State(costas_zero_state(device), f(len(cfg.lp21) - 1),
                          f(cfg.symbol_ceiling),
                          torch.zeros((), dtype=torch.int32, device=device),

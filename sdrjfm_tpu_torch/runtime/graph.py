@@ -125,6 +125,19 @@ def tree_broadcast(tree, n: int):
                                for t in tree_leaves(tree)])
 
 
+def upload(value, dtype: torch.dtype, device) -> Tensor:
+    """A new tensor of host `value` on `device`, queued without waiting
+    for the card: on CUDA from pinned memory with non_blocking=True (a
+    plain `torch.tensor(..., device=)` copies from pageable memory and
+    waits).  For the leaves that the host hands a captured step between
+    replays (controls, state resets)."""
+    t = torch.tensor(value, dtype=dtype)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def wire_shape(cfg):
     T = cfg.wire_len
     return (T,) if cfg.iq_format == "c64" else (T, 2)

@@ -10,10 +10,18 @@ builds and loads nothing outside this package.  Without a compiler it
 raises NativeUnavailable.
 
 Sources: `NativeWavSource` (a wav as complex64 blocks), `NativeRawSource`
-(a PCM16 wav or a headerless u8/i8/i16 capture as integer [n, 2] blocks)
-and `NativePipeSource` (stdin or a FIFO).  The rtl_tcp and USB producers of
-the JAX module are compiled into the library but not bound yet (ROADMAP.md,
-queue 1).
+(a PCM16 wav or a headerless u8/i8/i16 capture as integer [n, 2] blocks),
+`NativePipeSource` (stdin or a FIFO), and the live hardware: `RtlTcpSource`
+(the rtl_tcp network protocol, u8), and the in-process dlopen devices
+`RtlSdrUsbSource` (librtlsdr, u8), `AirspyUsbSource` (libairspy, i16 at its
+negotiated native rate), `SdrplayUsbSource` (libsdrplay_api, i16) and
+`HackRfUsbSource` (libhackrf, i8).  A vendor library is loaded at run time
+from `libname`, else from $SDRJFM_LIBRTLSDR / $SDRJFM_LIBAIRSPY /
+$SDRJFM_LIBSDRPLAY / $SDRJFM_LIBHACKRF, else by its usual name; its absence
+raises IOError (the CLI's "loading device failed").  Every source has the
+same consumer surface (rate, start, pause, stop, available, dropped, eof,
+read_block, close), so the runners and the control channel take any of
+them.
 """
 
 from __future__ import annotations
@@ -68,6 +76,57 @@ _ENTRIES = (
     ("sdr_raw_available", _SZ, [_P]),
     ("sdr_raw_dropped", ctypes.c_uint64, [_P]),
     ("sdr_raw_eof", _I, [_P]),
+    # rtl_tcp network source
+    ("sdr_rtltcp_open2", _P, [ctypes.c_char_p, _I, _SZ, ctypes.c_long]),
+    ("sdr_rtltcp_reconnects", _U32, [_P]),
+    ("sdr_rtltcp_connected", _I, [_P]),
+    ("sdr_rtltcp_flush", None, [_P]),
+    ("sdr_rtltcp_tuner_type", _U32, [_P]),
+    ("sdr_rtltcp_gain_count", _U32, [_P]),
+    ("sdr_rtltcp_command", _I, [_P, ctypes.c_uint8, _U32]),
+    # in-process dlopen(librtlsdr) device
+    ("sdr_rtlsdr_open", _P, [ctypes.c_char_p, _U32, _SZ, _U32]),
+    ("sdr_rtlsdr_set_freq", _I, [_P, _U32]),
+    ("sdr_rtlsdr_get_freq", _U32, [_P]),
+    *((f"sdr_rtlsdr_{f}", _I, [_P, _I])
+      for f in ("set_gain_mode", "set_gain", "set_agc", "set_ppm")),
+    # in-process dlopen(libairspy) device
+    ("sdr_airspy_open", _P, [ctypes.c_char_p, _SZ]),
+    ("sdr_airspy_rate", _U32, [_P]),
+    ("sdr_airspy_set_freq", _I, [_P, _U32]),
+    *((f"sdr_airspy_{f}", _I, [_P, _I])
+      for f in ("set_linearity", "set_sensitivity", "set_lna", "set_vga",
+                "set_mixer", "set_lna_agc", "set_mixer_agc")),
+    # in-process dlopen(libhackrf) device
+    ("sdr_hackrf_open", _P, [ctypes.c_char_p, _SZ, _U32]),
+    ("sdr_hackrf_set_freq", _I, [_P, ctypes.c_uint64]),
+    *((f"sdr_hackrf_{f}", _I, [_P, _I])
+      for f in ("set_lna", "set_vga", "set_amp", "set_antenna")),
+    # in-process dlopen(libsdrplay_api) device
+    ("sdr_sdrplay_open", _P, [ctypes.c_char_p, _SZ, _U32]),
+    ("sdr_sdrplay_hw_ver", ctypes.c_char, [_P]),
+    ("sdr_sdrplay_set_freq", _I, [_P, ctypes.c_uint64]),
+    *((f"sdr_sdrplay_{f}", _I, [_P, _I])
+      for f in ("set_grdb", "set_lna_state", "set_agc")),
+    ("sdr_sdrplay_set_ppm", _I, [_P, ctypes.c_double]),
+    # the consumer side every live device shares (one ring kind each)
+    *((f"sdr_{d}_{name}", res, args)
+      for d in ("rtltcp", "rtlsdr", "airspy", "hackrf", "sdrplay")
+      for name, res, args in (
+          ("start", _I if d in ("airspy", "hackrf", "sdrplay") else None,
+           [_P]),
+          ("pause", None, [_P, _I]),
+          ("stop", None, [_P]),
+          ("close", None, [_P]),
+          ("read_blocking", _SZ,
+           [_P, ctypes.POINTER(ctypes.c_uint8), _SZ, ctypes.c_long]),
+          ("available", _SZ, [_P]),
+          ("dropped", ctypes.c_uint64, [_P]),
+          ("eof", _I, [_P]))),
+    *((f"sdr_{d}_flush", None, [_P])
+      for d in ("rtlsdr", "airspy", "hackrf", "sdrplay")),
+    *((f"sdr_{d}_last_error", ctypes.c_char_p, [])
+      for d in ("rtlsdr", "airspy", "hackrf", "sdrplay")),
 )
 
 
@@ -300,3 +359,355 @@ class NativePipeSource(_RawRing):
             str(path).encode(), ring_frames, 2 if fmt == "i16" else 1,
             rate, int(drop_on_full))
         self._open(h, fmt, "pipe", path)
+
+
+class _DeviceRing:
+    """The consumer side of a live device's ring (the `sdr_<kind>_*`
+    entries): integer [n, 2] frames in the device's wire format `fmt`."""
+
+    fmt: str
+    _kind: str
+    _dtype = {"u8": np.uint8, "i8": np.int8, "i16": np.int16}
+
+    def _fn(self, name: str):
+        return getattr(self._lib, f"sdr_{self._kind}_{name}")
+
+    def _last_error(self) -> str:
+        return self._fn("last_error")().decode()
+
+    def _ck(self, rc: int, what: str) -> None:
+        if rc != 0:
+            raise IOError(f"{self._kind} {what} failed ({rc})")
+
+    @property
+    def rate(self) -> int:
+        return self._rate
+
+    def start(self):
+        if self._fn("start")(self._h):          # the vendor start's status
+            raise IOError(self._last_error())
+
+    def pause(self, on: bool) -> None:
+        """stopReader semantics for a live stream: the device keeps
+        streaming, the paused-over samples count as drops."""
+        self._fn("pause")(self._h, 1 if on else 0)
+
+    def stop(self):
+        self._fn("stop")(self._h)
+
+    def flush(self) -> None:
+        """resetBuffer (device-handler.h:75): discard the buffered frames,
+        e.g. right after a retune so the next block is post-retune
+        signal."""
+        self._fn("flush")(self._h)
+
+    def available(self) -> int:
+        return int(self._fn("available")(self._h))
+
+    @property
+    def dropped(self) -> int:
+        return int(self._fn("dropped")(self._h))
+
+    @property
+    def eof(self) -> bool:
+        return bool(self._fn("eof")(self._h))
+
+    def read_block(self, n_frames: int, timeout_ms: int = 10_000):
+        """Blocking read; returns [got, 2] frames in the wire format."""
+        buf = np.empty(n_frames * 2, dtype=self._dtype[self.fmt])
+        got = self._fn("read_blocking")(
+            self._h, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            n_frames, timeout_ms)
+        return buf[: got * 2].reshape(-1, 2)
+
+    def close(self):
+        if self._h:
+            self._fn("close")(self._h)
+            self._h = None
+
+    def __enter__(self):
+        self.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def _libname(libname, env: str):
+    if libname is None:
+        libname = os.environ.get(env)
+    return libname.encode() if libname else None
+
+
+class RtlTcpSource(_DeviceRing):
+    """Network SDR source: a client of the standard rtl_tcp protocol (the
+    live-device twin of the reference's rtlsdr-handler: the same dongle,
+    u8 stream and control surface over TCP).  The u8 frames land in the
+    native ring untouched; ReceiverConfig.iq_format='u8' converts them on
+    the device (rtlsdr-handler.cpp:285-294).
+
+    Commands are rtl_tcp's 5-byte frames: set_frequency (0x01),
+    set_sample_rate (0x02, sent at connect), gain mode (0x03), tuner gain
+    (0x04), ppm correction (0x05), AGC (0x08).  reconnect_timeout_ms > 0:
+    if the server drops mid-run the reader retries with backoff for up to
+    that long, replays the settings, counts the outage as drops and
+    resumes (`reconnects`)."""
+
+    CMD_SET_FREQ = 0x01
+    CMD_SET_SAMPLE_RATE = 0x02
+    CMD_SET_GAIN_MODE = 0x03
+    CMD_SET_GAIN = 0x04
+    CMD_SET_FREQ_CORRECTION = 0x05
+    CMD_SET_AGC_MODE = 0x08
+
+    fmt = "u8"
+    _kind = "rtltcp"
+
+    def __init__(self, host: str, port: int = 1234,
+                 rate: int = 2_304_000, ring_frames: int = 1 << 22,
+                 reconnect_timeout_ms: int = 0):
+        self._lib = load_library()
+        self._h = self._lib.sdr_rtltcp_open2(host.encode(), int(port),
+                                             ring_frames,
+                                             int(reconnect_timeout_ms))
+        if not self._h:
+            raise IOError(f"cannot connect to rtl_tcp at {host}:{port}")
+        self._rate = int(rate)
+        self.tuner_type = int(self._lib.sdr_rtltcp_tuner_type(self._h))
+        self.tuner_gain_count = int(self._lib.sdr_rtltcp_gain_count(self._h))
+        self.set_sample_rate(rate)
+
+    def start(self):
+        self._lib.sdr_rtltcp_start(self._h)
+
+    def command(self, cmd: int, param: int) -> None:
+        if self._lib.sdr_rtltcp_command(self._h, cmd,
+                                        int(param) & 0xFFFFFFFF) != 0:
+            raise IOError("rtl_tcp command send failed")
+
+    def set_frequency(self, hz: int) -> None:
+        self.command(self.CMD_SET_FREQ, hz)
+
+    def set_sample_rate(self, rate: int) -> None:
+        self._rate = int(rate)
+        self.command(self.CMD_SET_SAMPLE_RATE, rate)
+
+    def set_gain_mode(self, manual: bool) -> None:
+        self.command(self.CMD_SET_GAIN_MODE, 1 if manual else 0)
+
+    def set_gain(self, tenths_db: int) -> None:
+        self.command(self.CMD_SET_GAIN, tenths_db)
+
+    def set_agc(self, on: bool) -> None:
+        self.command(self.CMD_SET_AGC_MODE, 1 if on else 0)
+
+    def set_freq_correction(self, ppm: int) -> None:
+        self.command(self.CMD_SET_FREQ_CORRECTION, ppm)
+
+    @property
+    def reconnects(self) -> int:
+        return int(self._lib.sdr_rtltcp_reconnects(self._h))
+
+    @property
+    def connected(self) -> bool:
+        return bool(self._lib.sdr_rtltcp_connected(self._h))
+
+
+class RtlSdrUsbSource(_DeviceRing):
+    """In-process RTL-SDR dongle through dlopen(librtlsdr), the reference's
+    rtlsdr-handler (rtlsdr-handler.cpp): the vendor library loads at run
+    time (:102-116; absent, it raises), librtlsdr's async callback thread
+    feeds the u8 ring, and the u8 -> float conversion (:285-294) runs on
+    the device.  The control surface is RtlTcpSource's, so the control
+    channel's gain/agc/ppm/retune commands apply unchanged."""
+
+    fmt = "u8"
+    _kind = "rtlsdr"
+
+    def __init__(self, device_index: int = 0, rate: int = 2_304_000,
+                 ring_frames: int = 1 << 22, libname: str = None):
+        self._lib = load_library()
+        self._h = self._lib.sdr_rtlsdr_open(
+            _libname(libname, "SDRJFM_LIBRTLSDR"), int(device_index),
+            ring_frames, int(rate))
+        if not self._h:
+            raise IOError(f"rtlsdr device {device_index}: "
+                          f"{self._last_error()}")
+        self._rate = int(rate)
+
+    def start(self):
+        self._lib.sdr_rtlsdr_start(self._h)
+
+    def set_frequency(self, hz: int) -> None:
+        self._ck(self._lib.sdr_rtlsdr_set_freq(self._h, int(hz)),
+                 "set_center_freq")
+
+    def get_frequency(self) -> int:
+        return int(self._lib.sdr_rtlsdr_get_freq(self._h))
+
+    def set_gain_mode(self, manual: bool) -> None:
+        self._ck(self._lib.sdr_rtlsdr_set_gain_mode(
+            self._h, 1 if manual else 0), "set_tuner_gain_mode")
+
+    def set_gain(self, tenths_db: int) -> None:
+        self._ck(self._lib.sdr_rtlsdr_set_gain(self._h, int(tenths_db)),
+                 "set_tuner_gain")
+
+    def set_agc(self, on: bool) -> None:
+        self._ck(self._lib.sdr_rtlsdr_set_agc(self._h, 1 if on else 0),
+                 "set_agc_mode")
+
+    def set_freq_correction(self, ppm: int) -> None:
+        self._ck(self._lib.sdr_rtlsdr_set_ppm(self._h, int(ppm)),
+                 "set_freq_correction")
+
+
+class AirspyUsbSource(_DeviceRing):
+    """In-process Airspy through dlopen(libairspy), the reference's
+    airspy-handler (airspy-handler.cpp): INT16_IQ samples (:102), the
+    supported rate closest to 2 MS/s negotiated (:103-116), streaming at
+    that NATIVE rate, converted to 2.304 MS/s on the device by the
+    receiver's rate adapter (ReceiverConfig(native_rate=src.rate,
+    iq_format='i16'), the handler's mapTable, :118-127), and the
+    linearity/sensitivity/raw gain surface (:330-408).
+
+    Airspy's 12-bit samples (+-2048 on the i16 wire) divided by 32768 leave
+    a constant 24 dB level offset that the discriminator's unit-circle
+    normalisation cancels (fm-demodulator.cpp:119-126)."""
+
+    fmt = "i16"
+    _kind = "airspy"
+
+    def __init__(self, ring_frames: int = 1 << 22, libname: str = None):
+        self._lib = load_library()
+        self._h = self._lib.sdr_airspy_open(
+            _libname(libname, "SDRJFM_LIBAIRSPY"), ring_frames)
+        if not self._h:
+            raise IOError(f"airspy device: {self._last_error()}")
+        self._rate = int(self._lib.sdr_airspy_rate(self._h))
+
+    @property
+    def rate(self) -> int:
+        """The NEGOTIATED native rate (e.g. 2_500_000), not 2.304 MS/s."""
+        return self._rate
+
+    def set_frequency(self, hz: int) -> None:
+        self._ck(self._lib.sdr_airspy_set_freq(self._h, int(hz)),
+                 "set_freq")
+
+    def set_linearity(self, gain: int) -> None:
+        self._ck(self._lib.sdr_airspy_set_linearity(self._h, int(gain)),
+                 "set_linearity_gain")
+
+    def set_sensitivity(self, gain: int) -> None:
+        self._ck(self._lib.sdr_airspy_set_sensitivity(self._h, int(gain)),
+                 "set_sensitivity_gain")
+
+    def set_lna_gain(self, gain: int) -> None:
+        self._ck(self._lib.sdr_airspy_set_lna(self._h, int(gain)),
+                 "set_lna_gain")
+
+    def set_vga_gain(self, gain: int) -> None:
+        self._ck(self._lib.sdr_airspy_set_vga(self._h, int(gain)),
+                 "set_vga_gain")
+
+    def set_mixer_gain(self, gain: int) -> None:
+        self._ck(self._lib.sdr_airspy_set_mixer(self._h, int(gain)),
+                 "set_mixer_gain")
+
+    def set_lna_agc(self, on: bool) -> None:
+        self._ck(self._lib.sdr_airspy_set_lna_agc(self._h, 1 if on else 0),
+                 "set_lna_agc")
+
+    def set_mixer_agc(self, on: bool) -> None:
+        self._ck(self._lib.sdr_airspy_set_mixer_agc(
+            self._h, 1 if on else 0), "set_mixer_agc")
+
+
+class SdrplayUsbSource(_DeviceRing):
+    """In-process SDRplay RSP through dlopen(libsdrplay_api), the
+    reference's service-API pattern (sdrplay-handler-v3/): the device
+    parameter tree edited in place and committed with Update reason masks,
+    Init/Uninit around streaming, planar shorts interleaved into the i16
+    ring.  The device samples at the chain rate (2.304 MHz, above the RSP's
+    2 MHz ADC floor, Rsp-device.cpp:71).  RSP ADCs are 12/14-bit: the
+    constant level offset against /32768 cancels in the discriminator."""
+
+    fmt = "i16"
+    _kind = "sdrplay"
+
+    def __init__(self, rate: int = 2_304_000, ring_frames: int = 1 << 22,
+                 libname: str = None):
+        self._lib = load_library()
+        self._h = self._lib.sdr_sdrplay_open(
+            _libname(libname, "SDRJFM_LIBSDRPLAY"), ring_frames, int(rate))
+        if not self._h:
+            raise IOError(f"sdrplay device: {self._last_error()}")
+        self._rate = int(rate)
+
+    @property
+    def hw_ver(self) -> int:
+        """RSP model id (SDRPLAY_RSP1A_ID=255, ... sdrplay_api.h:33-37)."""
+        return ord(self._lib.sdr_sdrplay_hw_ver(self._h))
+
+    def set_frequency(self, hz: int) -> None:
+        self._ck(self._lib.sdr_sdrplay_set_freq(self._h, int(hz)),
+                 "set_freq")
+
+    def set_grdb(self, grdb: int) -> None:
+        """IF gain reduction dB 20..59 (Rsp-device.cpp:174-182)."""
+        self._ck(self._lib.sdr_sdrplay_set_grdb(self._h, int(grdb)),
+                 "set_grdb")
+
+    def set_lna_state(self, state: int) -> None:
+        self._ck(self._lib.sdr_sdrplay_set_lna_state(self._h, int(state)),
+                 "set_lna_state")
+
+    def set_agc(self, on: bool) -> None:
+        self._ck(self._lib.sdr_sdrplay_set_agc(self._h, 1 if on else 0),
+                 "set_agc")
+
+    def set_freq_correction(self, ppm: float) -> None:
+        self._ck(self._lib.sdr_sdrplay_set_ppm(self._h, float(ppm)),
+                 "set_ppm")
+
+
+class HackRfUsbSource(_DeviceRing):
+    """In-process HackRF through dlopen(libhackrf) (hackrf-handler.cpp):
+    the device samples at exactly 2.304 MS/s (set_sample_rate takes any
+    double, :112; no rate adapter), the callback delivers SIGNED 8-bit IQ
+    (:357-368, iq_format='i8' converts on the device), the baseband filter
+    from compute_baseband_filter_bw (:124-126), lna/vga gains and the
+    amp/antenna enables (:256-315)."""
+
+    fmt = "i8"
+    _kind = "hackrf"
+
+    def __init__(self, rate: int = 2_304_000, ring_frames: int = 1 << 22,
+                 libname: str = None):
+        self._lib = load_library()
+        self._h = self._lib.sdr_hackrf_open(
+            _libname(libname, "SDRJFM_LIBHACKRF"), ring_frames, int(rate))
+        if not self._h:
+            raise IOError(f"hackrf device: {self._last_error()}")
+        self._rate = int(rate)
+
+    def set_frequency(self, hz: int) -> None:
+        self._ck(self._lib.sdr_hackrf_set_freq(self._h, int(hz)),
+                 "set_freq")
+
+    def set_lna_gain(self, db: int) -> None:
+        self._ck(self._lib.sdr_hackrf_set_lna(self._h, int(db)),
+                 "set_lna_gain")
+
+    def set_vga_gain(self, db: int) -> None:
+        self._ck(self._lib.sdr_hackrf_set_vga(self._h, int(db)),
+                 "set_vga_gain")
+
+    def set_amp(self, on: bool) -> None:
+        self._ck(self._lib.sdr_hackrf_set_amp(self._h, 1 if on else 0),
+                 "set_amp_enable")
+
+    def set_antenna(self, on: bool) -> None:
+        self._ck(self._lib.sdr_hackrf_set_antenna(self._h, 1 if on else 0),
+                 "set_antenna_enable")

@@ -578,9 +578,11 @@ def run_offline(rx: Receiver, iq: np.ndarray,
       the bit decoder, called with each block's bits in block order.  With
       decoder 3 (cfg.rds == "scan3") it runs after every block, and True
       arms Receiver.request_rds_resync before the next one: one extra bit
-      fetch a block.  The other decoders take no resync request, so for
-      them the calls wait until the run has ended (the bits come back in
-      one transfer) and the return value is ignored;
+      fetch a block.  So it does with a command_hook, whose commands may
+      reset the host decoder between blocks (a retune's `on_retune`).
+      Otherwise the other decoders take no resync request, so the calls
+      wait until the run has ended (the bits come back in one transfer)
+      and the return value is ignored;
     - controls_update(controls, meta) -> Controls|None: a returned Controls
       replaces the controls from the next block on (AFC's loop);
     - command_hook(state, controls, meta) -> (state, controls, stop): the
@@ -601,7 +603,8 @@ def run_offline(rx: Receiver, iq: np.ndarray,
     if not wire.flags.writeable:      # a wav read straight from its buffer
         wire = wire.copy()
     wire_t = torch.from_numpy(wire)
-    per_block_feedback = rds_feedback is not None and cfg.rds == "scan3"
+    per_block_feedback = rds_feedback is not None and (
+        cfg.rds == "scan3" or command_hook is not None)
     step = rx.jit_step()
 
     audio, metas, bits, biq = [], [], [], []

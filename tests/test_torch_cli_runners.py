@@ -2,8 +2,10 @@
 (`--device cpu`): each decodes the synth capture's PI/PS/RT at BER 0 with
 the pilot locked, and gives the loop runner's audio bit for bit (the CPU
 runs one eager body for every runner; the streaming sinks' PCM16 comes
-from the on-device quantizer, which equals the host's).  The flags that
-are still unported exit 2 naming ROADMAP.md.
+from the on-device quantizer, which equals the host's).  The flags of the
+control and checkpoint surface run on the head of the capture as in the
+JAX CLI (the same exit code and report), and the live sources without
+their device exit 2 with the JAX CLI's "loading device failed".
 """
 
 import json
@@ -155,20 +157,71 @@ def test_fifo_input(capture, tmp_path):
     np.testing.assert_array_equal(x, x_loop)
 
 
+@pytest.fixture(scope="module")
+def head(capture):
+    """The first four blocks of the capture."""
+    d, wav, _ = capture
+    from sdrjfm_tpu_torch.io.wavio import write_iq_wav
+    i16, rate = read_iq_wav_raw(str(wav))
+    x = np.asarray(i16[: 4 * BLOCK_FM * 12], np.float32) / 32768.0
+    out = d / "head.wav"
+    write_iq_wav(str(out), (x[:, 0] + 1j * x[:, 1]).astype(np.complex64),
+                 rate, float32=False)
+    return out
+
+
 @pytest.mark.parametrize("argv", [
     ["--stations", "s.json"], ["--control", "-"], ["--gain", "10"],
     ["--config", "c.json"], ["--save-state", "s.npz"], ["--meter"]])
-def test_unported_flags_exit_2_naming_roadmap(capture, capsys, argv):
-    d, wav, _ = capture
-    assert app.main(["rx", "--iq", str(wav), "--device", "cpu", *argv]) == 2
-    assert "ROADMAP" in capsys.readouterr().err
+def test_rx_flags_run_as_in_jax_cli(head, tmp_path, capsys, monkeypatch,
+                                    argv):
+    """Each flag on the loop runner: the JAX CLI's exit code, report and
+    control section, and the files it writes (an empty control channel
+    handles no command; --gain without an rtl device and --meter without a
+    streaming runner exit 2 with JAX's message)."""
+    import io
+    from sdrjfm_tpu import app as japp
+    out = {}
+    for who, main, extra in (("jax", japp.main, []),
+                             ("port", app.main, ["--device", "cpu"])):
+        monkeypatch.setattr(sys, "stdin", io.StringIO(""))
+        d = tmp_path / who
+        d.mkdir()
+        rep = d / "r.json"
+        a = [str(d / x) if "." in x else x for x in argv]
+        rc = main(["rx", "--iq", str(head), "--rds", "--block-fm",
+                   str(BLOCK_FM), "--report", str(rep), *a, *extra])
+        err = capsys.readouterr().err.strip().splitlines()[-1]
+        out[who] = (rc, json.loads(rep.read_text()) if rc == 0 else err, d)
+    (rcj, rj, dj), (rct, rt, dt) = out["jax"], out["port"]
+    assert rct == rcj
+    if rct != 0:
+        assert rt == rj
+        return
+    assert rt["blocks"] == rj["blocks"] == 4
+    assert rt.get("control") == rj.get("control")
+    assert rt["rds"]["bit_error_rate"] == rj["rds"]["bit_error_rate"]
+    for name in ("c.json", "s.npz"):
+        if name in argv:
+            assert (dt / name).exists() and (dj / name).exists()
+    if "c.json" in argv:
+        assert json.loads((dt / "c.json").read_text()) == \
+            json.loads((dj / "c.json").read_text())
 
 
 @pytest.mark.parametrize("iq", ["rtl_tcp://localhost:1234", "rtlsdr",
                                 "airspy", "hackrf", "sdrplay"])
-def test_unported_sources_exit_2_naming_roadmap(capsys, iq):
-    assert app.main(["rx", "--iq", iq, "--device", "cpu"]) == 2
-    assert "ROADMAP" in capsys.readouterr().err
+def test_sources_without_device_exit_2_as_jax_cli(capsys, monkeypatch,
+                                                  tmp_path, iq):
+    from sdrjfm_tpu import app as japp
+    for env in ("RTLSDR", "AIRSPY", "HACKRF", "SDRPLAY"):
+        monkeypatch.setenv(f"SDRJFM_LIB{env}", str(tmp_path / "none.so"))
+    assert japp.main(["rx", "--iq", iq, "--block-fm", "12288"]) == 2
+    jerr = capsys.readouterr().err.strip().splitlines()[-1]
+    assert app.main(["rx", "--iq", iq, "--block-fm", "12288", "--device",
+                     "cpu"]) == 2
+    terr = capsys.readouterr().err.strip().splitlines()[-1]
+    assert terr == jerr and terr.startswith("loading device failed")
 
 
 def test_bad_runner_arguments_exit_2(capture, capsys):

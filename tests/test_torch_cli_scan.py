@@ -4,8 +4,9 @@
   stations and writes them to the station list (JSON, or the reference's
   XML), and its hits equal the JAX CLI's (contrast within 1e-3 dB: f32 FFTs
   in two libraries); raw u8/i8/i16 captures give the wav's hits; the
-  hardware sweep (`rtl_tcp://`, `rtlsdr`, `hackrf`) exits 2 naming ROADMAP
-  queue 1 #22; a raw capture without its format exits 2, a short one 1;
+  hardware sweep (`rtl_tcp://`, `rtlsdr`, `hackrf`) without its device
+  exits 2 with the JAX CLI's "loading device failed"; a raw capture
+  without its format exits 2, a short one 1;
 - `rx --afc` on a capture with a 1500 Hz residual carrier offset against
   the JAX CLI: the logged demod DC within 1e-5 a block, the AFC offsets
   replayed from it within 0.5 Hz, audio within 2e-4 (as the other CLI
@@ -119,12 +120,22 @@ def test_scan_xml_station_list(band, tmp_path):
     assert "STATION1" in xml.read_text() and "STATION2" in xml.read_text()
 
 
-@pytest.mark.parametrize("src", ["rtl_tcp://localhost:1234", "rtltcp://h:1",
-                                 "rtlsdr", "rtlsdr:1", "hackrf"])
-def test_scan_hardware_sweep_exits_2_naming_roadmap(src, capsys):
+@pytest.mark.parametrize("src", ["rtl_tcp://localhost:1234",
+                                 "rtltcp://127.0.0.1:1", "rtlsdr",
+                                 "rtlsdr:1", "hackrf"])
+def test_scan_hardware_sweep_without_device_exits_2_as_jax_cli(
+        src, capsys, monkeypatch, tmp_path):
+    """The hardware sweep opens its device as the JAX CLI does: with no
+    rtl_tcp server and no vendor library, exit 2 with "loading device
+    failed" (the sweep itself: tests/test_torch_hw_usb.py)."""
+    from sdrjfm_tpu import app as japp
+    for env in ("RTLSDR", "HACKRF"):
+        monkeypatch.setenv(f"SDRJFM_LIB{env}", str(tmp_path / "none.so"))
+    assert japp.main(["scan", "--iq", src]) == 2
+    jerr = capsys.readouterr().err.strip().splitlines()[-1]
     assert app.main(["scan", "--iq", src, "--device", "cpu"]) == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP" in err and "#22" in err
+    terr = capsys.readouterr().err.strip().splitlines()[-1]
+    assert terr == jerr and terr.startswith("loading device failed")
 
 
 def test_scan_bad_inputs(tmp_path, capsys):

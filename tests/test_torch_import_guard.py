@@ -39,6 +39,8 @@ def test_cli_import_pulls_in_no_jax():
     code = ("import sys, sdrjfm_tpu_torch.app, sdrjfm_tpu_torch.convert, "
             "sdrjfm_tpu_torch.runtime.stream, "
             "sdrjfm_tpu_torch.runtime.native_source, "
+            "sdrjfm_tpu_torch.runtime.control, "
+            "sdrjfm_tpu_torch.runtime.checkpoint, "
             "sdrjfm_tpu_torch.io.source, sdrjfm_tpu_torch.io.stations, "
             "sdrjfm_tpu_torch.models.multistation, "
             "sdrjfm_tpu_torch.models.bandscan, "
