@@ -69,19 +69,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
              offline (two taps) and under --follow writes its keys.
 5c. multistation — an 8 s capture of four stations (-600/-200/+300/+700
              kHz, each its own PI, PS and tones) through
-             demodulate_stations (the n-station step, one front-end launch
-             for every station, as a CUDA graph replayed over the capture):
-             each station within 1e-5 of its own single-station run_offline
-             on the card, RDS bits equal, PI/PS at BER 0, pilot locked;
-             scan=False against scan=True; the wrappers' counts over the
-             run and one front-end launch a block under the graph
-             (profiler); the same capture with the station axis on a mesh (every
-             card, or one card named twice) against the unsharded run;
-             then for n = 1, 4 and 19 (every
-             raster channel of the +-900 kHz window) device ms per step,
-             wall ms per block (median and spread of 7), host us per
-             replay(), capture seconds and station-seconds of air per
-             second.
+             demodulate_stations (the n-station step: one front-end launch
+             and one batched fm chain for every station, as a CUDA graph
+             replayed over the capture): each station within 1e-5 of its
+             own single-station run_offline on the card, RDS bits equal,
+             PI/PS at BER 0, pilot locked; scan=False against scan=True;
+             the wrappers' counts over the run and, under the graph
+             (profiler), one front-end and two scan launches a block for
+             all the stations; the nsq config (one pole-bank launch a
+             block) and the input filter (the split front end's rows) at
+             n = 4 against their single-station runs the same way; the
+             same capture with the station axis on a mesh (every card, or
+             one card named twice) against the unsharded run; then for n
+             = 1, 4 and 19 (every raster channel of the +-900 kHz window)
+             device ms per step, device events per step (n = 19 within 10
+             % of n = 1), wall ms per block (median and spread of 7), host
+             us per replay(), capture seconds and station-seconds of air
+             per second.
 5d. scan   — `python -m sdrjfm_tpu_torch.app scan --identify --stations`
              on that capture on the card: exactly the four offsets, each
              named, the station list written, the hits equal to the CPU
@@ -125,7 +129,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
              single-device front end's, its audio within 1e-5 of the eager
              step), FullyShardedReceiver at 2 and 4 ranks (2e-4) and on
              the heavy config at 2 (5e-4), StationTimeShardedReceiver 2 x 2
-             on two stations of the four-station capture (5e-4); the RDS
+             on the four stations of the four-station capture, two a group
+             as one batched step (5e-4; 5 gathers and 8 halos a step); the
+             RDS
              bit counts equal, the bits equal from the second block on,
              PI/PS(/RT) at BER 0, at most 5 gathers and 8 halos a step on
              the main config, every rank's device kernels of a step by
@@ -497,6 +503,19 @@ def phase_kernels(rx):
               (rand(2, KERNEL_CHUNK * 2 - 1, 1e-2), g[1:], y0[1:].contiguous()),
               (rand(1, 4 * n, 1e-3), g[2:], y0[2:].contiguous()),
               (rand(3, n, 1e-3), [1.0, g[1], 0.5], y0)]
+    # the n-station step's launches at S = 4 and 19: the demod pair as one
+    # launch of R = 2S rows (S carrier rows, then S DC rows) and the pilot
+    # metric as one of R = S rows, each row its own station's drive and
+    # entry state
+    for S in (4, 19):
+        pair = np.concatenate([
+            alphas[0] * (1.0 + 0.1 * rng.standard_normal((S, n))),
+            alphas[1] * 0.3 * rng.standard_normal((S, n))])
+        pilot = alphas[2] * (0.4 + 0.05 * rng.standard_normal((S, n)))
+        for d, gg in ((pair, [g[0]] * S + [g[1]] * S), (pilot, [g[2]] * S)):
+            cases.append((torch.from_numpy(d.astype(np.float32)).to(dev), gg,
+                          torch.from_numpy(rng.uniform(-1.0, 1.0, len(gg))
+                                           .astype(np.float32)).to(dev)))
     runs = [(d, gg, y00, *linrec(d, gg, y00)) for d, gg, y00 in cases]
     # two launches back to back on the same look-back words (no sync
     # between): the second must not read the first's published prefixes
@@ -826,6 +845,25 @@ def phase_times(rx, wav, fe_err, sc_err, launches, card):
     sc_bound = max(sc_bytes / HBM_BYTES_PER_S, sc_flops / FP32_FLOP_PER_S)
     sc_by = ("bytes" if sc_bytes / HBM_BYTES_PER_S
              >= sc_flops / FP32_FLOP_PER_S else "operations")
+    # the n-station step's demod pair: one launch of R = 2S rows for S
+    # stations (S = 4, 19; held against the plain version in
+    # phase_kernels), drives rotated past the L2
+    by_rows = {}
+    for n_st in (4, 19):
+        R = 2 * n_st
+        ds = [torch.rand(R, M, device=dev) * 1e-3 for _ in range(3)]
+        gR, y0R = g2 * n_st, torch.zeros(R, device=dev)
+        ms_r, host_r = device_ms(lambda: linrec(ds[next(it) % 3], gR, y0R),
+                                 f"linrec R={R}")
+        nb_r, fl_r = R * M * 8 + R * 12, R * M * 2
+        by_rows[f"R={R}"] = {
+            "stations": n_st, "ms": ms_r, "host_us_per_call": host_r,
+            "bound_ms": max(nb_r / HBM_BYTES_PER_S,
+                            fl_r / FP32_FLOP_PER_S) * 1e3,
+            "bound_by": ("bytes" if nb_r / HBM_BYTES_PER_S
+                         >= fl_r / FP32_FLOP_PER_S else "operations")}
+    emit({"phase": "times", "what": "linrec rows", "card": card,
+          "rows": by_rows})
     kernels = [
         {"name": "frontend", "route": "cuda",
          "source": "sdrjfm_tpu_torch/csrc/frontend.cu",
@@ -843,6 +881,8 @@ def phase_times(rx, wav, fe_err, sc_err, launches, card):
          "ms": sc_ms, "plain_ms": sc_plain_ms, "bound_ms": sc_bound * 1e3,
          "bound_by": sc_by, "library_ms": None,
          "ms_per_launch": {"R=2": sc2_ms, "R=1": sc1_ms},
+         "ms_by_rows": {k: v["ms"] for k, v in by_rows.items()},
+         "bound_ms_by_rows": {k: v["bound_ms"] for k, v in by_rows.items()},
          "host_us_per_call": (sc2_host_us + sc1_host_us) / 2,
          "shape": f"per block: one [2,{M}] and one [1,{M}] float32 launch"},
     ]
@@ -945,7 +985,7 @@ def phase_option_kernels(dev="cuda"):
     """Kernel A against its plain version and the float64 recurrence;
     kernels B1-B3 against their plain versions on chained segments."""
     from sdrjfm_tpu_torch.kernels.linrec import (POLE_CHUNK, POLE_LOOK,
-                                                 pole_bank,
+                                                 fold_bank, pole_bank,
                                                  pole_bank_constants,
                                                  pole_bank_plain)
     from sdrjfm_tpu_torch.rds import scan_decoders as SD
@@ -954,22 +994,24 @@ def phase_option_kernels(dev="cuda"):
     rng = np.random.default_rng(8)
     specs = _squelch_specs()
     rows, a_err = [], 0.0
-    # the squelch's shapes (2 banks x 10 poles x 131072), then ragged rows:
-    # one bank, a last chunk of one sample (after one chunk, and after more
-    # than POLE_LOOK: the look-back's second step), under one chunk, one
-    # sample
-    cases = ((BLOCK_FM, specs), (BLOCK_FM, specs[1:]),
-             (POLE_CHUNK + 1, specs),
-             ((POLE_LOOK + 8) * POLE_CHUNK + 1, specs),
-             (1000, specs[:1]), (1, specs), (BLOCK_FM, specs))
-    for case, (T, banks) in enumerate(cases):
+    # the squelch's shapes (2 banks x 10 poles x 131072), the n-station
+    # step's (the 2 banks folded for 4 stations: B = 8, each row its own
+    # drive and state), then ragged rows: one bank, a last chunk of one
+    # sample (after one chunk, and after more than POLE_LOOK: the
+    # look-back's second step), under one chunk, one sample
+    cases = ((BLOCK_FM, specs, 1), (BLOCK_FM, specs, 4),
+             (BLOCK_FM, specs[1:], 1), (POLE_CHUNK + 1, specs, 1),
+             ((POLE_LOOK + 8) * POLE_CHUNK + 1, specs, 1),
+             (1000, specs[:1], 1), (1, specs, 1), (BLOCK_FM, specs, 1))
+    for case, (T, base, fold) in enumerate(cases):
+        banks = list(base) * fold
         x = torch.from_numpy((0.3 * rng.standard_normal((len(banks), T))
                               ).astype(np.float32)).to(dev)
-        w0 = [torch.from_numpy((0.05 * (rng.standard_normal(10)
-                                        + 1j * rng.standard_normal(10))
-                                ).astype(np.complex64)).to(dev)
-              for _ in banks]
-        bank = pole_bank_constants(banks, dev)
+        w0 = torch.from_numpy((0.05 * (rng.standard_normal((len(banks), 10))
+                                       + 1j * rng.standard_normal(
+                                           (len(banks), 10)))
+                               ).astype(np.complex64)).to(dev)
+        bank = fold_bank(pole_bank_constants(base, dev), fold)
         y, wT = pole_bank(x, bank, w0)
         if case == len(cases) - 1:
             # a second call queued right behind the first on the same
@@ -978,14 +1020,14 @@ def phase_option_kernels(dev="cuda"):
             x1 = x.flip(1).contiguous()
             y, wT = pole_bank(x1, bank, w0)
             yp1, wTp1 = pole_bank_plain(x, bank.poles, bank.residues,
-                                        torch.stack(w0))
+                                        w0)
             x = x1
         yp, wTp = pole_bank_plain(x, bank.poles, bank.residues,
-                                  torch.stack(w0))
+                                  w0)
         torch.cuda.synchronize()
-        row = {"banks": len(banks), "poles": 10, "T": T,
+        row = {"banks": len(banks), "folded": fold, "poles": 10, "T": T,
                "max_abs_err": float((y - yp).abs().max()),
-               "state_err": float((torch.stack(wT) - wTp).abs().max())}
+               "state_err": float((wT - wTp).abs().max())}
         for b, spec in enumerate(banks):
             ref, scale = _pole_f64(spec, x[b], w0[b])
             k64 = float(np.abs(y[b].cpu().numpy() - ref).max()) / scale
@@ -1001,7 +1043,7 @@ def phase_option_kernels(dev="cuda"):
             first = float((y_first - yp1).abs().max())
             row["back_to_back_first_call_err"] = first
             need(first <= POLE_RTOL * row["bank0_scale"]
-                 and float((torch.stack(wT_first) - wTp1).abs().max())
+                 and float((wT_first - wTp1).abs().max())
                  <= 10 * POLE_RTOL * float(wTp1.abs().max()),
                  f"pole_bank back to back: {row}")
         a_err = max(a_err, row["max_abs_err"])
@@ -1571,11 +1613,10 @@ def phase_option_times(a_err, b_err, launches, card):
     specs = _squelch_specs()
     bank = pole_bank_constants(specs, dev)
     x = torch.rand(2, M, device=dev) - 0.5
-    w0 = [torch.zeros(10, dtype=torch.complex64, device=dev)
-          for _ in specs]
+    w0 = torch.zeros(len(specs), 10, dtype=torch.complex64, device=dev)
     a_ms, a_host = device_ms(lambda: pole_bank(x, bank, w0), "pole_bank")
     a_plain = paced_ms(lambda: pole_bank_plain(x, bank.poles, bank.residues,
-                                               torch.stack(w0)),
+                                               w0),
                        reps=3, iters=3)
     P, B = bank.poles.shape[1], len(specs)
     # drive read and y written once; poles, residues, w0 and wT
@@ -1722,7 +1763,7 @@ def phase_graph(card, rx):
     d2, d1 = torch.zeros(2, M, device=dev), torch.zeros(1, M, device=dev)
     y02, y01 = torch.zeros(2, device=dev), torch.zeros(1, device=dev)
     x = torch.zeros(2, M, device=dev)
-    w0 = [torch.zeros(10, dtype=torch.complex64, device=dev) for _ in specs]
+    w0 = torch.zeros(len(specs), 10, dtype=torch.complex64, device=dev)
     fe_wire, fe_idx, fe_p = _rows_case(rng, "i16", 4, 1, 12 * M, dev)
 
     def rand(*shape, scale=1.0, cplx=False):
@@ -1782,7 +1823,7 @@ def phase_graph(card, rx):
             ok &= err <= SCAN_RTOL * float(yp.abs().max())
         y, wT = outs[2]
         yp, wTp = pole_bank_plain(x, bank.poles, bank.residues,
-                                  torch.stack(w0))
+                                  w0)
         for b, spec in enumerate(specs):
             ref, scale = _pole_f64(spec, x[b], w0[b])
             kp = float((y[b] - yp[b]).abs().max()) / scale
@@ -1790,7 +1831,7 @@ def phase_graph(card, rx):
             row[f"pole_bank{b}_err_of_scale"] = kp
             row[f"pole_bank{b}_vs_f64_of_scale"] = k64
             ok &= kp <= POLE_RTOL and k64 <= POLE_RTOL
-        st = float((torch.stack(wT) - wTp).abs().max())
+        st = float((wT - wTp).abs().max())
         row["pole_state_max_abs_err"] = st
         ok &= st <= 10 * POLE_RTOL * float(wTp.abs().max())
         y, nc, dm = outs[3]
@@ -2200,7 +2241,7 @@ def _ms_times(rx, iq, offsets, card, passes: int = 7):
     call (warm-up steps and capture), then `passes` calls: wall ms per
     block (median, spread), station-seconds of air per second; the host's
     us per replay(), capture and instantiate seconds, and the device ms per
-    step and busy share from a profiled call."""
+    step, busy share and largest device ops from a profiled call."""
     from sdrjfm_tpu_torch import constants as C
     from sdrjfm_tpu_torch.models.multistation import demodulate_stations
     from sdrjfm_tpu_torch.runtime.stream import _wire_blocks
@@ -2228,9 +2269,11 @@ def _ms_times(rx, iq, offsets, card, passes: int = 7):
     host_us = (time.perf_counter() - t0) / nblk * 1e6
     torch.cuda.synchronize()
     _, wall, ev = _traced(lambda: demodulate_stations(rx, iq, offsets))
-    rows = [(e.self_device_time_total, e.count) for e in ev
+    rows = [(e.self_device_time_total, e.count, e.key) for e in ev
             if e.self_device_time_total > 0]
     dev_us = sum(r[0] for r in rows)
+    top = [{"op": k[:80], "ms_per_step": us / nblk / 1e3,
+            "per_step": c / nblk} for us, c, k in sorted(rows)[::-1][:8]]
     wall_ms = statistics.median(walls)
     row = {"phase": "multistation", "what": "times", "stations": n,
            "blocks": nblk, "passes": passes,
@@ -2242,6 +2285,7 @@ def _ms_times(rx, iq, offsets, card, passes: int = 7):
            "device_busy_share": (dev_us / 1e6 / wall if rows
                                  else "not measured"),
            "device_events_per_step": sum(r[1] for r in rows) / nblk,
+           "top_device_ops": top,
            "host_us_per_replay": host_us,
            "capture_and_instantiate_s": sc.capture_s,
            "first_call_s": first_s, "card": card}
@@ -2316,9 +2360,10 @@ def phase_multistation(card):
     emit({"phase": "multistation", "what": "main path", "stations": n,
           "blocks": nblk, "synth_s": synth_s, "s": secs,
           "launches": launches, "warmup_steps": WARMUP_STEPS})
-    need(launches == {"frontend": steps, "linrec": 2 * n * steps},
+    need(launches == {"frontend": steps, "linrec": 2 * steps},
          f"multistation: wrapper launches {launches}, want {steps} front "
-         f"ends (one a step for all {n} stations) and {2 * n * steps} scans")
+         f"ends and {2 * steps} scans (one and two a step for all {n} "
+         f"stations)")
     res_loop = demodulate_stations(rx, iq, offsets, scan=False)
     for s, (off, pi, name, _, _) in enumerate(MS_STATIONS):
         r = res[s]
@@ -2347,14 +2392,131 @@ def phase_multistation(card):
     _, dl = _device_launches(lambda: demodulate_stations(rx, iq, offsets))
     emit({"phase": "multistation", "what": "device launches under the graph "
           "(profiler)", "blocks": nblk, "device_launches": dl})
-    need(dl["frontend"] == nblk and dl["linrec"] == 2 * n * nblk,
+    need(dl["frontend"] == nblk and dl["linrec"] == 2 * nblk,
          f"multistation: device launches {dl}, want {nblk} front ends and "
-         f"{2 * n * nblk} scans")
+         f"{2 * nblk} scans for all {n} stations")
+    for what, kw, per_step, levels in MS_CONFIGS:
+        _ms_config(iq, offsets, what, kw, per_step, levels, nblk)
     _mesh_stations(rx, iq, offsets, res)
     times = {k: _ms_times(rx, iq, offs, card)
              for k, offs in ((1, offsets[:1]), (4, offsets),
                              (19, list(RASTER_19)))}
+    e1, e19 = (times[k]["device_events_per_step"] for k in (1, 19))
+    emit({"phase": "multistation", "what": "device events per step",
+          "n1": e1, "n19": e19, "ratio": e19 / e1, "card": card})
+    need(abs(e19 - e1) <= 0.10 * e1,
+         f"multistation: {e19} device events a step at n = 19 against {e1} "
+         f"at n = 1 (want within 10 %)")
     return wav, iq, rx, launches, times
+
+
+# the option configs of the multistation phase at n = 4: (what, config,
+# wrapper launches a step for all the stations, each station's squelch
+# level: 100 closes the noise squelch, the others leave it open on these
+# stations, whose high/low band ratio is ~0.018)
+MS_CONFIGS = (("nsq", dict(squelch="nsq"),
+               {"frontend": 1, "linrec": 3, "pole_bank": 1},
+               (0.0, 30.0, 60.0, 100.0)),
+              ("input filter", dict(input_filter=True),
+               {"frontend": 0, "linrec": 2, "pole_bank": 0}, None))
+SQ_STATE_RTOL = 1e-4    # of each squelch state leaf's largest magnitude:
+                        # the station's squelch state in the n-station step
+                        # against its own single-station step's (the inputs
+                        # differ by f32 rounding, ~1e-6 of scale)
+SQ_STATE_BLOCKS = 4
+
+
+def _ms_config(iq, offsets, what, kw, per_step, levels, nblk):
+    """demodulate_stations on another config at n = 4: each station
+    against its own single-station run_offline on the card at its own
+    squelch level (audio within RUNNER_AUDIO_ATOL, RDS bits equal, PI/PS at
+    BER 0 where the squelch is open, silence and no pilot lock where it is
+    closed), the wrappers' counts over the run and the device launches
+    under the graph.  With squelch levels, the squelch state (the pole
+    banks' states, which the folded S x 2-bank launch computes, the band
+    averages and the decision) of every station after SQ_STATE_BLOCKS
+    eager n-station steps against its own single-station steps'."""
+    from sdrjfm_tpu_torch.models.multistation import demodulate_stations
+    from sdrjfm_tpu_torch.models.receiver import Receiver, ReceiverConfig
+    from sdrjfm_tpu_torch.runtime.graph import WARMUP_STEPS, tree_leaves
+    from sdrjfm_tpu_torch.runtime.stream import _wire_blocks, run_offline
+    rx = Receiver(ReceiverConfig(block_fm=BLOCK_FM, rds="block",
+                                 audio_filter_hz=15000, iq_format="i16",
+                                 **kw), device="cuda")
+    lv = [0.0] * len(offsets) if levels is None else list(levels)
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    res = demodulate_stations(rx, iq, offsets, squelch_levels=levels)
+    launches = {k: counters[k].launches for k in per_step}
+    steps = WARMUP_STEPS + 1
+    _, dl = _device_launches(lambda: demodulate_stations(
+        rx, iq, offsets, squelch_levels=levels))
+
+    def single_controls(off, level):
+        return rx.initial_controls()._replace(
+            lo_freq_hz=torch.tensor(off, dtype=torch.int32, device="cuda"),
+            squelch_level=torch.tensor(level, dtype=torch.float32,
+                                       device="cuda"))
+    rows = []
+    for s, (off, pi, name, _, _) in enumerate(MS_STATIONS):
+        single = run_offline(rx, iq, single_controls(off, lv[s]))
+        r = res[s]
+        a_err = (float(np.abs(r["audio"] - single.audio).max())
+                 if r["audio"].shape == single.audio.shape else float("inf"))
+        bits_eq = bool(np.array_equal(r["rds_bits"], single.rds_bits))
+        ok, dec = _station_ok(r["rds_bits"], r["meta"], pi, name)
+        rms = float(np.sqrt(np.mean(r["audio"].astype(np.float64) ** 2)))
+        closed = lv[s] >= 100.0
+        if closed:      # the squelch gates the demod: no pilot, no audio
+            ok = rms <= 1e-6 and not r["meta"]["pilot_locked"]
+        rows.append({"station": name, "squelch_level": lv[s],
+                     "squelch_closed": closed, "audio_rms": rms,
+                     "audio_max_abs_diff_vs_single": a_err,
+                     "rds_bits_equal_single": bits_eq, "decode": dec,
+                     "ok": ok and bits_eq and a_err <= RUNNER_AUDIO_ATOL})
+    row = {"phase": "multistation", "what": f"config {what}",
+           "stations": len(offsets), "launches": launches,
+           "want_launches": {k: v * steps for k, v in per_step.items()},
+           "device_launches": {k: dl[k] for k in per_step},
+           "want_device_launches": {k: v * nblk
+                                    for k, v in per_step.items()},
+           "stations_vs_single": rows, "audio_atol": RUNNER_AUDIO_ATOL}
+    if levels is not None:
+        msr = rx.stations()
+        st, ctl = msr.init_states(len(offsets)), msr.controls_for(offsets,
+                                                                  levels)
+        ones = [(rx.init_state(), single_controls(o, lvl))
+                for o, lvl in zip(offsets, lv)]
+        wire = _wire_blocks(iq, rx.cfg, SQ_STATE_BLOCKS)
+        for b in range(SQ_STATE_BLOCKS):
+            blk = torch.from_numpy(wire[b]).to("cuda")
+            st, _ = msr.step(st, ctl, blk)
+            ones = [(rx.step(o_st, o_ctl, blk)[0], o_ctl)
+                    for o_st, o_ctl in ones]
+        torch.cuda.synchronize()
+        sq_rows, sq_ok = [], True
+        for s, (o_st, _) in enumerate(ones):
+            errs = []
+            for a, b in zip(tree_leaves(st.squelch), tree_leaves(o_st.squelch)):
+                a = a[s]
+                if a.dtype in (torch.bool, torch.int32, torch.int64):
+                    errs.append(0.0 if torch.equal(a, b) else float("inf"))
+                    continue
+                scale = max(float(b.abs().max()), 1e-30)
+                errs.append(float((a - b).abs().max()) / scale)
+            sq_rows.append({"squelch_level": lv[s],
+                            "leaf_err_of_scale": errs,
+                            "suppress": bool(st.squelch.suppress[s])})
+            sq_ok &= max(errs) <= SQ_STATE_RTOL
+        row.update(squelch_state_vs_single=sq_rows,
+                   squelch_state_rtol=SQ_STATE_RTOL,
+                   squelch_state_blocks=SQ_STATE_BLOCKS)
+        need(sq_ok, f"multistation {what}: squelch state {sq_rows}")
+    emit(row)
+    need(launches == row["want_launches"]
+         and row["device_launches"] == row["want_device_launches"]
+         and all(x["ok"] for x in rows), f"multistation {what}: {row}")
 
 
 def _row_times(rx):
@@ -2497,11 +2659,11 @@ def phase_scan(card, wav):
                  <= SCAN_CONTRAST_ATOL_DB for a, b in zip(hits, cpu_hits)),
          f"scan: card hits {hits} vs cpu {cpu_hits}")
     # the wrappers over the card's run: one front end for every row of the
-    # scan, then the identify step's warm-up steps and capture
+    # scan, then the identify step's warm-up steps and capture, each one
+    # front end and two scans for all the hits
     from sdrjfm_tpu_torch.runtime.graph import WARMUP_STEPS
     steps = WARMUP_STEPS + 1
-    need(launches == {"frontend": 1 + steps,
-                      "linrec": 2 * len(MS_STATIONS) * steps},
+    need(launches == {"frontend": 1 + steps, "linrec": 2 * steps},
          f"scan: wrapper launches {launches}")
     # BandScanner.decide's rows against 76 one-row scans, on the card
     iq, _ = read_iq_wav(str(wav))
@@ -3286,27 +3448,28 @@ def _shard_line(what, zs, card, **extra):
     return row
 
 
-def _bits_match(z, want_bits, want_counts) -> dict:
+def _bits_match(z, want_bits, want_counts, j: int = 0) -> dict:
     """A sharded rank's RDS bits against a single-device run's: every
     block's count, the whole stream, and the stream from the second block
     on.  A cold start's first bits come from a stream that is still
     ramping up, where f32 reassociation of the distributed recurrences
     (~1e-6) can flip a decision sitting at the threshold (seen on the CPU:
-    bits 2 and 3 of 8918); from the second block on they must be equal."""
+    bits 2 and 3 of 8918); from the second block on they must be equal.
+    j: the station of a station-time rank."""
     mv = z["meta_vec"]
-    counts = mv[..., -1].reshape(mv.shape[0], -1)[:, 0].astype(int).tolist()
-    got = z["bits0"]
+    counts = mv[..., -1].reshape(mv.shape[0], -1)[:, j].astype(int).tolist()
+    got = z[f"bits{j}"]
     return {"counts_equal": counts == list(want_counts),
             "all_equal": bool(np.array_equal(got, want_bits)),
             "equal_after_first_block": bool(np.array_equal(
                 got[counts[0]:], want_bits[want_counts[0]:]))}
 
 
-def _meta_last(z):
+def _meta_last(z, j: int = 0):
     from sdrjfm_tpu_torch.models.receiver import meta_dict_from_vec
     mv = z["meta_vec"]
     return meta_dict_from_vec(mv.reshape(mv.shape[0], -1, mv.shape[-1])
-                              [-1, 0])[0]
+                              [-1, j])[0]
 
 
 def _shard_worker(work, card, dev):
@@ -3386,7 +3549,7 @@ def phase_sharded(card, wav, ms_wav, dev="cuda"):
     main_kw = dict(block_fm=BLOCK_FM, rds="block", audio_filter_hz=15000,
                    iq_format="i16")
     heavy_kw = dict(main_kw, **SHARD_HEAVY)
-    st_offsets = [MS_STATIONS[0][0], MS_STATIONS[1][0]]
+    st_offsets = [st[0] for st in MS_STATIONS]      # two a station group
     cards = torch.cuda.device_count()
     emit({"phase": "sharded", "what": "setup", "cards": cards,
           "transport_2_ranks": "nccl" if cards >= 2
@@ -3489,40 +3652,45 @@ def phase_sharded(card, wav, ms_wav, dev="cuda"):
          heavy, NSQ_ATOL, ("linrec", "pole_bank", "mm_core"), budget=False)
 
     # StationTimeShardedReceiver 2 x 2 against MultiStationReceiver
+    n_st = len(st_offsets)
+    k = n_st // 2                     # stations a group
     msr = MultiStationReceiver(rx)
-    st, ctl = msr.init_states(2), msr.controls_for(st_offsets)
+    st, ctl = msr.init_states(n_st), msr.controls_for(st_offsets)
     T = cfg.block_in
-    want, wbits = [], [[], []]
+    want, wbits = [], [[] for _ in range(n_st)]
     for b in range(len(ms_iq) // T):
         blk = torch.from_numpy(np.array(ms_iq[b * T:(b + 1) * T])).to(dev)
         st, out = msr.step(st, ctl, blk)
         want.append(out.audio.cpu().numpy())
-        for s in range(2):
+        for s in range(n_st):
             o = tree_index(out, s)
             wbits[s].append(o.rds.bits[: int(o.rds.count)].cpu().numpy())
     want = np.concatenate(want, axis=1)
     errs, beq, decs = [], [], []
-    for s in range(2):
+    for s in range(n_st):
+        g, j = divmod(s, k)
         zs = sorted([z for z in four["st"]
-                     if z["info"]["station_index"] == s],
+                     if z["info"]["station_index"] == g],
                     key=lambda z: z["info"]["time_index"])
         half = cfg.block_working // 2
         nb = zs[0]["audio"].shape[1] // half
-        got = np.concatenate([z["audio"][0, b * half:(b + 1) * half]
+        got = np.concatenate([z["audio"][j, b * half:(b + 1) * half]
                               for b in range(nb) for z in zs])
         errs.append(float(np.abs(got - want[s]).max()))
         beq.append([_bits_match(z, np.concatenate(wbits[s]),
-                                [len(x) for x in wbits[s]]) for z in zs])
-        ok, dec = _station_ok(zs[0]["bits0"], _meta_last(zs[0]),
+                                [len(x) for x in wbits[s]], j) for z in zs])
+        ok, dec = _station_ok(zs[0][f"bits{j}"], _meta_last(zs[0], j),
                               MS_STATIONS[s][1], MS_STATIONS[s][2])
         decs.append(dict(dec, ok=ok))
-    row = _shard_line("StationTimeShardedReceiver 2 x 2, two stations",
-                      four["st"], card, audio_max_abs_diff_vs_multistation=
-                      errs, rds_bits=beq, decode=decs,
-                      audio_atol=ST_ATOL, spawn_s=t4)
+    counts = [z["info"]["counts"] for z in four["st"]]
+    row = _shard_line(f"StationTimeShardedReceiver 2 x 2, {k} stations a "
+                      f"group as one batched step", four["st"], card,
+                      audio_max_abs_diff_vs_multistation=errs, rds_bits=beq,
+                      decode=decs, audio_atol=ST_ATOL, spawn_s=t4)
     need(max(errs) <= ST_ATOL and all(d["ok"] for d in decs)
          and all(b["counts_equal"] and b["equal_after_first_block"]
-                 for st_bits in beq for b in st_bits),
+                 for st_bits in beq for b in st_bits)
+         and all((c["gather"], c["halo"]) == (5, 8) for c in counts),
          f"sharded StationTime: {row}")
 
     if cards >= 2:

@@ -24,19 +24,23 @@
 //     in float64), which keeps it within ~1e-6 of the scale of a float64
 //     recurrence (decay products formed by a scan tree lose more);
 //   * between chunks: each chunk publishes its aggregate (zero carry-in
-//     value at its end), then its inclusive prefix, each packed with a
-//     state into one 64-bit word, stored and loaded as a whole (no separate
-//     flag to order).  A chunk's first warp reads 32 predecessors at a time
-//     until it finds an inclusive prefix, and sums the aggregates in between
-//     with their decay powers.  The launch's words are zeroed ("not ready")
-//     by a memset queued just before the kernel on the same stream, so no
-//     value that changes from call to call is a launch argument and a
-//     captured CUDA graph replays correctly.  A chunk waits only on chunks
-//     of lower linear block index, which the hardware dispatches first (the
-//     premise of CUB's scans).
-// Rounding of the look-back sum depends on which predecessors had
-// published their prefix, so results may differ in the last bits between
-// runs.  Measured: PERF.md (chip_smoke.py phase `times`).
+//     value at its end), packed with a ready state into one 64-bit word,
+//     stored and loaded as a whole (no separate flag to order).  A chunk's
+//     first warp reads its predecessors' aggregates 32 at a time, nearest
+//     first, and sums them with their decay powers in a fixed order (a
+//     xor tree in a window, the windows in turn), then adds y0 decayed to
+//     the chunk: the carry is the same sum whatever the timing, so a
+//     launch is deterministic.  (A look-back that stops at the nearest
+//     published inclusive prefix rounds by which prefixes were ready: a
+//     station's audio then moved by up to 8e-6 from run to run, PERF.md
+//     PR 11.)  The aggregates need no chain, so they are ready together; a
+//     chunk reads ceil(chunk / 32) windows, 2 for a 131072-sample row.
+//     The launch's words are zeroed ("not ready") by a memset queued just
+//     before the kernel on the same stream, so no value that changes from
+//     call to call is a launch argument and a captured CUDA graph replays
+//     correctly.  A chunk waits only on chunks of lower linear block index,
+//     which the hardware dispatches first (the premise of CUB's scans).
+// Measured: PERF.md (chip_smoke.py phase `times`).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,7 +51,8 @@ constexpr int THREADS = 256;
 constexpr int PER = 8;                        // consecutive samples a thread
 constexpr int CHUNK = THREADS * PER;          // 2048 samples a thread block
 constexpr int WARPS = THREADS / 32;
-constexpr unsigned AGG = 1u, PFX = 2u;        // published states
+constexpr unsigned AGG = 1u, PFX = 2u;        // published states (the real
+                                              // scan publishes AGG only)
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
@@ -116,45 +121,32 @@ linrec_kernel(const float* __restrict__ d, const float* __restrict__ g,
     if (lane == 0) ex = 0.0f;
     if (lane < WARPS) wexc[lane] = ex;
     const float agg = __shfl_sync(FULL, A, WARPS - 1);   // chunk, zero carry-in
-    const float gL = exp2f((float)CHUNK * lg);
     unsigned long long* st = status + (long long)row * nchunks;
 
-    float E;                                  // y just before the chunk
-    if (chunk == 0) {
-      E = y0[row];
-    } else {
-      if (lane == 0) publish(st + chunk, AGG, agg);
-      E = 0.0f;
-      int first = chunk - 1;                  // predecessor read by lane 0
-      for (int win = 0;; ++win) {
-        const int pred = first - lane;
-        unsigned state;
-        float val = 0.0f;
-        do {
-          state = PFX;                        // before chunk 0: never read
-          if (pred >= 0) {
-            const unsigned long long w =
-                *reinterpret_cast<volatile unsigned long long*>(st + pred);
-            const unsigned hi = (unsigned)(w >> 32);
-            state = hi & 3u;
-            val = __uint_as_float((unsigned)w);
-          }
-        } while (__any_sync(FULL, state == 0u));
-        const unsigned pmask = __ballot_sync(FULL, state == PFX);
-        const int kp = pmask ? __ffs(pmask) - 1 : 31;   // nearest prefix
-        float c = lane <= kp
-            ? exp2f((float)lane * (float)CHUNK * lg) * val : 0.0f;
+    // y just before the chunk: sum over k < chunk of
+    // g^(CHUNK (chunk-1-k)) agg_k, plus g^(CHUNK chunk) y0
+    if (lane == 0) publish(st + chunk, AGG, agg);
+    float E = 0.0f;
+    for (int first = chunk - 1, win = 0; first >= 0; first -= 32, ++win) {
+      const int pred = first - lane;          // lane 0: the nearest
+      unsigned state;
+      float val = 0.0f;
+      do {
+        state = AGG;                          // before chunk 0: never read
+        if (pred >= 0) {
+          const unsigned long long w =
+              *reinterpret_cast<volatile unsigned long long*>(st + pred);
+          state = (unsigned)(w >> 32) & 3u;
+          val = __uint_as_float((unsigned)w);
+        }
+      } while (__any_sync(FULL, state == 0u));
+      float c = exp2f((float)lane * (float)CHUNK * lg) * val;
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(FULL, c, o);
-        E = fmaf(exp2f((float)(32 * win) * (float)CHUNK * lg), c, E);
-        if (pmask) break;
-        first -= 32;
-      }
+      for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(FULL, c, o);
+      E = fmaf(exp2f((float)(32 * win) * (float)CHUNK * lg), c, E);
     }
-    if (lane == 0) {
-      publish(st + chunk, PFX, fmaf(gL, E, agg));
-      s_carry = E;
-    }
+    E = fmaf(exp2f((float)chunk * (float)CHUNK * lg), y0[row], E);
+    if (lane == 0) s_carry = E;
   }
   __syncthreads();
 

@@ -60,17 +60,18 @@ WIRE_FORMATS = {"c64": (0, torch.complex64), "i16": (1, torch.int16),
 
 def decode_wire(iq: torch.Tensor, fmt: str) -> Tuple[torch.Tensor,
                                                      torch.Tensor]:
-    """(re, im) f32 planes of a wire block (receiver.py:560-574)."""
+    """(re, im) f32 planes of a wire block (receiver.py:560-574): iq [...,
+    T] c64 or [..., T, 2] -> two [..., T]."""
     if fmt == "c64":
         return iq.real, iq.imag
     x = iq.to(torch.float32)
     if fmt == "i16":
-        return x[:, 0] * (1.0 / 32768.0), x[:, 1] * (1.0 / 32768.0)
+        return x[..., 0] * (1.0 / 32768.0), x[..., 1] * (1.0 / 32768.0)
     if fmt == "u8":
-        return ((x[:, 0] - 127.0) * (1.0 / 128.0),
-                (x[:, 1] - 127.0) * (1.0 / 128.0))
+        return ((x[..., 0] - 127.0) * (1.0 / 128.0),
+                (x[..., 1] - 127.0) * (1.0 / 128.0))
     if fmt == "i8":
-        return x[:, 0] * (1.0 / 128.0), x[:, 1] * (1.0 / 128.0)
+        return x[..., 0] * (1.0 / 128.0), x[..., 1] * (1.0 / 128.0)
     raise ValueError(f"unknown iq_format {fmt!r}")
 
 
@@ -100,34 +101,50 @@ def frontend_plain(iq, fmt, carry, taps, lgain, rgain, rf_dc, lo_freq,
     """The front end in torch ops: gains, DC subsample mean, DC correction,
     mix_lo, fir_decimate ÷12.  Returns (v [T/12] complex64, new_carry
     [306] complex64, mean of the x[::64] subsample after the gains — the
-    subsample itself with `partials`, None when dc_remove is off)."""
+    subsample itself with `partials`, None when dc_remove is off).  Every
+    argument may carry leading rows (iq [..., T(, 2)], carry [..., 306],
+    the scalars [...]), each row its own block and station."""
     re, im = decode_wire(iq, fmt)
-    x = torch.complex(re * lgain, im * rgain)
+    x = torch.complex(re * lgain[..., None], im * rgain[..., None])
     dc_mean = None
     if dc_remove:
         lim = C.RF_DC_LIMIT
         corr = torch.complex(rf_dc.real.clamp(-lim, lim),
                              rf_dc.imag.clamp(-lim, lim))
-        dc_mean = (x[::DC_SUBSAMPLE].contiguous() if partials
-                   else x[::DC_SUBSAMPLE].mean())
-        x = x - corr
+        dc_mean = (x[..., ::DC_SUBSAMPLE].contiguous() if partials
+                   else x[..., ::DC_SUBSAMPLE].mean(-1))
+        x = x - corr[..., None]
     x = B.mix_lo(x, lo_freq, rate, n0_mod)
     v, new_carry = B.fir_decimate(x, taps, DECIM, carry)
     return v, new_carry, dc_mean
 
 
+# input samples a pass of frontend_rows_plain (at least one row): bounds its
+# intermediates (a band scan's 76 rows of a 1.5 M-sample block would hold
+# ~1 GB in each)
+PLAIN_ROW_SAMPLES = 1 << 23
+
+
 def frontend_rows_plain(wire, fmt, block_index, carry, taps, lgain, rgain,
                         rf_dc, lo_freq, n0_mod, dc_remove: bool,
-                        rate: int = C.INPUT_RATE):
-    """`frontend_plain` row by row, stacked: row r on wire block
-    block_index[r] with its own carry[r], gains, rf_dc, lo_freq and n0_mod.
-    Returns (v [R, T/12], new_carry [R, 306], dc_mean [R] or None)."""
-    outs = [frontend_plain(wire[b], fmt, carry[r], taps, lgain[r], rgain[r],
-                           rf_dc[r], lo_freq[r], n0_mod[r], dc_remove, rate)
-            for r, b in enumerate(block_index.tolist())]
-    ys, carries, means = zip(*outs)
-    return (torch.stack(ys), torch.stack(carries),
-            torch.stack(means) if dc_remove else None)
+                        rate: int = C.INPUT_RATE, partials: bool = False):
+    """`frontend_plain` over R rows, a pass for each run of rows of at most
+    PLAIN_ROW_SAMPLES input samples: row r on wire block block_index[r]
+    with its own carry[r], gains, rf_dc, lo_freq and n0_mod.  Returns (v
+    [R, T/12], new_carry [R, 306], dc_mean [R] or None; with `partials`
+    each row's raw subsample [R, n] in place of dc_mean).  Each row is
+    `frontend_plain` on that row bit for bit."""
+    k = max(1, PLAIN_ROW_SAMPLES // wire.shape[1])
+    outs = []
+    for lo in range(0, block_index.shape[0], k):
+        r = slice(lo, lo + k)
+        outs.append(frontend_plain(
+            wire.index_select(0, block_index[r]), fmt, carry[r], taps,
+            lgain[r], rgain[r], rf_dc[r], lo_freq[r], n0_mod[r], dc_remove,
+            rate, partials))
+    v, new_carry, dc = zip(*outs)
+    return (torch.cat(v), torch.cat(new_carry),
+            torch.cat(dc) if dc_remove else None)
 
 
 def dc_mean_of_tiles(sums: torch.Tensor, n_sub: int) -> torch.Tensor:
@@ -136,20 +153,21 @@ def dc_mean_of_tiles(sums: torch.Tensor, n_sub: int) -> torch.Tensor:
     lanes, and the sum divides by the n_sub subsample points.  sums [n, 2]
     f32 (the tiles of a block, in order).  Every add and the division are
     single IEEE operations, so the mean is the kernel's bit for bit.
-    Returns the mean as a complex64 scalar."""
-    n = sums.shape[0]
-    lanes = torch.zeros((-(-n // 32)) * 32, 2, dtype=torch.float32,
+    sums may carry leading rows ([..., n, 2], each row its own block).
+    Returns the mean as a complex64 [...]."""
+    lead, n = sums.shape[:-2], sums.shape[-2]
+    lanes = torch.zeros(lead + ((-(-n // 32)) * 32, 2), dtype=torch.float32,
                         device=sums.device)
-    lanes[:n] = sums
-    lanes = lanes.view(-1, 32, 2)
-    s = torch.zeros(32, 2, dtype=torch.float32, device=sums.device)
-    for r in range(lanes.shape[0]):
-        s = s + lanes[r]
+    lanes[..., :n, :] = sums
+    lanes = lanes.view(lead + (-1, 32, 2))
+    s = torch.zeros(lead + (32, 2), dtype=torch.float32, device=sums.device)
+    for r in range(lanes.shape[-3]):
+        s = s + lanes[..., r, :, :]
     lane = torch.arange(32, device=sums.device)
     for off in (16, 8, 4, 2, 1):
-        s = s + s[lane ^ off]
-    m = s[0] / torch.full_like(s[0], float(n_sub))
-    return torch.complex(m[0], m[1])
+        s = s + s[..., lane ^ off, :]
+    m = s[..., 0, :] / torch.full_like(s[..., 0, :], float(n_sub))
+    return torch.complex(m[..., 0], m[..., 1])
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device):
@@ -181,7 +199,7 @@ class FrontendKernel:
         self._fn = None
         self._tickets = {}        # device -> the DC reduction's tickets
         self._outgrown = []       # earlier tickets a graph may still hold
-        self._zero_index = {}     # device -> int32 [1] zeros (one station)
+        self._zero_index = {}     # (device, n) -> int32 [n] zeros
 
     def _entry(self):
         if self._fn is None:
@@ -223,17 +241,23 @@ class FrontendKernel:
         if iq.device.type == "cpu":
             return frontend_plain(iq, fmt, carry, taps, lgain, rgain, rf_dc,
                                   lo_freq, n0_mod, dc_remove, rate, partials)
-        dev = iq.device
-        idx = self._zero_index.get(dev)
-        if idx is None:
-            idx = torch.zeros(1, dtype=torch.int32, device=dev)
-            self._zero_index[dev] = idx
         one = lambda t: t.reshape(1) if t.dim() == 0 else t  # noqa: E731
-        y, nc, dm = self.rows(iq.unsqueeze(0), fmt, idx,
+        y, nc, dm = self.rows(iq.unsqueeze(0), fmt,
+                              self.zero_index(1, iq.device),
                               carry.reshape(1, -1), taps, one(lgain),
                               one(rgain), one(rf_dc), one(lo_freq),
                               one(n0_mod), dc_remove, rate, partials)
         return y[0], nc[0], None if dm is None else dm[0]
+
+    def zero_index(self, n: int, device) -> torch.Tensor:
+        """The block index of n rows on one shared block: int32 [n] zeros,
+        made once per (device, n) and kept, so a step fills nothing."""
+        key = (torch.device(device), n)
+        idx = self._zero_index.get(key)
+        if idx is None:
+            idx = torch.zeros(n, dtype=torch.int32, device=device)
+            self._zero_index[key] = idx
+        return idx
 
     def rows(self, wire: torch.Tensor, fmt: str, block_index: torch.Tensor,
              carry: torch.Tensor, taps: torch.Tensor, lgain: torch.Tensor,
@@ -246,15 +270,13 @@ class FrontendKernel:
         index outside [0, NB) gives that row NaN outputs, on the CPU it
         raises), carry [R, 306], lgain, rgain, rf_dc, lo_freq, n0_mod [R].
         Returns (v [R, T/12], new_carry [R, 306], dc_mean [R] or None;
-        with `partials` the per-tile DC sums [R, tiles, 2] f32 in place of
-        dc_mean)."""
+        with `partials` the DC partials in place of dc_mean: the per-tile
+        sums [R, tiles, 2] f32 on the card, each row's raw subsample [R, n]
+        on the CPU)."""
         if wire.device.type == "cpu":
-            if partials:
-                raise ValueError("frontend.rows: partials is the "
-                                 "one-station call's")
             return frontend_rows_plain(wire, fmt, block_index, carry, taps,
                                        lgain, rgain, rf_dc, lo_freq, n0_mod,
-                                       dc_remove, rate)
+                                       dc_remove, rate, partials)
         if wire.device.type != "cuda":
             raise ValueError(f"frontend: unsupported device {wire.device}")
         if fmt not in WIRE_FORMATS:

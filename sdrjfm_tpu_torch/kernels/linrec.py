@@ -8,14 +8,17 @@ such primitive, so the port carries hand-written CUDA kernels in
 - `linrec`: real decays in (0, 1], a single-pass scan with decoupled
   look-back over chunks of 2048 samples.  On the main path it runs the
   AM-carrier and AFC trackers of the discriminator (two rows, one launch)
-  and the pilot lock metric (one row); off it, the deemphasis scan (two
-  rows) and the `pll` discriminator's one-pole.
+  and the pilot lock metric (one row), 2S and S rows for S stations; off
+  it, the deemphasis scan (two rows) and the `pll` discriminator's
+  one-pole.
 - `pole_bank`: COMPLEX decays, the biquad cascades of `IIRSpec` factored
   into one-pole recurrences (JAX `jax.vmap(linrec_apply)` over the poles,
   blockops.py:378-382), with the residue-weighted sum y = Re sum_i r_i w_i
   fused so the [P, T] pole states never reach device memory.  A call is
   one launch: a single pass with a decoupled look-back that carries the P
-  complex states between chunks of 2048 samples.
+  complex states between chunks of 2048 samples.  The states come and go
+  as one [B, P] tensor; S stations' banks are one launch of the bank's
+  constants folded S times (`fold_bank`, built once per S).
 
 Each wrapper launches its kernel on a CUDA tensor (built with nvcc at the
 first launch, never at import) and runs its plain version on a CPU tensor;
@@ -137,9 +140,10 @@ class LinrecKernel:
         if not all(0.0 < float(v) <= 1.0 for v in g):
             raise ValueError(f"linrec: decays must lie in (0, 1], got {g}")
         if (y0.device != drive.device or y0.dtype != torch.float32
-                or tuple(y0.shape) != (R,) or not y0.is_contiguous()):
-            raise ValueError("linrec: y0 must be a contiguous [R] float32 "
-                             "tensor on the drive's device")
+                or tuple(y0.shape) != (R,)):
+            raise ValueError("linrec: y0 must be an [R] float32 tensor on "
+                             "the drive's device")
+        y0 = y0.contiguous()
         dev = drive.device
         fn = self._entry()
         g_t, l2g_t = self._g_tensors(g, dev)
@@ -236,8 +240,8 @@ def pole_grid(B: int, T: int) -> Tuple[int, int]:
 class PoleBank(NamedTuple):
     """The kernel's device constants for B banks: poles, residues [B, P]
     and the per-pole table [B, P, POLE_NTAB] complex64 (banks with fewer
-    poles padded with zero poles of zero residue, which add nothing), and
-    each bank's own pole count."""
+    poles padded with zero poles of zero residue, which add nothing), each
+    bank's own pole count."""
     poles: torch.Tensor
     residues: torch.Tensor
     table: torch.Tensor
@@ -263,13 +267,25 @@ def pole_bank_constants(specs, device) -> PoleBank:
                     sizes=tuple(len(s.poles) for s in specs))
 
 
+def fold_bank(bank: PoleBank, n: int) -> PoleBank:
+    """The B banks of `bank` repeated n times (bank s*B + b is bank b): the
+    constants of n rows of every bank in one launch, copied on the device
+    (blockops.IIRBank keeps each n's copy for its block loop)."""
+    if n == 1:
+        return bank
+    return PoleBank(bank.poles.repeat(n, 1), bank.residues.repeat(n, 1),
+                    bank.table.repeat(n, 1, 1), bank.sizes * n)
+
+
 class PoleBankKernel:
     """Callable wrapper of kernel A with a launch counter (`launches`
     counts eager launches and captures into a CUDA graph, not a graph's
     replays; CPU calls do not count).
 
-    __call__(drive [B, T] f32, bank: PoleBank of B banks, w0s: B tensors
-    [P_b] complex64) -> (y [B, T] f32, [wT_b [P_b] complex64])."""
+    __call__(drive [B, T] f32, bank: PoleBank of B banks, w0 [B, P]
+    complex64, each bank's state padded to the bank's P) -> (y [B, T] f32,
+    wT [B, P] complex64; entries past a bank's own pole count are
+    padding)."""
 
     def __init__(self):
         self.launches = 0
@@ -292,34 +308,31 @@ class PoleBankKernel:
             self._fn = fn
         return self._fn
 
-    def __call__(self, drive: torch.Tensor, bank: PoleBank, w0s):
+    def __call__(self, drive: torch.Tensor, bank: PoleBank,
+                 w0: torch.Tensor):
         dev = drive.device
         if dev.type not in ("cpu", "cuda"):
             raise ValueError(f"pole_bank: unsupported device {dev}")
         if drive.dtype != torch.float32 or drive.dim() != 2:
             raise TypeError("pole_bank: drive must be a [B, T] float32 tensor")
         B, T = drive.shape
-        if len(bank.sizes) != B or len(w0s) != B:
-            raise ValueError(f"pole_bank: {B} rows, {len(bank.sizes)} "
-                             f"banks, {len(w0s)} states")
         pol, res, tab = bank.poles, bank.residues, bank.table
+        P = pol.shape[1]
+        if len(bank.sizes) != B:
+            raise ValueError(f"pole_bank: {B} rows, {len(bank.sizes)} banks")
         if pol.device != dev:
             raise ValueError("pole_bank: constants are not on the drive's "
                              "device")
-        P = pol.shape[1]
-        for n, w in zip(bank.sizes, w0s):
-            if (w.dtype != torch.complex64 or w.device != dev
-                    or tuple(w.shape) != (n,)):
-                raise ValueError("pole_bank: each state must be a [P_b] "
-                                 "complex64 tensor on the drive's device")
-        w0 = torch.stack([w if w.shape[0] == P else
-                          torch.nn.functional.pad(w, (0, P - w.shape[0]))
-                          for w in w0s])
+        if (not isinstance(w0, torch.Tensor) or w0.dtype != torch.complex64
+                or w0.device != dev or tuple(w0.shape) != (B, P)):
+            raise ValueError(f"pole_bank: the states must be a [{B}, {P}] "
+                             f"complex64 tensor on the drive's device")
         if dev.type == "cpu":
             y, wT = pole_bank_plain(drive, pol, res, w0)
         else:
-            if not drive.is_contiguous():
-                raise ValueError("pole_bank: drive must be contiguous")
+            if not (drive.is_contiguous() and w0.is_contiguous()):
+                raise ValueError("pole_bank: drive and states must be "
+                                 "contiguous")
             if not (1 <= T < 2 ** 31 - POLE_CHUNK):
                 raise ValueError(f"pole_bank: shape {(B, T)} out of range")
             nch, blocks = pole_grid(B, T)
@@ -343,7 +356,7 @@ class PoleBankKernel:
                 raise RuntimeError(f"pole_bank kernel launch failed: CUDA "
                                    f"error {rc}")
             self.launches += 1
-        return y, [wT[b, :n] for b, n in enumerate(bank.sizes)]
+        return y, wT
 
 
 pole_bank = PoleBankKernel()

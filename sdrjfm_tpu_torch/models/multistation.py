@@ -5,13 +5,16 @@ The reference tunes one station at a time: retuning is an LO-offset change
 and the band scan identifies hits serially.  The JAX package vmaps
 `Receiver.step` over a station axis: the wideband block is shared, each
 station carries its own `Controls` and its own state.  Here the station
-axis is written out: one front-end launch runs every station as a row of
-the shared block (`Receiver.front_end_rows`, `csrc/frontend.cu` over R
-rows), then each station's fm chain runs on its slice of the stacked state
-and the outputs are stacked again.  Each station computes what its own
-single-station step computes, row for row.  `jit_step()` records the whole
-n-station block into one CUDA graph (`runtime.graph.StepGraph`), and
-`demodulate_stations` replays it over a capture.
+axis is a leading dimension of every tensor: one front-end launch runs
+every station as a row of the shared block (`Receiver.front_end_rows`,
+`csrc/frontend.cu` over R rows), then ONE `Receiver.fm_chain` runs every
+station at once, each op [S, ...] wide (the trackers' two scan launches,
+the squelch's pole bank, the FFTs and convolutions carry S rows), so an
+n-station step has one station's op count.  Each station computes what
+its own single-station step computes (on the CPU bit for bit).
+`jit_step()` records the n-station block into one CUDA graph
+(`runtime.graph.StepGraph`), and `demodulate_stations` replays it over a
+capture.
 
 The station axis across devices (`ShardedMultiStationReceiver`,
 `demodulate_stations(mesh=)`) needs no collective: each device of a
@@ -29,8 +32,7 @@ import numpy as np
 import torch
 
 from .receiver import Controls, Receiver, meta_dict_from_vec
-from ..runtime.graph import (StepGraph, tree_broadcast, tree_index,
-                             tree_stack)
+from ..runtime.graph import StepGraph, tree_broadcast
 from ..runtime.stream import _wire_blocks
 
 class MultiStationReceiver:
@@ -42,7 +44,6 @@ class MultiStationReceiver:
         self.rx = rx
         self.cfg = rx.cfg
         self.device = rx.device
-        self._rows = {}               # n -> int32 [n] zeros: every row on block 0
         self._jit: Optional[_StationsStep] = None
 
     def init_states(self, n_stations: int):
@@ -50,11 +51,17 @@ class MultiStationReceiver:
         leading [n_stations] axis."""
         return tree_broadcast(self.rx.init_state(), n_stations)
 
-    def controls_for(self, offsets_hz: Sequence[int]) -> Controls:
-        """Controls with a leading [n] axis: each station's LO offset, unit
-        gains and volume, squelch level 0, and the receiver's panorama,
-        sound mix ([n, 2, 2]) and tone gate on every station."""
+    def controls_for(self, offsets_hz: Sequence[int],
+                     squelch_levels: Optional[Sequence[float]] = None
+                     ) -> Controls:
+        """Controls with a leading [n] axis: each station's LO offset and
+        squelch level (0 without `squelch_levels`), unit gains and volume,
+        and the receiver's panorama, sound mix ([n, 2, 2]) and tone gate on
+        every station."""
         n = len(offsets_hz)
+        levels = [0.0] * n if squelch_levels is None else list(squelch_levels)
+        if len(levels) != n:
+            raise ValueError(f"{len(levels)} squelch levels for {n} stations")
         dev = self.device
         base = self.rx.initial_controls()   # seeds pano + sound mix
         ones = lambda: torch.ones(n, dtype=torch.float32, device=dev)  # noqa: E731
@@ -63,34 +70,19 @@ class MultiStationReceiver:
                                     dtype=torch.int32, device=dev),
             volume=ones(), left_gain=ones(), right_gain=ones(),
             input_lgain=ones(), input_rgain=ones(),
-            squelch_level=torch.zeros(n, dtype=torch.float32, device=dev),
+            squelch_level=torch.tensor(levels, dtype=torch.float32,
+                                       device=dev),
             pano=tree_broadcast(base.pano, n),
             sound_mix=tree_broadcast(base.sound_mix, n),
             tone_gate=tree_broadcast(base.tone_gate, n))
 
-    def _row_index(self, n: int) -> torch.Tensor:
-        idx = self._rows.get(n)
-        if idx is None:
-            idx = torch.zeros(n, dtype=torch.int32, device=self.device)
-            self._rows[n] = idx
-        return idx
-
     def step(self, states, controls: Controls, iq: torch.Tensor):
         """One shared input block -> per-station (states, Output) with a
-        leading station axis on every leaf.  The front end of every station
-        is one `front_end_rows` call (one kernel launch on the fused path);
-        each station's fm chain then runs on its row."""
-        n = int(controls.lo_freq_hz.shape[0])
-        v, fe = self.rx.front_end_rows(states, controls, iq.unsqueeze(0),
-                                       self._row_index(n))
-        news, outs = [], []
-        for s in range(n):
-            new, out = self.rx.fm_chain(
-                tree_index(states, s), tree_index(controls, s), v[s],
-                {k: (None if x is None else x[s]) for k, x in fe.items()})
-            news.append(new)
-            outs.append(out)
-        return tree_stack(news), tree_stack(outs)
+        leading station axis on every leaf: one `front_end_rows` call (one
+        kernel launch on the fused path) and one `fm_chain` call over the
+        [n, block_fm] rows."""
+        v, fe = self.rx.front_end_rows(states, controls, iq)
+        return self.rx.fm_chain(states, controls, v, fe)
 
     def jit_step(self) -> "_StationsStep":
         """The captured form of `step`, called like it: a
@@ -149,9 +141,8 @@ class ShardedMultiStationReceiver(MultiStationReceiver):
     Each mesh entry runs `n_stations / n_devices` COMPLETE stations through
     its own MultiStationReceiver (its own captured graph) against a copy of
     the wideband block on its device: zero collectives.  Per-station
-    results are bit for bit those of the one-device MultiStationReceiver
-    (each row of the front-end launch and each station's chain compute
-    alone).  n_stations must be a multiple of the mesh size: `pad_offsets`
+    results are those of the one-device MultiStationReceiver (on the CPU
+    bit for bit: each row of every batched op computes alone).  n_stations must be a multiple of the mesh size: `pad_offsets`
     rounds a hit list up with dummy stations at offset 0, whose results
     callers drop.  States, controls and outputs are lists, one entry per
     mesh device."""
@@ -185,10 +176,14 @@ class ShardedMultiStationReceiver(MultiStationReceiver):
         k = self._split(n_stations)
         return [p.init_states(k) for p in self.parts]
 
-    def controls_for(self, offsets_hz: Sequence[int]):
+    def controls_for(self, offsets_hz: Sequence[int],
+                     squelch_levels: Optional[Sequence[float]] = None):
         k = self._split(len(offsets_hz))
         offs = list(offsets_hz)
-        return [p.controls_for(offs[i * k:(i + 1) * k])
+        levels = ([0.0] * len(offs) if squelch_levels is None
+                  else list(squelch_levels))
+        return [p.controls_for(offs[i * k:(i + 1) * k],
+                               levels[i * k:(i + 1) * k])
                 for i, p in enumerate(self.parts)]
 
     def step(self, states, controls, iq: torch.Tensor):
@@ -209,12 +204,12 @@ class _Drive:
     devices' drives can be interleaved, read at the end (`result`)."""
 
     def __init__(self, msr: MultiStationReceiver, wire: np.ndarray,
-                 offsets: Sequence[int], scan: bool):
+                 offsets: Sequence[int], levels, scan: bool):
         n = len(offsets)
         self.nblocks = wire.shape[0]
         self.sg = msr.jit_step().for_stations(n)
         self.states, self.controls = (msr.init_states(n),
-                                      msr.controls_for(offsets))
+                                      msr.controls_for(offsets, levels))
         self.sc = None
         if scan:
             self.sc = self.sg.scan(self.nblocks)
@@ -247,7 +242,9 @@ class _Drive:
 
 def demodulate_stations(rx: Receiver, iq: np.ndarray,
                         offsets_hz: Sequence[int],
-                        mesh=None, scan: bool = True) -> List[dict]:
+                        mesh=None, scan: bool = True,
+                        squelch_levels: Optional[Sequence[float]] = None
+                        ) -> List[dict]:
     """Offline helper: run the whole capture for every offset at once.
     Returns per-station dicts with 'offset_hz', 'audio' [n, 2], 'rds_bits'
     (np.uint8, None without RDS) and 'meta' (the last block's metadata).
@@ -266,6 +263,8 @@ def demodulate_stations(rx: Receiver, iq: np.ndarray,
     padded to the mesh size, each device's blocks are queued in turn, and
     the dummy results are dropped.  Each station's result is bit for bit
     the one-device run's.
+    squelch_levels: each station's squelch level (the config's squelch;
+    0 for every station without it).
     """
     n_real = len(offsets_hz)
     cfg = rx.cfg
@@ -281,8 +280,14 @@ def demodulate_stations(rx: Receiver, iq: np.ndarray,
         smsr = rx.stations_on(mesh)
         offs = smsr.pad_offsets(offsets_hz)
         parts = smsr.parts
+    levels = ([0.0] * len(offs) if squelch_levels is None
+              else list(squelch_levels) + [0.0] * (len(offs) - n_real))
+    if len(levels) != len(offs):
+        raise ValueError(f"demodulate_stations: {len(squelch_levels)} "
+                         f"squelch levels for {n_real} stations")
     k = len(offs) // len(parts)
-    drives = [_Drive(p, wire, offs[i * k:(i + 1) * k], scan)
+    drives = [_Drive(p, wire, offs[i * k:(i + 1) * k],
+                     levels[i * k:(i + 1) * k], scan)
               for i, p in enumerate(parts)]
     for _ in range(nblocks):
         for d in drives:

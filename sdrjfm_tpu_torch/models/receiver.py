@@ -22,6 +22,10 @@ Every option of the JAX ReceiverConfig runs here.  `step` never
 synchronises with the host; the one device-to-host transfer a runner needs
 per block is `Output.meta_vec`.
 
+`front_end` and `fm_chain` also take a leading station axis on the state,
+the controls and the block (`[S, ...]` everywhere, `meta_vec` [S, M]):
+the port's `vmap(step)`, which `models/multistation.py` runs.
+
 The time-sharded paths (`parallel/sharding.py`) call `front_end` and
 `fm_chain` with `axis`, a `parallel.distributed.TimeAxis`: each rank runs
 its contiguous slice of the block, convolutions take ring halos from the
@@ -56,7 +60,6 @@ from ..rds import scan_decoders as SD
 from ..rds.bitrecovery import (PHASE_SUB, BitBlock, BitRecoveryState,
                                bitrecovery_zero_state,
                                make_bitrecovery_config, recover_bits)
-from ..runtime.graph import tree_index, tree_stack
 
 Tensor = torch.Tensor
 
@@ -486,12 +489,15 @@ class Receiver:
 
     def dc_mean(self, parts: Tensor) -> Tensor:
         """The block's DC subsample mean from every rank's partials, in rank
-        order (`front_end(axis=, defer_dc=True)`'s dc slot, gathered): the
-        subsample's mean, or the fused kernel's per-tile sums reduced in
-        the kernel's own order."""
+        order (`front_end(axis=, defer_dc=True)`'s dc slot, gathered: [P,
+        ...], a station axis after the rank axis where the front end ran
+        stations): the subsample's mean, or the fused kernel's per-tile
+        sums reduced in the kernel's own order."""
+        k = parts.dim() - (2 if parts.is_complex() else 3)   # station dims
+        p = parts.movedim(0, k)
         if parts.is_complex():
-            return parts.reshape(-1).mean()
-        return dc_mean_of_tiles(parts.reshape(-1, 2),
+            return p.reshape(p.shape[:k] + (-1,)).mean(-1)
+        return dc_mean_of_tiles(p.reshape(p.shape[:k] + (-1, 2)),
                                 -(-self.cfg.block_in // DC_SUBSAMPLE))
 
     def front_end(self, state: ReceiverState, controls: Controls,
@@ -499,6 +505,13 @@ class Receiver:
         """Wire decode, gains, (rate map), DC servo, LO mix, (input filter)
         and ÷12.  Returns (v [block_fm] complex64, (dc_last, input_tail,
         tail1, tail2, input_tap, rate_carry)) as the JAX front end does.
+
+        `state` and `controls` may carry a leading station axis [S] on
+        every leaf, against the one shared block `iq` (the counterpart of
+        `vmap(front_end, in_axes=(0, 0, None))`): v is then [S, block_fm]
+        and every update carries the [S] axis.  The fused path runs the
+        stations as the rows of one kernel launch, the split path as rows
+        of the same torch ops.
 
         With `axis` (a TimeAxis; iq this rank's slice of the block) the LO
         phase starts at n0 + index * t_local, the convolutions take the left
@@ -512,8 +525,17 @@ class Receiver:
         end-of-chain gather) and turns into the mean with `dc_mean`;
         without it the sharded front end gathers them itself.  The
         correction applied is state.rf_dc either way."""
+        return self._front(state, controls, iq, None, axis, defer_dc)
+
+    def _front(self, state: ReceiverState, controls: Controls, wire: Tensor,
+               block_index: Optional[Tensor], axis, defer_dc: bool):
+        """`front_end` on the shared block `wire` (block_index None) or, row
+        r on block block_index[r] of `wire` [NB, ...] (`front_end_rows`)."""
         cfg = self.cfg
         q = cfg.input_rate
+        dev = state.n0_mod.device
+        rows = state.n0_mod.dim() > 0
+        R = state.n0_mod.shape[0] if rows else 1
         if axis is None:
             n0 = state.n0_mod
             halo = lambda x, carry: carry  # noqa: E731
@@ -523,35 +545,46 @@ class Receiver:
                                  "the adapted 2.304 MS/s stream, not the "
                                  "native wire")
             from ..parallel.distributed import left_halo
-            n0 = (state.n0_mod + (axis.index * iq.shape[0]) % q) % q
+            n0 = (state.n0_mod + (axis.index * wire.shape[0]) % q) % q
             halo = lambda x, carry: left_halo(  # noqa: E731
-                x, carry.shape[0], carry, axis)
+                x, carry.shape[-1], carry, axis)
         partials = axis is not None
         rate_carry = state.rate_carry
-        fmt, wire = cfg.iq_format, iq
+        fmt, src, idx = cfg.iq_format, wire, block_index
+        if rows and block_index is None:
+            src, idx = wire[None], frontend.zero_index(R, dev)
         lg, rg = controls.input_lgain, controls.input_rgain
         if cfg.native_rate or not self.fused_frontend:
-            re, im = decode_wire(iq, cfg.iq_format)
-            x = torch.complex(re * lg, im * rg)
+            blk = wire if block_index is None else wire.index_select(
+                0, block_index)
+            re, im = decode_wire(blk, cfg.iq_format)
+            x = torch.complex(re * lg[..., None], im * rg[..., None])
             if cfg.native_rate:
                 num, den = cfg.rate_ratio
                 x, rate_carry = B.rate_map_linear(x, num, den, cfg.block_in,
                                                   state.rate_carry)
             # the kernel reads the mapped stream with unit gains
-            fmt, wire, lg, rg = "c64", x.contiguous(), self._unit, self._unit
+            fmt, src = "c64", x.contiguous()
+            lg = rg = (self._unit if not rows else
+                       torch.ones(R, dtype=torch.float32, device=dev))
+            if rows:
+                idx = torch.arange(R, dtype=torch.int32, device=dev)
         if self.fused_frontend:
+            def launch(w, i, carry, n0_w, partials=False):
+                args = (carry, self.k_decim12, lg, rg, state.rf_dc,
+                        controls.lo_freq_hz, n0_w, cfg.dc_remove, q)
+                if not rows:
+                    return frontend(w, fmt, *args, partials=partials)
+                return frontend.rows(w, fmt, i, *args, partials=partials)
             carry = state.band1
-            left = None if axis is None else axis.from_left(iq[-HALO_WIRE:])
+            left = None if axis is None else axis.from_left(
+                wire[-HALO_WIRE:])
             if left is not None:
                 n0_left = (state.n0_mod
-                           + (axis.index * iq.shape[0] - HALO_WIRE) % q) % q
-                _, carry, _ = frontend(
-                    left, fmt, state.band1, self.k_decim12, lg, rg,
-                    state.rf_dc, controls.lo_freq_hz, n0_left, cfg.dc_remove,
-                    q)
-            v, tail1, sub = frontend(
-                wire, fmt, carry, self.k_decim12, lg, rg, state.rf_dc,
-                controls.lo_freq_hz, n0, cfg.dc_remove, q, partials=partials)
+                           + (axis.index * wire.shape[0] - HALO_WIRE) % q) % q
+                _, carry, _ = launch(left if not rows else left[None], idx,
+                                     state.band1, n0_left)
+            v, tail1, sub = launch(src, idx, carry, n0, partials)
             tail2, input_tail, input_tap = state.band2, None, None
         else:
             # the input filter, the reference cascade or the input tap sit
@@ -561,9 +594,9 @@ class Receiver:
                 lim = C.RF_DC_LIMIT
                 corr = torch.complex(state.rf_dc.real.clamp(-lim, lim),
                                      state.rf_dc.imag.clamp(-lim, lim))
-                sub = (x[::DC_SUBSAMPLE].contiguous() if partials
-                       else x[::DC_SUBSAMPLE].mean())
-                x = x - corr
+                sub = (x[..., ::DC_SUBSAMPLE].contiguous() if partials
+                       else x[..., ::DC_SUBSAMPLE].mean(-1))
+                x = x - corr[..., None]
             input_tap = x if (cfg.emit_taps and cfg.emit_input_tap) else None
             x = B.mix_lo(x, controls.lo_freq_hz, q, n0)
             input_tail = None
@@ -591,44 +624,26 @@ class Receiver:
         return v, (dc_last, input_tail, tail1, tail2, input_tap, rate_carry)
 
     def front_end_rows(self, states: ReceiverState, controls: Controls,
-                       wire: Tensor, block_index: Tensor):
+                       wire: Tensor, block_index: Optional[Tensor] = None):
         """`front_end` over R rows, the counterpart of `vmap(front_end)`:
         `states` and `controls` carry a leading [R] axis on every leaf, row
         r runs on wire block block_index[r] (int32 [R] on the receiver's
-        device) of `wire` [NB, wire_len(, 2)].  Only the front end's leaves
-        of `states` are read.  Returns (v [R, block_fm], fe_updates: the
+        device) of `wire` [NB, wire_len(, 2)], or every row on the one
+        shared block `wire` [wire_len(, 2)] (block_index None: the split
+        paths decode it once).  Only the front end's leaves of `states`
+        are read.  Returns (v [R, block_fm], fe_updates: the
         per-row updates that `step` hands to `fm_chain`, each with a
         leading [R] axis, None where the config has none).
 
-        On the fused path one kernel launch runs every row; the split paths
-        (input filter, `reference` cascade, input tap, native rate) run
-        `front_end` row by row."""
+        The fused path runs every row in one kernel launch; the split
+        paths (input filter, `reference` cascade, input tap, native rate)
+        run the rows as one batch of the same torch ops."""
         cfg = self.cfg
-        if self.fused_frontend and not cfg.native_rate:
-            v, tail1, sub_mean = frontend.rows(
-                wire, cfg.iq_format, block_index, states.band1,
-                self.k_decim12, controls.input_lgain, controls.input_rgain,
-                states.rf_dc, controls.lo_freq_hz, states.n0_mod,
-                cfg.dc_remove, cfg.input_rate)
-            dc_last = (self._dc_update(states.rf_dc, sub_mean)
-                       if cfg.dc_remove else torch.zeros_like(states.rf_dc))
-            upd = dict(rf_dc=dc_last, input_filt=None, band1=tail1,
-                       band2=states.band2, input_tap=None,
-                       rate_carry=states.rate_carry)
-        else:
-            vs, parts = [], []
-            for r in range(block_index.shape[0]):
-                blk = wire.index_select(0, block_index[r:r + 1])[0]
-                v_r, (dc, itail, t1, t2, itap, rc) = self.front_end(
-                    tree_index(states, r), tree_index(controls, r), blk)
-                vs.append(v_r)
-                parts.append(dict(rf_dc=dc, input_filt=itail, band1=t1,
-                                  band2=t2, input_tap=itap, rate_carry=rc))
-            v = torch.stack(vs)
-            upd = tree_stack(parts)
-            if not cfg.input_filter:
-                upd["input_filt"] = None
-        upd["n0_mod"] = (states.n0_mod + cfg.block_in) % cfg.input_rate
+        v, (dc, itail, t1, t2, itap, rc) = self._front(
+            states, controls, wire, block_index, None, False)
+        upd = dict(rf_dc=dc, input_filt=itail if cfg.input_filter else None,
+                   band1=t1, band2=t2, input_tap=itap, rate_carry=rc,
+                   n0_mod=(states.n0_mod + cfg.block_in) % cfg.input_rate)
         return v, upd
 
     # ------------------------------------------------------------------
@@ -655,7 +670,12 @@ class Receiver:
     def fm_chain(self, state: ReceiverState, controls: Controls, v: Tensor,
                  fe_updates: dict, axis=None
                  ) -> Tuple[ReceiverState, Output]:
-        """192 kS/s chain.  With `axis` (a TimeAxis; v this rank's slice)
+        """192 kS/s chain.  v [block_fm], or [S, block_fm] with `state`,
+        `controls` and `fe_updates` carrying a leading station axis [S] on
+        every leaf: the counterpart of `vmap(fm_chain)`, every op taking
+        the S rows at once (one station's op count, each op [S, ...] wide)
+        and every output with the [S] axis.  With `axis` (a TimeAxis; v
+        this rank's slice)
         every stage runs on the slice: convolutions take ring halos,
         trackers run through the distributed recurrences, and the small
         sequential glue (the PSS scalar scan, the squelch decisions, the
@@ -669,6 +689,8 @@ class Receiver:
         are per-rank slices and are refused here."""
         cfg = self.cfg
         dev = v.device
+        lead = v.shape[:-1]              # () or (S,): the station axis
+        col = lambda c: c[..., None]  # noqa: E731  a [...] control on rows
         sharded = axis is not None
         if sharded:
             from ..parallel import distributed as DD
@@ -730,7 +752,7 @@ class Receiver:
         osc = torch.sin(carrier_phase) if test_sound \
             else torch.cos(carrier_phase)
         lr_diff = torch.where(stereo_gate, 2.0 * osc * demod, 0.0) \
-            * controls.pano
+            * col(controls.pano)
         left = lr_sum + lr_diff
         right = lr_sum - lr_diff
         if taps is not None:
@@ -740,9 +762,10 @@ class Receiver:
             # diagnostic mode (sin-phase oscillator), static by design
             audio = torch.complex(lr_diff, lr_diff)
         else:
-            m = controls.sound_mix
-            audio = torch.complex(m[0, 0] * left + m[0, 1] * right,
-                                  m[1, 0] * left + m[1, 1] * right)
+            m = controls.sound_mix[..., None]        # [..., 2, 2, 1]
+            audio = torch.complex(
+                m[..., 0, 0, :] * left + m[..., 0, 1, :] * right,
+                m[..., 1, 0, :] * left + m[..., 1, 1, :] * right)
 
         # --- RDS tap ---------------------------------------------------------
         rds_out = None
@@ -758,11 +781,11 @@ class Receiver:
                 phase_del, phase_delay = B.delay_apply(pblock.phase,
                                                        state.phase_delay)
             else:
-                d = state.phase_delay.shape[0]
+                d = state.phase_delay.shape[-1]
                 halo = DD.left_halo(pblock.phase, d, state.phase_delay, axis)
-                phase_del = torch.cat([halo, pblock.phase]
-                                      )[: pblock.phase.shape[0]]
-                phase_delay = pblock.phase[-d:]
+                phase_del = torch.cat([halo, pblock.phase], dim=-1
+                                      )[..., : pblock.phase.shape[-1]]
+                phase_delay = pblock.phase[..., -d:]
             the_phase = 3.0 * phase_del
             rds_bb = rds_base * torch.complex(torch.cos(the_phase),
                                               -torch.sin(the_phase))
@@ -807,7 +830,7 @@ class Receiver:
         else:
             # alpha = 1: the identity; the stream's last sample is the
             # last rank's, resolved with the end-of-chain gather
-            audio, deemph_last = audio.to(torch.complex64), audio[-1]
+            audio, deemph_last = audio.to(torch.complex64), audio[..., -1]
         if taps is not None:
             taps["af_left_filtered"] = audio.real
             taps["af_right_filtered"] = audio.imag
@@ -815,8 +838,8 @@ class Receiver:
 
         # --- volume / balance ------------------------------------------------
         audio = torch.complex(
-            audio.real * controls.volume * controls.left_gain,
-            audio.imag * controls.volume * controls.right_gain)
+            audio.real * col(controls.volume) * col(controls.left_gain),
+            audio.imag * col(controls.volume) * col(controls.right_gain))
 
         # --- ÷4 to workingRate ----------------------------------------------
         if not sharded:
@@ -830,13 +853,12 @@ class Receiver:
 
         # --- startup/retune ramp ---------------------------------------------
         Tw = cfg.block_working
-        Tw_local = pcm.shape[0]
+        Tw_local = pcm.shape[-1]
         first = axis.index * Tw_local if sharded else 0
         ramp_max = cfg.working_rate // 2
         pos = ramp_max - state.ramp_remaining + first
-        gain = torch.clamp((pos + torch.arange(Tw_local, dtype=torch.float32,
-                                               device=dev)) / ramp_max,
-                           0.0, 1.0)
+        gain = torch.clamp((col(pos) + torch.arange(
+            Tw_local, dtype=torch.float32, device=dev)) / ramp_max, 0.0, 1.0)
         pcm = pcm * gain
         ramp_remaining = torch.clamp(state.ramp_remaining - Tw, min=0)
 
@@ -847,18 +869,18 @@ class Receiver:
         if cfg.test_tone:
             period = 2 * cfg.working_rate
             dur = cfg.working_rate // 40
-            idx = (state.tone_index + first + torch.arange(
+            gate = col(controls.tone_gate)
+            idx = (col(state.tone_index) + first + torch.arange(
                 Tw_local, dtype=torch.int32, device=dev)) % period
             tone = 0.9 * torch.sin((2.0 * math.pi * 1000.0 / cfg.working_rate)
                                    * idx.to(torch.float32))
-            tone = torch.where(idx < dur, tone, 0.0) * controls.tone_gate
-            pcm = pcm * (1.0 - 0.9 * controls.tone_gate) \
-                + torch.complex(tone, tone)
+            tone = torch.where(idx < dur, tone, 0.0) * gate
+            pcm = pcm * (1.0 - 0.9 * gate) + torch.complex(tone, tone)
             tone_index = (state.tone_index + Tw) % period
 
         # --- peak meter (local maxima when sharded: the gather below) -------
-        peak_l = torch.max(torch.abs(pcm.real))
-        peak_r = torch.max(torch.abs(pcm.imag))
+        peak_l = torch.abs(pcm.real).amax(dim=-1)
+        peak_r = torch.abs(pcm.imag).amax(dim=-1)
 
         def to_db(p):
             return torch.where(p > 0, 20.0 * torch.log10(
@@ -901,7 +923,8 @@ class Receiver:
                 parts["audio_filt"] = audio_filt
             if self.k_audio_up is not None:
                 parts["audio_up"] = audio_up_state
-            defer_dc = cfg.dc_remove and rf_dc.dim() > 0
+            # deferred: the partials, one axis more than the servo's state
+            defer_dc = cfg.dc_remove and rf_dc.dim() > state.rf_dc.dim()
             if defer_dc:
                 parts["dc"] = rf_dc
             names = list(parts)
@@ -913,8 +936,8 @@ class Receiver:
             demod_state = demod_state._replace(
                 prev1=rows["demod_tail"][-1, 0],
                 prev2=rows["demod_tail"][-1, 1])
-            peak_l = torch.max(rows["peaks"][:, 0])
-            peak_r = torch.max(rows["peaks"][:, 1])
+            peak_l = rows["peaks"][:, 0].amax(dim=0)
+            peak_r = rows["peaks"][:, 1].amax(dim=0)
             if "deemph" in rows:
                 deemph_last = rows["deemph"][-1]
             for k in ("input_filt", "band1", "band2"):
@@ -930,18 +953,19 @@ class Receiver:
                 rds57_filt = pilot_state.filt
                 rds_decim_c = rows["rds_decim"][-1]
                 phase_delay = rows["phase_delay"][-1]
+                z24 = rows["z24"].movedim(0, -2)      # [..., P, T24 / P]
                 rds_out, _, bitrec_state = self._recover_bits(
-                    rows["z24"].reshape(-1), state.bitrec, False)
+                    z24.reshape(lead + (-1,)), state.bitrec, False)
 
         hold = int(C.PILOT_LOCK_STABLE_S * cfg.fm_rate)
         meta = Meta(
             pilot_locked=(pilot_state.lock_run > hold if sharded
-                          else pblock.locked[-1]),
+                          else pblock.locked[..., -1]),
             pilot_strength=(pilot_state.lock_metric if sharded
-                            else pblock.strength[-1]),
+                            else pblock.strength[..., -1]),
             dc_rf_db=20.0 * torch.log10(torch.abs(rf_dc) + 1.0 / 32768.0),
             dc_if=demod_state.fm_afc,
-            pss_phase_deg=(pss_state.acc if sharded else pss_off[-1])
+            pss_phase_deg=(pss_state.acc if sharded else pss_off[..., -1])
             / math.pi * 180.0,
             pss_established=pss_state.minimized,
             peak_left_db=to_db(peak_l),
@@ -962,9 +986,9 @@ class Receiver:
 
         out_audio = torch.stack([pcm.real, pcm.imag], dim=-1)
         count = (rds_out.count if rds_out is not None
-                 else torch.full((), -1, dtype=torch.int32, device=dev))
+                 else torch.full(lead, -1, dtype=torch.int32, device=dev))
         meta_vec = torch.stack([t.to(torch.float32) for t in meta]
-                               + [count.to(torch.float32)])
+                               + [count.to(torch.float32)], dim=-1)
         out = Output(audio=out_audio, meta=meta, rds=rds_out, taps=taps,
                      meta_vec=meta_vec,
                      audio_i16=(quantize_i16(out_audio)

@@ -143,7 +143,6 @@ class RadioController:
             lo_freq_hz=torch.tensor(offsets, dtype=torch.int32, device=dev))
         v, _ = self.rx.front_end_rows(
             tree_broadcast(self.rx.init_state(), n), controls,
-            self._wire(iq_block).unsqueeze(0),
-            torch.zeros(n, dtype=torch.int32, device=dev))
+            self._wire(iq_block))
         hit, _ = scan_decision(v, threshold_db)
         return [o for o, h in zip(offsets, hit.tolist()) if h]

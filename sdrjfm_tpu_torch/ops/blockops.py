@@ -2,7 +2,11 @@
 
 Every primitive maps a whole time block `[T]` at once and threads an
 explicit carry, so consecutive blocks stitch exactly to one long-array
-computation (the tests hold split blocks against the whole array):
+computation (the tests hold split blocks against the whole array).  A
+block may carry leading rows, `[..., T]` with carries `[..., K]`: each
+row is its own stream (a station), every row goes through the same ops
+(conv1d's batch, the FFTs' batch, one scan or pole-bank launch), and the
+result is the port's counterpart of `jax.vmap` over the rows:
 
 - FIR / decimating FIR  -> strided `conv1d` over `concat(carry, x)` on split
                            real/imag planes (carry = last taps-1 inputs)
@@ -25,13 +29,13 @@ Nothing here synchronises with the host: scalars that vary at run time are
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..kernels.linrec import (PoleBank, linrec, pole_bank,
+from ..kernels.linrec import (PoleBank, fold_bank, linrec, pole_bank,
                               pole_bank_constants)
 
 Tensor = torch.Tensor
@@ -41,33 +45,45 @@ Tensor = torch.Tensor
 # ---------------------------------------------------------------------------
 
 
+def _lead(x: Tensor) -> Tuple[int, ...]:
+    """The leading (row) dimensions of a [..., T] block."""
+    return tuple(x.shape[:-1])
+
+
 def _conv_complex(xp: Tensor, kernel: Tensor, stride: int) -> Tensor:
-    """Strided VALID causal conv of complex xp with a real or complex kernel:
-    y[n] = sum_k kernel[k] * xp[n*stride + K-1 - k]."""
+    """Strided VALID causal conv of complex xp [..., L] with a real or
+    complex kernel: y[..., n] = sum_k kernel[k] * xp[..., n*stride + K-1 -
+    k].  The rows' real and imaginary planes are conv1d's batch."""
     k = kernel.flip(0)
     if k.is_complex():
         w = torch.stack([k.real, k.imag])[:, None, :]       # [2, 1, K]
     else:
         w = k.to(torch.float32)[None, None, :]              # [1, 1, K]
-    inp = torch.stack([xp.real, xp.imag])[:, None, :]       # [2, 1, T+K-1]
-    out = F.conv1d(inp, w, stride=stride)                   # [2, C, T]
+    inp = torch.stack([xp.real, xp.imag]).reshape(-1, 1, xp.shape[-1])
+    out = F.conv1d(inp, w, stride=stride)                   # [2N, C, T]
+    out = out.view(2, -1, out.shape[1], out.shape[2])       # [2, N, C, T]
     if k.is_complex():
-        return torch.complex(out[0, 0] - out[1, 1], out[1, 0] + out[0, 1])
-    return torch.complex(out[0, 0], out[1, 0])
+        y = torch.complex(out[0, :, 0] - out[1, :, 1],
+                          out[1, :, 0] + out[0, :, 1])
+    else:
+        y = torch.complex(out[0, :, 0], out[1, :, 0])
+    return y.reshape(_lead(xp) + (y.shape[-1],))
 
 
 def _conv_valid_real(xp: Tensor, kernel: Tensor, stride: int = 1) -> Tensor:
     w = kernel.flip(0).to(xp.dtype)[None, None, :]
-    return F.conv1d(xp[None, None, :], w, stride=stride)[0, 0]
+    y = F.conv1d(xp.reshape(-1, 1, xp.shape[-1]), w, stride=stride)[:, 0]
+    return y.reshape(_lead(xp) + (y.shape[-1],))
 
 
 def fir_apply(x: Tensor, kernel: Tensor, carry: Tensor
               ) -> Tuple[Tensor, Tensor]:
     """Causal FIR over a block.  kernel[0] multiplies the newest sample;
-    carry holds the previous K-1 inputs.  Returns (y [T], new_carry)."""
+    carry holds the previous K-1 inputs.  x [..., T] with carry [..., K-1]
+    (each row its own stream).  Returns (y [..., T], new_carry)."""
     K = kernel.shape[0]
-    xp = torch.cat([carry.to(x.dtype), x])
-    new_carry = xp[-(K - 1):] if K > 1 else carry
+    xp = torch.cat([carry.to(x.dtype), x], dim=-1)
+    new_carry = xp[..., -(K - 1):] if K > 1 else carry
     if xp.is_complex() or kernel.is_complex():
         y = _conv_complex(xp.to(torch.complex64), kernel, stride=1)
     else:
@@ -79,14 +95,14 @@ def fir_decimate(x: Tensor, kernel: Tensor, factor: int, carry: Tensor
                  ) -> Tuple[Tensor, Tensor]:
     """Decimating causal FIR: output m is the filter at input sample
     m*factor + factor - 1 of the stream (the reference's decimation
-    counter).  x [T] with T % factor == 0.  Returns (y [T/factor],
-    new_carry [K-1])."""
-    T = x.shape[0]
+    counter).  x [..., T] with T % factor == 0.  Returns (y [...,
+    T/factor], new_carry [..., K-1])."""
+    T = x.shape[-1]
     assert T % factor == 0, (T, factor)
     K = kernel.shape[0]
-    xp = torch.cat([carry.to(x.dtype), x])
-    new_carry = xp[-(K - 1):]
-    xp = xp[factor - 1:]
+    xp = torch.cat([carry.to(x.dtype), x], dim=-1)
+    new_carry = xp[..., -(K - 1):]
+    xp = xp[..., factor - 1:]
     if xp.is_complex() or kernel.is_complex():
         y = _conv_complex(xp, kernel, stride=factor)
     else:
@@ -98,21 +114,25 @@ def fir_interpolate(x: Tensor, kernel: Tensor, factor: int, carry: Tensor
                     ) -> Tuple[Tensor, Tensor]:
     """Polyphase interpolation by `factor` (zero-stuff + lowpass, gain
     compensated): y[m*factor + p] = factor * sum_j kernel[p + j*factor]
-    x[m - j].  carry holds the last ceil(K/factor) - 1 inputs.  Returns
-    (y [T*factor], new_carry)."""
+    x[m - j].  carry holds the last ceil(K/factor) - 1 inputs.  x [..., T]
+    -> (y [..., T*factor], new_carry)."""
     K = kernel.shape[0]
     phases = (K + factor - 1) // factor
-    xp = torch.cat([carry.to(x.dtype), x])
-    new_carry = xp[-(phases - 1):] if phases > 1 else carry
+    xp = torch.cat([carry.to(x.dtype), x], dim=-1)
+    new_carry = xp[..., -(phases - 1):] if phases > 1 else carry
     k_pad = F.pad(kernel.to(torch.float32), (0, phases * factor - K))
     # channel p holds branch p's taps, newest input last (a correlation)
     w = k_pad.view(phases, factor).t().flip(1)[:, None, :].contiguous()
+    L = xp.shape[-1]
+    out_len = _lead(x) + (x.shape[-1] * factor,)
     if xp.is_complex():
-        inp = torch.stack([xp.real, xp.imag])[:, None, :]   # [2, 1, T+ph-1]
-        out = F.conv1d(inp, w)                              # [2, factor, T]
-        y = torch.complex(out[0].t().reshape(-1), out[1].t().reshape(-1))
+        inp = torch.stack([xp.real, xp.imag]).reshape(-1, 1, L)
+        out = F.conv1d(inp, w)                              # [2N, factor, T]
+        y = out.transpose(1, 2).reshape(2, -1)
+        y = torch.complex(y[0], y[1]).reshape(out_len)
     else:
-        y = F.conv1d(xp[None, None, :], w)[0].t().reshape(-1)
+        out = F.conv1d(xp.reshape(-1, 1, L), w)             # [N, factor, T]
+        y = out.transpose(1, 2).reshape(out_len)
     return y * factor, new_carry
 
 
@@ -129,44 +149,66 @@ def fir_zero_state(kernel_len: int, device=None,
 def fft_filter_apply(x: Tensor, response: Tensor, hop: int, carry: Tensor
                      ) -> Tuple[Tensor, Tensor]:
     """Overlap-save convolution of a block with a frozen kernel.
-    response [F] complex; carry [F-hop] trailing inputs.  Returns (y [T]
-    causal filtered block, real when x is real; new_carry)."""
+    response [F] complex; x [..., T] with carry [..., F-hop] trailing
+    inputs.  Returns (y [..., T] causal filtered block, real when x is
+    real; new_carry)."""
     Fs = response.shape[0]
     halo = Fs - hop
-    T = x.shape[0]
+    T = x.shape[-1]
     assert T % hop == 0, (T, hop, Fs)
-    xp = torch.cat([carry, x.to(carry.dtype)])
-    new_carry = xp[-halo:]
-    frames = xp.unfold(0, Fs, hop)                          # [T/hop, F]
+    xp = torch.cat([carry, x.to(carry.dtype)], dim=-1)
+    new_carry = xp[..., -halo:]
+    frames = xp.unfold(-1, Fs, hop)                         # [..., T/hop, F]
     out = torch.fft.ifft(torch.fft.fft(frames.to(torch.complex64))
-                         * response[None, :])
-    y = out[:, halo:].reshape(-1)
+                         * response)
+    y = out[..., halo:].reshape(_lead(x) + (T,))
     if not x.is_complex():
         y = y.real
     return y, new_carry
+
+
+def _frames_rfft(xp: Tensor, Fs: int, hop: int, n: int) -> Tensor:
+    """rfft of the first n frames (length Fs, step hop) of each row of the
+    real stream xp.real ([R, L] complex storage): [R, n, Fs/2+1].  The rows
+    are laid end to end (each padded to a multiple of hop) and framed as
+    ONE strided stream, the layout a single row's frames have, so that
+    every frame's transform is the one-row call's bit for bit; the frames
+    that straddle two rows are computed and dropped."""
+    R, L = xp.shape
+    m = -(-L // hop)                          # frame starts a padded row
+    flat = F.pad(xp, (0, m * hop - L)).reshape(-1)
+    flat = F.pad(flat, (0, Fs - hop))
+    spec = torch.fft.rfft(flat.unfold(0, Fs, hop).real)      # [R*m, F/2+1]
+    return spec.view(R, m, -1)[:, :n]
 
 
 def fft_filter_apply_multi(x: Tensor, responses: Tensor, hop: int,
                            carry: Tensor) -> Tuple[Tensor, Tensor]:
     """M overlap-save convolutions of ONE block sharing one forward FFT;
     for a real input the forward runs as an rfft with the negative half
-    mirrored by conjugate symmetry.  responses [M, F]; carry [F-hop]
-    (complex storage, zero imaginary part for a real stream).  Returns
-    (ys [M, T] complex, new_carry)."""
+    mirrored by conjugate symmetry.  responses [M, F]; x [..., T] with
+    carry [..., F-hop] (complex storage, zero imaginary part for a real
+    stream).  Returns (ys [M, ..., T] complex, new_carry)."""
     M, Fs = responses.shape
     halo = Fs - hop
-    T = x.shape[0]
+    T = x.shape[-1]
+    lead = _lead(x)
     assert T % hop == 0, (T, hop, Fs)
-    xp = torch.cat([carry.to(torch.complex64), x.to(torch.complex64)])
-    new_carry = xp[-halo:]
-    frames = xp.unfold(0, Fs, hop)                          # [T/hop, F]
+    xp = torch.cat([carry.to(torch.complex64), x.to(torch.complex64)],
+                   dim=-1)
+    new_carry = xp[..., -halo:]
     if x.is_complex():
-        spec = torch.fft.fft(frames)
+        spec = torch.fft.fft(xp.unfold(-1, Fs, hop))
     else:
-        r = torch.fft.rfft(frames.real)
-        spec = torch.cat([r, r[:, 1:Fs // 2].flip(-1).conj()], dim=-1)
-    out = torch.fft.ifft(spec[None, :, :] * responses[:, None, :])
-    ys = out[:, :, halo:].reshape(M, T)
+        if lead:
+            r = _frames_rfft(xp.reshape(-1, xp.shape[-1]), Fs, hop,
+                             T // hop).reshape(lead + (T // hop, -1))
+        else:
+            r = torch.fft.rfft(xp.unfold(0, Fs, hop).real)
+        spec = torch.cat([r, r[..., 1:Fs // 2].flip(-1).conj()], dim=-1)
+    resp = responses.reshape((M,) + (1,) * (len(lead) + 1) + (Fs,))
+    out = torch.fft.ifft(spec[None] * resp)                # [M, ..., nf, F]
+    ys = out[..., halo:].reshape((M,) + lead + (T,))
     return ys, new_carry
 
 
@@ -181,11 +223,13 @@ def fft_filter_zero_state(fft_size: int, hop: int, device=None,
 
 
 def delay_apply(x: Tensor, carry: Tensor) -> Tuple[Tensor, Tensor]:
-    """Delay a stream by len(carry) samples.  Returns (delayed, new carry)."""
-    if carry.shape[0] == 0:
+    """Delay a stream by len(carry) samples (x [..., T], carry [..., D]).
+    Returns (delayed, new carry)."""
+    if carry.shape[-1] == 0:
         return x, carry
-    xp = torch.cat([carry, x])
-    return xp[: x.shape[0]], xp[x.shape[0]:]
+    T = x.shape[-1]
+    xp = torch.cat([carry, x], dim=-1)
+    return xp[..., :T], xp[..., T:]
 
 
 # ---------------------------------------------------------------------------
@@ -195,11 +239,13 @@ def delay_apply(x: Tensor, carry: Tensor) -> Tuple[Tensor, Tensor]:
 
 def linrec_apply(drive: Tensor, g: float, y0: Tensor
                  ) -> Tuple[Tensor, Tensor]:
-    """y[n] = g*y[n-1] + drive[n] for a real [T] block with a constant
-    decay g and initial state y0 (y[-1]).  Returns (y [T], y[T-1])."""
-    y, last = linrec(drive.to(torch.float32)[None].contiguous(), [g],
-                     y0.to(torch.float32).reshape(1))
-    return y[0], last[0]
+    """y[n] = g*y[n-1] + drive[n] for a real [..., T] block with a constant
+    decay g and initial state y0 [...] (y[-1]), every row in ONE launch of
+    the scan kernel.  Returns (y [..., T], y[..., T-1])."""
+    T = drive.shape[-1]
+    d = drive.to(torch.float32).reshape(-1, T).contiguous()
+    y, last = linrec(d, [g] * d.shape[0], y0.to(torch.float32).reshape(-1))
+    return y.view(drive.shape), last.view(_lead(drive))
 
 
 def ema_apply(x: Tensor, alpha: float, y0: Tensor) -> Tuple[Tensor, Tensor]:
@@ -210,12 +256,12 @@ def ema_apply(x: Tensor, alpha: float, y0: Tensor) -> Tuple[Tensor, Tensor]:
 def ema_apply_complex(x: Tensor, alpha: float, y0: Tensor
                       ) -> Tuple[Tensor, Tensor]:
     """ema_apply over a complex stream with a real decay: the real and
-    imaginary parts as two rows of ONE scan launch.  Returns (y [T]
-    complex64, y[T-1]).  alpha = 1 (deemphasis off) is the identity, with
-    no launch (the scan kernel takes decays in (0, 1])."""
+    imaginary parts as rows of ONE scan launch.  Returns (y [..., T]
+    complex64, y[..., T-1]).  alpha = 1 (deemphasis off) is the identity,
+    with no launch (the scan kernel takes decays in (0, 1])."""
     if alpha >= 1.0:
         x = x.to(torch.complex64)
-        return x, x[-1]
+        return x, x[..., -1]
     (yr, lr), (yi, li) = ema_apply_rows([x.real, x.imag], [alpha] * 2,
                                         [y0.real, y0.imag])
     return torch.complex(yr, yi), torch.complex(lr, li)
@@ -223,20 +269,23 @@ def ema_apply_complex(x: Tensor, alpha: float, y0: Tensor
 
 def ema_apply_rows(xs: Sequence[Tensor], alphas: Sequence[float],
                    y0s: Sequence[Tensor]):
-    """Several independent EMAs over equal-length blocks in ONE scan launch.
-    Returns [(y_i, last_i)] in input order."""
+    """Several independent EMAs over equal-shape blocks [..., T] (states
+    [...]) in ONE scan launch of len(xs) x rows rows.  Returns [(y_i,
+    last_i)] in input order."""
     drive = torch.stack([a * x.to(torch.float32)
                          for a, x in zip(alphas, xs)])
     y0 = torch.stack([v.to(torch.float32) for v in y0s])
-    y, last = linrec(drive, [1.0 - a for a in alphas], y0)
+    n = drive[0].numel() // drive.shape[-1]
+    y, last = linrec(drive.reshape(-1, drive.shape[-1]),
+                     [1.0 - a for a in alphas for _ in range(n)],
+                     y0.reshape(-1))
+    y, last = y.view(drive.shape), last.view(y0.shape)
     return [(y[i], last[i]) for i in range(len(xs))]
 
 
 # ---------------------------------------------------------------------------
 # Biquad cascades as complex first-order recurrences
 # ---------------------------------------------------------------------------
-
-
 class IIRSpec:
     """Frozen pole/zero form of a biquad cascade (host-side construction,
     the JAX package's IIRSpec array for array): a real FIR numerator `num`
@@ -281,10 +330,23 @@ class IIRSpec:
                             device=device))
 
 
-class IIRBank(NamedTuple):
-    """Device copies of several cascades' constants, for iir_apply_many."""
-    nums: Tuple[Tensor, ...]  # each cascade's numerator taps
-    poles: PoleBank           # the pole-bank kernel's constants
+class IIRBank:
+    """Device copies of several cascades' constants, for iir_apply_many:
+    each cascade's numerator taps `nums` and the pole-bank kernel's
+    constants `poles`, with their n-row copies (`folded`) made so far."""
+
+    def __init__(self, nums: Tuple[Tensor, ...], poles: PoleBank):
+        self.nums, self.poles = nums, poles
+        self._folds = {1: poles}
+
+    def folded(self, n: int) -> PoleBank:
+        """The pole bank repeated for n rows (`fold_bank`), built on the
+        device at its first use for each n, so a block loop copies
+        nothing from the host."""
+        got = self._folds.get(n)
+        if got is None:
+            got = self._folds[n] = fold_bank(self.poles, n)
+        return got
 
 
 def iir_bank(specs: Sequence[IIRSpec], device) -> IIRBank:
@@ -295,11 +357,34 @@ def iir_bank(specs: Sequence[IIRSpec], device) -> IIRBank:
                    pole_bank_constants(specs, device))
 
 
+def bank_rows(drives: Sequence[Tensor], bank: IIRBank, w0s):
+    """The pole-bank kernel's operands for several cascades over [..., T]
+    rows: drive [N*B, T] (row s*B + b: cascade b of row s), the pole bank
+    folded N times and the entry states [N*B, P] (each cascade's [..., P_b]
+    padded to P)."""
+    P = bank.poles.poles.shape[1]
+    T = drives[0].shape[-1]
+    n = drives[0].numel() // T
+    drive = torch.stack(drives, dim=-2).reshape(-1, T)
+    w0 = torch.stack([w if w.shape[-1] == P else F.pad(w, (0, P - w.shape[-1]))
+                      for w in w0s], dim=-2).reshape(-1, P)
+    return drive, bank.folded(n), w0
+
+
+def bank_unrows(y: Tensor, wT: Tensor, bank: PoleBank, lead) -> list:
+    """Invert `bank_rows` on the kernel's outputs: [(y_b [..., T], wT_b
+    [..., P_b])] per cascade."""
+    y = y.view(tuple(lead) + (len(bank.sizes), y.shape[-1]))
+    wT = wT.view(tuple(lead) + (len(bank.sizes), wT.shape[-1]))
+    return [(y[..., b, :], wT[..., b, :n]) for b, n in enumerate(bank.sizes)]
+
+
 def iir_apply_many(xs: Sequence[Tensor], bank: IIRBank, states) -> list:
-    """Several biquad cascades over equal-length real blocks, their pole
-    banks in ONE call of the pole-bank kernel.  Each numerator FIR is a
-    conv1d (the JAX package runs it as an XLA conv too).  Returns
-    [(y [T] f32, (pole states [P] c64, numerator history [nz]))]."""
+    """Several biquad cascades over equal-shape real blocks [..., T] (each
+    row its own stream), every row's pole banks in ONE call of the
+    pole-bank kernel.  Each numerator FIR is a conv1d (the JAX package runs
+    it as an XLA conv too).  Returns [(y [..., T] f32, (pole states [...,
+    P] c64, numerator history [..., nz]))]."""
     drives, carries = [], []
     for x, num, (_, fir_carry) in zip(xs, bank.nums, states):
         if num.shape[0] > 1:
@@ -308,9 +393,10 @@ def iir_apply_many(xs: Sequence[Tensor], bank: IIRBank, states) -> list:
             xb = x.to(torch.float32) * num[0]
         drives.append(xb)
         carries.append(fir_carry)
-    ys, wTs = pole_bank(torch.stack(drives), bank.poles,
-                        [w0 for w0, _ in states])
-    return [(ys[i], (wTs[i], carries[i])) for i in range(len(xs))]
+    drive, folded, w0 = bank_rows(drives, bank, [w0 for w0, _ in states])
+    ys, wT = pole_bank(drive, folded, w0)
+    outs = bank_unrows(ys, wT, bank.poles, _lead(drives[0]))
+    return [(y, (w, c)) for (y, w), c in zip(outs, carries)]
 
 
 def iir_apply(x: Tensor, spec: IIRSpec, state) -> Tuple[Tensor, tuple]:
@@ -329,14 +415,15 @@ def iir_apply(x: Tensor, spec: IIRSpec, state) -> Tuple[Tensor, tuple]:
 
 def runlength_true(flags: Tensor, r0: Tensor) -> Tuple[Tensor, Tensor]:
     """Consecutive-true run length ending at each sample, with carry-in r0
-    (the reference's SampleLockStableCnt pattern)."""
-    T = flags.shape[0]
+    (the reference's SampleLockStableCnt pattern).  flags [..., T], r0
+    [...], each row its own run."""
+    T = flags.shape[-1]
     idx = torch.arange(T, dtype=torch.int32, device=flags.device)
-    last_false = torch.cummax(torch.where(flags, -1, idx), dim=0).values
+    last_false = torch.cummax(torch.where(flags, -1, idx), dim=-1).values
     rl = torch.where(last_false >= 0, idx - last_false,
-                     idx + 1 + r0.to(torch.int32))
+                     idx + 1 + r0.to(torch.int32)[..., None])
     rl = torch.where(flags, rl, 0).to(torch.int32)
-    return rl, rl[-1]
+    return rl, rl[..., -1]
 
 
 # ---------------------------------------------------------------------------
@@ -354,17 +441,18 @@ def oscillator_phases(freq_hz: Tensor, rate: int, n0_mod: Tensor,
                       count: int) -> Tensor:
     """Exact integer NCO phase ramp 2*pi*((f*(n0+i)) mod rate)/rate in f32.
 
-    freq_hz, n0_mod: int32 0-dim tensors (freq may be negative; torch's %
-    and // floor like jnp's).  All products stay below 2^31 through the
-    base-512 digit split, so the ramp is exact for unbounded streams."""
+    freq_hz, n0_mod: int32 tensors [...] (freq may be negative; torch's %
+    and // floor like jnp's); the ramp is [..., count].  All products stay
+    below 2^31 through the base-512 digit split, so the ramp is exact for
+    unbounded streams."""
     q = int(rate)
     assert q * _NCO_BASE < 2 ** 31
     dev = freq_hz.device
-    f = freq_hz.to(torch.int32) % q
+    f = freq_hz.to(torch.int32)[..., None] % q
     c0 = f
     c1 = (c0 * _NCO_BASE) % q
     c2 = (c1 * _NCO_BASE) % q
-    a0, a1, a2 = _digits3(n0_mod.to(torch.int32) % q, _NCO_BASE)
+    a0, a1, a2 = _digits3(n0_mod.to(torch.int32)[..., None] % q, _NCO_BASE)
     start = ((a0 * c0) % q + (a1 * c1) % q) % q
     start = (start + (a2 * c2) % q) % q
     i = torch.arange(count, dtype=torch.int32, device=dev)
@@ -377,8 +465,9 @@ def oscillator_phases(freq_hz: Tensor, rate: int, n0_mod: Tensor,
 
 def mix_lo(x: Tensor, freq_hz: Tensor, rate: int, n0_mod: Tensor) -> Tensor:
     """Multiply a block by e^{-j 2 pi f n / rate} from global index n0 (a
-    station at +f Hz offset lands at baseband)."""
-    ph = oscillator_phases(freq_hz, rate, n0_mod, x.shape[0])
+    station at +f Hz offset lands at baseband); x [..., T], freq_hz and
+    n0_mod [...]."""
+    ph = oscillator_phases(freq_hz, rate, n0_mod, x.shape[-1])
     return x * torch.complex(torch.cos(ph), -torch.sin(ph))
 
 
@@ -395,9 +484,9 @@ def rate_map_linear(x: Tensor, num: int, den: int, n_out: int,
     lerps between input samples at the exact rational position j*num/den
     (integer positions, no phase drift); `carry` is the previous block's
     last input sample, so consecutive blocks stitch exactly.  At num/den =
-    1/1 this is the stream delayed by one sample.  Returns (out [n_out],
-    new carry = x[-1])."""
-    T_in = x.shape[0]
+    1/1 this is the stream delayed by one sample.  x [..., T_in], carry
+    [...].  Returns (out [..., n_out], new carry = x[..., -1])."""
+    T_in = x.shape[-1]
     if n_out * num != T_in * den:
         raise ValueError(f"rate_map_linear: {n_out} * {num} != {T_in} * "
                          f"{den}")
@@ -407,7 +496,7 @@ def rate_map_linear(x: Tensor, num: int, den: int, n_out: int,
     pos_num = j * num
     base = pos_num // den
     frac = (pos_num - base * den).to(torch.float32) / den
-    xx = torch.cat([carry.reshape(1).to(x.dtype), x])
-    a = xx[base]
-    b = xx[base + 1]
-    return a + (b - a) * frac, x[-1]
+    xx = torch.cat([carry[..., None].to(x.dtype), x], dim=-1)
+    a = xx[..., base]
+    b = xx[..., base + 1]
+    return a + (b - a) * frac, x[..., -1]

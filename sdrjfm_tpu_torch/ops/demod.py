@@ -6,7 +6,9 @@ the only carried state is the 1-2 sample history, two one-pole trackers
 (AFC and AM carrier) and, for `pll`, its frequency estimate.  The two
 trackers run as ONE two-row launch of the scan kernel where their drives
 are independent (every decoder but `pll`, whose AFC drive is the output of
-its own one-pole: two launches then).
+its own one-pole: two launches then).  Every op takes a block [..., T]
+with states [...]: the leading rows are stations, each its own stream,
+and the trackers of every row share the launch.
 """
 
 from __future__ import annotations
@@ -61,8 +63,8 @@ def demodulate_block(z: Tensor, state: DemodState,
                      decoder: str = "mixed", rate: int = C.FM_RATE,
                      axis=None, defer_tail: bool = False
                      ) -> Tuple[Tensor, DemodState, Tensor]:
-    """Demodulate a block of complex baseband at the fm rate.  Returns
-    (demod [T] f32 scaled 20*(res - afc)/K_FM — the clipped envelope for
+    """Demodulate a block of complex baseband at the fm rate (z [..., T],
+    the state's leaves [...]).  Returns (demod [..., T] f32 scaled 20*(res - afc)/K_FM — the clipped envelope for
     `am` —, new state, carrier amplitude track [T]).
 
     With `axis` (a parallel.distributed.TimeAxis, z this rank's slice) the
@@ -77,7 +79,7 @@ def demodulate_block(z: Tensor, state: DemodState,
         return _demodulate_sharded(z, state, decoder, rate, axis, defer_tail)
     mag = torch.abs(z)
     zn = _normalize(z)
-    p1 = torch.cat([state.prev1[None], zn[:-1]])
+    p1 = torch.cat([state.prev1[..., None], zn[..., :-1]], dim=-1)
     tail = _tail2(zn, state)
     if decoder == "am":
         # the AFC tracker runs on a zero drive, as the JAX receiver feeds it
@@ -87,8 +89,9 @@ def demodulate_block(z: Tensor, state: DemodState,
         res = _decode_am(mag, am_track)
         return res, state._replace(am_carr=am_last, fm_afc=afc_last,
                                    **tail), am_track
-    p2 = torch.cat([state.prev2[None], state.prev1[None], zn[:-2]]
-                   )[: zn.shape[0]] if decoder == "difference" else None
+    p2 = torch.cat([state.prev2[..., None], state.prev1[..., None],
+                    zn[..., :-2]], dim=-1)[..., : zn.shape[-1]] \
+        if decoder == "difference" else None
     if decoder == "pll":
         res, pll_last = _decode_pll_block(zn, p1, state, rate)
         am_track, am_last = ema_apply(mag, C.CARRIER_ALPHA, state.am_carr)
@@ -108,8 +111,8 @@ def demodulate_block(z: Tensor, state: DemodState,
 
 def _tail2(zn: Tensor, state: DemodState) -> dict:
     """(z[-1], z[-2]) of this block: the next block's look-back."""
-    return dict(prev1=zn[-1],
-                prev2=zn[-2] if zn.shape[0] >= 2 else state.prev1)
+    return dict(prev1=zn[..., -1],
+                prev2=zn[..., -2] if zn.shape[-1] >= 2 else state.prev1)
 
 
 def _discriminate(decoder: str, zn: Tensor, p1: Tensor,
@@ -133,12 +136,12 @@ def _demodulate_sharded(z, state, decoder, rate, axis, defer_tail):
     from ..parallel import distributed as DD
     mag = torch.abs(z)
     zn = _normalize(z)
-    prev1_in = DD.left_halo(zn, 1, state.prev1[None], axis)
-    p1 = torch.cat([prev1_in, zn[:-1]])
+    prev1_in = DD.left_halo(zn, 1, state.prev1[..., None], axis)
+    p1 = torch.cat([prev1_in, zn[..., :-1]], dim=-1)
     tail = _tail2(zn, state)
     if not defer_tail:
-        t = axis.all_gather(zn[-2:])[-1]
-        tail = dict(prev1=t[1], prev2=t[0])
+        t = axis.all_gather(zn[..., -2:].contiguous())[-1]
+        tail = dict(prev1=t[..., 1], prev2=t[..., 0])
     if decoder == "am":
         # am_track comes before res; the AFC drive is zero, so the two
         # trackers still share one gather
@@ -149,9 +152,9 @@ def _demodulate_sharded(z, state, decoder, rate, axis, defer_tail):
             am_carr=am_last, fm_afc=afc_last, **tail), am_track
     p2 = None
     if decoder == "difference":
-        halo2 = DD.left_halo(zn, 2, torch.stack([state.prev2, state.prev1]),
-                             axis)
-        p2 = torch.cat([halo2, zn[:-2]])
+        halo2 = DD.left_halo(zn, 2, torch.stack([state.prev2, state.prev1],
+                                                dim=-1), axis)
+        p2 = torch.cat([halo2, zn[..., :-2]], dim=-1)
     new = state._replace(**tail)
     if decoder == "pll":
         beta = _pll_beta(rate)

@@ -10,7 +10,8 @@ The +pi reproduces the reference PLL's anti-phase lock, and w19*D
 compensates the bandpass group delay D.  The lock metric smooths |p| with
 alpha = 1/3000 (one launch of the scan kernel) and applies the 0.07 / 500 ms
 hold rule.  On the main path the bandpass comes from the receiver's shared
-pilot+RDS forward FFT (`pre=`).
+pilot+RDS forward FFT (`pre=`).  A block may carry leading station rows
+([..., T], states [...]).
 """
 
 from __future__ import annotations

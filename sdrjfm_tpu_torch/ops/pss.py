@@ -8,7 +8,9 @@ per-sub-block sums of F^2 are formed in one vectorised pass and only a
 scalar recurrence over the sub-blocks remains.  JAX runs that recurrence as
 a `lax.scan`; here it is a Python loop over 0-dim device tensors (32 steps
 per 131072-sample block), with `torch.where` in place of the pilot-unlock
-reset.  It never synchronises with the host.
+reset.  It never synchronises with the host.  A block may carry leading
+station rows ([..., T], states [...]): the recurrence then runs on [...]
+vectors, one station's op count for every row.
 """
 
 from __future__ import annotations
@@ -88,7 +90,8 @@ def pss_adapt(demod: Tensor, base_phase: Tensor, locked: Tensor,
     sub-blocks' offsets; the returned tail is this rank's candidate."""
     if not active:
         return torch.zeros_like(demod), state
-    T = demod.shape[0]
+    T = demod.shape[-1]
+    lead = demod.shape[:-1]
     S = cfg.subblock
     assert T % S == 0
     nsub = T // S
@@ -103,31 +106,32 @@ def pss_adapt(demod: Tensor, base_phase: Tensor, locked: Tensor,
     else:
         from ..parallel.distributed import dist_fir
         F, tail = dist_fir(u, cfg.kernel, state.tail, axis)
-    G = (F * F).reshape(nsub, S)
-    S_k = G.sum(dim=1)
-    W_k = (G * cfg.ema_weights[None, :]).sum(dim=1)
+    G = (F * F).reshape(lead + (nsub, S))
+    S_k = G.sum(dim=-1)
+    W_k = (G * cfg.ema_weights).sum(dim=-1)
     Sr, Si, Wr, Wi = S_k.real, S_k.imag, W_k.real, W_k.imag
-    sub_locked = locked.reshape(nsub, S)[:, 0]
+    sub_locked = locked.reshape(lead + (nsub, S))[..., 0]
     if axis is not None:
         # one packed gather (f32, lossless); the scan below then sees the
         # whole block's sub-block sums, in rank order
         g = axis.all_gather(torch.stack([Sr, Si, Wr, Wi,
                                          sub_locked.to(torch.float32)]))
-        Sr, Si, Wr, Wi, lk = g.transpose(0, 1).reshape(5, -1)
+        g = g.movedim(0, -2)                      # [5, ..., P, nsub]
+        Sr, Si, Wr, Wi, lk = g.reshape(g.shape[:-2] + (-1,))
         sub_locked = lk > 0.5
 
     acc, me = state.acc, state.mean_error
     minimized, lock_run, unlock_run = (state.minimized, state.lock_run,
                                        state.unlock_run)
     accs = []
-    for k in range(sub_locked.shape[0]):
-        lk = sub_locked[k]
+    for k in range(sub_locked.shape[-1]):
+        lk = sub_locked[..., k]
         boost = torch.where(minimized, 1.0, C.PSS_ERROR_BOOST)
         c, s = torch.cos(-2.0 * acc), torch.sin(-2.0 * acc)
         # Im(e^{-2j acc} * S_k), Im(e^{-2j acc} * W_k)
-        err_sum = 0.5 * (c * Si[k] + s * Sr[k]) * boost
+        err_sum = 0.5 * (c * Si[..., k] + s * Sr[..., k]) * boost
         acc_n = torch.clamp(acc + alpha * err_sum, -C.PSS_CLAMP, C.PSS_CLAMP)
-        me_n = decay * me + 0.5 * boost * (c * Wi[k] + s * Wr[k])
+        me_n = decay * me + 0.5 * boost * (c * Wi[..., k] + s * Wr[..., k])
         below = torch.abs(me_n) < C.PSS_LOCK_THRESHOLD
         lock_n = torch.where(below, lock_run + S, 0)
         unlock_n = torch.where(below, 0, unlock_run + S)
@@ -145,5 +149,6 @@ def pss_adapt(demod: Tensor, base_phase: Tensor, locked: Tensor,
                          unlock_run=unlock_run)
     if axis is not None:
         accs = accs[axis.index * nsub:(axis.index + 1) * nsub]
-    offsets = torch.stack(accs)[:, None].expand(nsub, S).reshape(T)
+    offsets = torch.stack(accs, dim=-1)[..., None].expand(
+        lead + (nsub, S)).reshape(lead + (T,))
     return offsets, new_state

@@ -10,6 +10,9 @@ Block shape: both band filters run in ONE call of the pole-bank kernel
 (`iir_apply_many`), both decaying averages in ONE two-row launch of the
 real scan, and the ~23 Hz decision lattice is a Python loop over 0-dim
 device tensors (16 hold periods a block at block_fm=131072): no host sync.
+A block may carry leading station rows ([..., T], the level [...]): every
+row's filters share the pole-bank launch, its averages the scan launch,
+and the decision loop runs on [...] vectors.
 """
 
 from __future__ import annotations
@@ -76,8 +79,9 @@ def _periods(T: int, H: int) -> int:
 
 def _gate(x: Tensor, sups, H: int) -> Tensor:
     """x with each hold period zeroed where its decision suppresses."""
-    keep = (~torch.stack(sups)).to(x.dtype)
-    return (x.view(len(sups), H) * keep[:, None]).reshape(-1)
+    keep = (~torch.stack(sups, dim=-1)).to(x.dtype)         # [..., nper]
+    return (x.reshape(x.shape[:-1] + (len(sups), H))
+            * keep[..., None]).reshape(x.shape)
 
 
 def squelch_bank(cfg: SquelchConfig, device) -> IIRBank:
@@ -86,11 +90,13 @@ def squelch_bank(cfg: SquelchConfig, device) -> IIRBank:
 
 
 def _gathered_periods(axis, *xs: Tensor):
-    """The period-end values of every rank (one gather), in rank order."""
+    """The period-end values [..., nper] of every rank (one gather), in
+    rank order along the last axis."""
     if axis is None:
         return xs
-    g = axis.all_gather(torch.stack(xs))               # [P, len(xs), nper]
-    return tuple(g.transpose(0, 1).reshape(len(xs), -1))
+    g = axis.all_gather(torch.stack(xs))          # [P, len(xs), ..., nper]
+    g = g.movedim(0, -2)                          # [len(xs), ..., P, nper]
+    return tuple(g.reshape(g.shape[:-2] + (-1,)))
 
 
 def _own(sups, nper: int, axis):
@@ -113,9 +119,10 @@ def noise_squelch(x: Tensor, level: Tensor, cfg: SquelchConfig,
     through dist_ema2 (one gather); the decision lattice runs over every
     rank's period-end averages (one gather) on every rank alike, and each
     rank gates its own periods.  Requires T_local % hold_period == 0."""
-    T = x.shape[0]
+    T = x.shape[-1]
     H = cfg.hold_period
     nper = _periods(T, H)
+    per = x.shape[:-1] + (nper, H)
     thr = 1.0 - level.to(torch.float32) / 100.0
     w = 1.0 / (cfg.rate / 100.0)        # decayingAverage weight
     if bank is None:
@@ -133,13 +140,13 @@ def noise_squelch(x: Tensor, level: Tensor, cfg: SquelchConfig,
         (ah, ah_last), (al, al_last) = DD.dist_ema2(
             torch.abs(v1), w, state.avg_high, torch.abs(v2), w,
             state.avg_low, axis)
-    ah_p, al_p = _gathered_periods(axis, ah.view(nper, H)[:, -1],
-                                   al.view(nper, H)[:, -1])
+    ah_p, al_p = _gathered_periods(axis, ah.reshape(per)[..., -1],
+                                   al.reshape(per)[..., -1])
     sup = state.suppress
     sups = []
-    for k in range(ah_p.shape[0]):
-        open_ = ah_p[k] < al_p[k] * thr - HYSTERESIS_NSQ
-        close = ah_p[k] >= al_p[k] * thr + HYSTERESIS_NSQ
+    for k in range(ah_p.shape[-1]):
+        open_ = ah_p[..., k] < al_p[..., k] * thr - HYSTERESIS_NSQ
+        close = ah_p[..., k] >= al_p[..., k] * thr + HYSTERESIS_NSQ
         sup = torch.where(thr < HYSTERESIS_NSQ, True,
                           torch.where(open_, False,
                                       torch.where(close, True, sup)))
@@ -156,16 +163,17 @@ def level_squelch(x: Tensor, carrier: Tensor, level: Tensor,
     the period-end carrier values of every rank arrive in one gather, the
     decisions run on every rank alike and each rank gates its own
     periods."""
-    T = x.shape[0]
+    T = x.shape[-1]
     H = cfg.hold_period
     nper = _periods(T, H)
     thr = torch.pow(10.0, (level.to(torch.float32) - 80.0) / 30.0)
-    c_p, = _gathered_periods(axis, carrier.view(nper, H)[:, -1])
+    c_p, = _gathered_periods(
+        axis, carrier.reshape(carrier.shape[:-1] + (nper, H))[..., -1])
     sup = state.suppress
     sups = []
-    for k in range(c_p.shape[0]):
-        sup = torch.where(c_p[k] < thr, True,
-                          torch.where(c_p[k] >= thr, False, sup))
+    for k in range(c_p.shape[-1]):
+        sup = torch.where(c_p[..., k] < thr, True,
+                          torch.where(c_p[..., k] >= thr, False, sup))
         sups.append(sup)
     return _gate(x, _own(sups, nper, axis), H), state._replace(suppress=sup)
 

@@ -109,7 +109,12 @@ def init_time_axis(rank: int, world: int, store, device=None) -> "TimeAxis":
 
 
 def _bytes(t: Tensor) -> Tensor:
-    return t.contiguous().reshape(-1).view(torch.uint8)
+    t = t.contiguous().reshape(-1)
+    if t.numel() and t.stride(0) != 1:
+        # a one-element view (one station's last sample) keeps its
+        # parent's stride, which a byte view refuses
+        t = t.clone(memory_format=torch.contiguous_format)
+    return t.view(torch.uint8)
 
 
 class TimeAxis:
@@ -243,9 +248,10 @@ class TimeAxis:
 
 def left_halo(x_local: Tensor, halo_len: int, first_carry: Tensor,
               axis: TimeAxis) -> Tensor:
-    """Tail of the left ring neighbour's slice; rank 0 takes
+    """Tail of the left ring neighbour's slice ([..., halo_len] of every
+    row of x_local [..., T] in one exchange); rank 0 takes
     `first_carry`."""
-    return axis.left_halo(x_local[-halo_len:], first_carry)
+    return axis.left_halo(x_local[..., -halo_len:], first_carry)
 
 
 def dist_fir(x_local: Tensor, kernel: Tensor, stream_carry: Tensor,
@@ -315,30 +321,32 @@ def _fold(c: Tensor, G, lasts: Tensor, upto: int) -> Tensor:
 def _linrec_finish(y_free: Tensor, g: float, y0, lasts: Tensor,
                    axis: TimeAxis) -> Tuple[Tensor, Tensor]:
     """Entry-state fold shared by dist_linrec and dist_linrec2: given the
-    local free response and the gathered last free samples [P], return
-    (y_local, y_final).  G = g^T rounds once from float64; the decay g^(n+1)
-    is an f32 power with an f32 exponent, as the JAX helper forms it."""
-    T = y_free.shape[0]
+    local free response [..., T] and the gathered last free samples [P,
+    ...], return (y_local, y_final [...]).  G = g^T rounds once from
+    float64; the decay g^(n+1) is an f32 power with an f32 exponent, as
+    the JAX helper forms it."""
+    T = y_free.shape[-1]
     gf = float(np.float32(g))
     G = float(np.float32(np.float64(gf) ** T))
     c0 = _scalar(y0, y_free.dtype, y_free.device)
     c_d = _fold(c0, G, lasts, axis.index)
     decay = torch.pow(gf, torch.arange(1, T + 1, dtype=torch.float32,
                                        device=y_free.device))
-    return y_free + decay * c_d, _fold(c0, G, lasts, axis.size)
+    return y_free + decay * c_d[..., None], _fold(c0, G, lasts, axis.size)
 
 
 def dist_linrec(drive_local: Tensor, g: float, y0, axis: TimeAxis
                 ) -> Tuple[Tensor, Tensor]:
-    """y[n] = g*y[n-1] + drive[n] over the concatenated stream (real f32);
-    y0 enters rank 0.  Returns (y_local, y_final), y_final the same on
-    every rank.  With the local free response f (the scan kernel from a
+    """y[n] = g*y[n-1] + drive[n] over the concatenated stream (real f32,
+    [..., T_local], each row its own stream); y0 [...] enters rank 0.
+    Returns (y_local, y_final), y_final the same on every rank.  With the local free response f (the scan kernel from a
     zero entry state) and G = g^T_local, rank d's entry state is
         c_d = G^d y0 + sum_{k<d} G^(d-1-k) f_k[-1],
     and y_local = f + g^(n+1) c_d."""
-    zero = torch.zeros((), dtype=torch.float32, device=drive_local.device)
+    zero = torch.zeros(drive_local.shape[:-1], dtype=torch.float32,
+                       device=drive_local.device)
     y_free, _ = B.linrec_apply(drive_local, g, zero)
-    lasts = axis.all_gather(y_free[-1])                      # [P]
+    lasts = axis.all_gather(y_free[..., -1].contiguous())    # [P, ...]
     return _linrec_finish(y_free, g, y0, lasts, axis)
 
 
@@ -349,15 +357,19 @@ def dist_ema(x_local: Tensor, alpha: float, y0, axis: TimeAxis):
 def dist_linrec2(d1: Tensor, g1: float, y01, d2: Tensor, g2: float, y02,
                  axis: TimeAxis):
     """TWO independent first-order recurrences sharing ONE gather: both
-    free responses in one two-row launch of the scan kernel, both last
-    samples in one [P, 2] gather.  Equal to (dist_linrec(d1, g1, y01),
-    dist_linrec(d2, g2, y02)).  Returns ((y1, f1), (y2, f2))."""
+    free responses in one launch of the scan kernel (two rows a stream
+    row), both last samples in one [P, 2, ...] gather.  Equal to
+    (dist_linrec(d1, g1, y01), dist_linrec(d2, g2, y02)).  Returns ((y1,
+    f1), (y2, f2))."""
     from ..kernels.linrec import linrec
     drive = torch.stack([d1.to(torch.float32), d2.to(torch.float32)])
-    y_free, _ = linrec(drive.contiguous(), [g1, g2],
-                       torch.zeros(2, dtype=torch.float32,
+    T = drive.shape[-1]
+    n = drive[0].numel() // T
+    y_free, _ = linrec(drive.reshape(-1, T).contiguous(), [g1] * n + [g2] * n,
+                       torch.zeros(2 * n, dtype=torch.float32,
                                    device=drive.device))
-    lasts = axis.all_gather(y_free[:, -1].contiguous())     # [P, 2]
+    y_free = y_free.view(drive.shape)
+    lasts = axis.all_gather(y_free[..., -1].contiguous())   # [P, 2, ...]
     return (_linrec_finish(y_free[0], g1, y01, lasts[:, 0], axis),
             _linrec_finish(y_free[1], g2, y02, lasts[:, 1], axis))
 
@@ -388,35 +400,26 @@ def _powers(poles: Tensor, T: int) -> Tensor:
     return torch.as_tensor(G, device=poles.device)
 
 
-def _bank_across(drives: Tensor, bank, w0s: Sequence[Tensor],
-                 axis: TimeAxis, extra: Sequence[Tensor] = ()):
-    """The pole bank over drives [B, T_local] f32 across the axis, each
-    bank entering rank 0 from its w0s[b] [P_b].  One launch from a zero
-    entry state gives the free responses and their end states; ONE gather
-    carries the end states (and the `extra` tensors); the entry states are
-    folded in rank order; a second launch on a zero drive from those
-    states adds the entry-state term Re sum_p r_p g_p^(n+1) c_p.  Returns
-    (y [B, T_local], final states [P_b] per bank, gathered rows of
+def _bank_across(drives: Tensor, bank, w0: Tensor, axis: TimeAxis,
+                 extra: Sequence[Tensor] = ()):
+    """The pole bank over drives [B, T_local] f32 across the axis, bank b
+    entering rank 0 from w0[b] ([B, P] complex64, padded).  One launch
+    from a zero entry state gives the free responses and their end states;
+    ONE gather carries the end states (and the `extra` tensors); the entry
+    states are folded in rank order; a second launch on a zero drive from
+    those states adds the entry-state term Re sum_p r_p g_p^(n+1) c_p.
+    Returns (y [B, T_local], final states [B, P], gathered rows of
     `extra`)."""
-    dev = drives.device
-    Bn, T = drives.shape
-    P = bank.poles.shape[1]
-    sizes = bank.sizes
-    zero = [torch.zeros(n, dtype=torch.complex64, device=dev) for n in sizes]
-    y_free, w_free = pole_bank(drives, bank, zero)
-    pad = lambda w: torch.nn.functional.pad(w, (0, P - w.shape[0]))  # noqa: E731
-    rows = fused_gather([torch.stack([pad(w) for w in w_free])]
-                        + list(extra), axis)
+    T = drives.shape[1]
+    y_free, w_free = pole_bank(drives, bank, torch.zeros_like(w0))
+    rows = fused_gather([w_free] + list(extra), axis)
     lasts = rows[0]                                         # [D, B, P]
     G = axis.cached(("pole powers", id(bank), T),
                     lambda: (bank, _powers(bank.poles, T)))[1]
-    c0 = torch.stack([pad(w.to(torch.complex64)) for w in w0s])
-    c_d = _fold(c0, G, lasts, axis.index)
-    c_f = _fold(c0, G, lasts, axis.size)
-    y_in, _ = pole_bank(torch.zeros_like(drives), bank,
-                        [c_d[b, :n].contiguous() for b, n in enumerate(sizes)])
-    return (y_free + y_in, [c_f[b, :n] for b, n in enumerate(sizes)],
-            rows[1:])
+    c_d = _fold(w0, G, lasts, axis.index)
+    c_f = _fold(w0, G, lasts, axis.size)
+    y_in, _ = pole_bank(torch.zeros_like(drives), bank, c_d.contiguous())
+    return y_free + y_in, c_f, rows[1:]
 
 
 def dist_linrec_multi(drive_local: Tensor, gs, y0s: Tensor,
@@ -436,11 +439,10 @@ def dist_linrec_multi(drive_local: Tensor, gs, y0s: Tensor,
             [_Bank(np.asarray([p]), np.asarray([r], np.complex64))
              for p in g for r in (1.0, -1j)], dev))
     drives = drive_local.to(torch.float32)[None].expand(2 * n, -1)
-    y0 = y0s.to(torch.complex64)
-    y, wf, _ = _bank_across(drives.contiguous(), bank,
-                            [y0[i // 2].reshape(1) for i in range(2 * n)],
+    y0 = y0s.to(torch.complex64).reshape(-1).repeat_interleave(2)[:, None]
+    y, wf, _ = _bank_across(drives.contiguous(), bank, y0.contiguous(),
                             axis)
-    return torch.complex(y[0::2], y[1::2]), torch.cat(wf[0::2])
+    return torch.complex(y[0::2], y[1::2]), wf[0::2, 0]
 
 
 def dist_iir_many(xs: Sequence[Tensor], bank: B.IIRBank, states,
@@ -450,20 +452,22 @@ def dist_iir_many(xs: Sequence[Tensor], bank: B.IIRBank, states,
     filters the same input), the pole banks through `_bank_across` in one
     gather with the numerators' candidate tails.  Returned states are the
     same on every rank (pole states by the fold, FIR history the last
-    rank's tail), so they thread as the next block's carry.  Returns
-    [(y [T_local] f32, (pole states, numerator history))]."""
+    rank's tail), so they thread as the next block's carry.  The blocks
+    may carry leading rows ([..., T_local], each row its own stream; every
+    row's banks in the same launches and gather).  Returns [(y [...,
+    T_local] f32, (pole states, numerator history))]."""
     shared = all(x is xs[0] for x in xs)
     ks = [num.shape[0] for num in bank.nums]
     left = None
     if shared and max(ks) > 1:
-        left = axis.from_left(xs[0].to(torch.float32)[-(max(ks) - 1):])
+        left = axis.from_left(xs[0].to(torch.float32)[..., -(max(ks) - 1):])
     drives, tails = [], []
     for x, num, (_, fir_carry) in zip(xs, bank.nums, states):
         x = x.to(torch.float32)
         K = num.shape[0]
         if K > 1:
             if shared:
-                halo = fir_carry if left is None else left[-(K - 1):]
+                halo = fir_carry if left is None else left[..., -(K - 1):]
             else:
                 halo = left_halo(x, K - 1, fir_carry, axis)
             xb, tail = B.fir_apply(x, num, halo)
@@ -472,12 +476,13 @@ def dist_iir_many(xs: Sequence[Tensor], bank: B.IIRBank, states,
         drives.append(xb)
         tails.append(tail)
     fir = [i for i, k in enumerate(ks) if k > 1]
-    y, wf, rows = _bank_across(torch.stack(drives), bank.poles,
-                               [w0 for w0, _ in states], axis,
+    drive, folded, w0 = B.bank_rows(drives, bank, [w0 for w0, _ in states])
+    y, wf, rows = _bank_across(drive, folded, w0, axis,
                                extra=[tails[i] for i in fir])
     for i, r in zip(fir, rows):
         tails[i] = r[-1]
-    return [(y[i], (wf[i], tails[i])) for i in range(len(xs))]
+    outs = B.bank_unrows(y, wf, bank.poles, drives[0].shape[:-1])
+    return [(y_i, (w_i, tails[i])) for i, (y_i, w_i) in enumerate(outs)]
 
 
 def dist_iir(x_local: Tensor, spec: B.IIRSpec, state, axis: TimeAxis):
@@ -537,15 +542,17 @@ def fused_gather(arrays: Sequence[Tensor], axis: TimeAxis) -> List[Tensor]:
 
 def dist_runlength(flags_local: Tensor, r0, axis: TimeAxis
                    ) -> Tuple[Tensor, Tensor]:
-    """Consecutive-true run length across the axis; r0 enters rank 0.
-    Returns (rl_local int32, r_final int32, the same on every rank)."""
-    T = flags_local.shape[0]
+    """Consecutive-true run length across the axis (flags [..., T_local],
+    each row its own run); r0 [...] enters rank 0.  Returns (rl_local
+    int32, r_final int32, the same on every rank)."""
+    T = flags_local.shape[-1]
     dev = flags_local.device
     rl_zero, _ = B.runlength_true(flags_local,
-                                  torch.zeros((), dtype=torch.int32,
-                                              device=dev))
+                                  torch.zeros(flags_local.shape[:-1],
+                                              dtype=torch.int32, device=dev))
     pairs = axis.all_gather(torch.stack([
-        flags_local.all().to(torch.int32), rl_zero[-1].to(torch.int32)]))
+        flags_local.all(dim=-1).to(torch.int32),
+        rl_zero[..., -1].to(torch.int32)]))
 
     def fold(upto):
         c = _scalar(r0, torch.int32, dev)
@@ -555,7 +562,7 @@ def dist_runlength(flags_local: Tensor, r0, axis: TimeAxis
 
     r_in = fold(axis.index)
     # the leading run of trues extends the incoming run
-    lead = torch.cumsum(flags_local.to(torch.int32), 0) == torch.arange(
+    lead = torch.cumsum(flags_local.to(torch.int32), -1) == torch.arange(
         1, T + 1, dtype=torch.int32, device=dev)
-    rl = torch.where(flags_local & lead, rl_zero + r_in, rl_zero)
+    rl = torch.where(flags_local & lead, rl_zero + r_in[..., None], rl_zero)
     return rl.to(torch.int32), fold(axis.size)

@@ -26,7 +26,10 @@ block, which it slices itself).  The classes:
   StationTimeShardedReceiver  stations x time: S station groups of T
                        ranks each (`make_mesh_2d`, one process group per
                        station group), each rank running its station
-                       group's stations on its time slice.
+                       group's stations on its time slice as ONE batched
+                       FullySharded step (a leading station axis on every
+                       op, as JAX vmaps it): the collectives of one
+                       station whatever the group's size.
 
 The step runs eagerly: gloo cannot be captured into a CUDA graph, and an
 NCCL capture is later work.  `init_state` builds the receiver's initial
@@ -49,7 +52,7 @@ import torch.distributed as dist
 
 from ..kernels.frontend import DC_SUBSAMPLE
 from ..models.receiver import Controls, Receiver, ReceiverState
-from ..runtime.graph import tree_broadcast, tree_index, tree_stack
+from ..runtime.graph import tree_broadcast
 from .distributed import TimeAxis, fused_gather, rank_device
 
 AXIS = "time"
@@ -247,9 +250,11 @@ def make_mesh_2d(n_stations: int, n_time: int,
 
 class StationTimeShardedReceiver:
     """BOTH parallel dimensions: stations x time.  Each rank runs the
-    stations of its station group (`controls_for` keeps them) through the
-    FullyShardedReceiver step on its time slice; every collective stays
-    inside the station group's time axis.  Per-station outputs agree with
+    stations of its station group (`controls_for` keeps them) through ONE
+    FullyShardedReceiver step on its time slice, the stations a leading
+    axis of every op (JAX vmaps `one_station` inside its shard_map): 5
+    gathers and 8 halos a step on the main config whatever the number of
+    stations, every collective inside the station group's time axis.  Per-station outputs agree with
     MultiStationReceiver to f32 reassociation (~1e-5), the RDS bits are
     equal.  The same caps as the JAX class: rds off or block, no taps."""
 
@@ -294,15 +299,10 @@ class StationTimeShardedReceiver:
         return MultiStationReceiver(self.rx).controls_for(offs)
 
     def step(self, states, controls: Controls, iq: torch.Tensor):
-        """Every station of the group on this rank's time slice; outputs
-        stacked along the station axis (audio [n/S, Tw/T, 2])."""
-        news, outs = [], []
-        for s in range(controls.lo_freq_hz.shape[0]):
-            new, out = self.inner.step(tree_index(states, s),
-                                       tree_index(controls, s), iq)
-            news.append(new)
-            outs.append(out)
-        return tree_stack(news), tree_stack(outs)
+        """Every station of the group on this rank's time slice, as one
+        batched step; outputs carry the station axis (audio [n/S, Tw/T,
+        2])."""
+        return self.inner.step(states, controls, iq)
 
 
 # ---------------------------------------------------------------------------

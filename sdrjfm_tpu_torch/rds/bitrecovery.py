@@ -11,7 +11,9 @@ sdrjfm_tpu.rds.bitrecovery).
   differential   : b[k] = s[k] XOR s[k-1]
 
 Gathers use int64 indices; torch.round and jnp.round both round half to
-even.  Nothing here synchronises with the host.
+even.  Nothing here synchronises with the host.  A block may carry leading
+station rows ([..., T], states [...]): every gather then runs per row and
+the bits come out [..., capacity] with a count [...], as JAX's vmap gives.
 """
 
 from __future__ import annotations
@@ -85,9 +87,11 @@ def bit_capacity(block_len: int) -> int:
 
 
 def _take(y: Tensor, idx: Tensor) -> Tensor:
-    """y[idx] for an integer index tensor of any shape (int64 gather)."""
-    return y.index_select(0, idx.reshape(-1).to(torch.int64)
-                          ).reshape(idx.shape)
+    """Row by row y[..., idx]: y [..., T], idx [..., *shape] (the rows'
+    leading dims first) -> [..., *shape] (int64 gather)."""
+    lead = y.shape[:-1]
+    flat = idx.reshape(lead + (-1,)).to(torch.int64)
+    return torch.gather(y, -1, flat).reshape(idx.shape)
 
 
 def _interp_linear(y: Tensor, pos: Tensor) -> Tensor:
@@ -104,7 +108,8 @@ def recover_bits(z: Tensor, cfg: BitRecoveryConfig,
     """Demodulate one block of RDS baseband (24 kS/s complex) into bits.
     Returns (BitBlock, demod24, new_state); demod24 holds, at each sample,
     the most recently emitted constellation point (the RDS_DEMOD view)."""
-    T = z.shape[0]
+    T = z.shape[-1]
+    lead = z.shape[:-1]
     dev = z.device
     phase_sub = cfg.phase_sub
     assert T % phase_sub == 0, (T, phase_sub)
@@ -112,17 +117,17 @@ def recover_bits(z: Tensor, cfg: BitRecoveryConfig,
 
     # --- carrier phase: squared-BPSK estimate per sub-block, unwrapped ----
     nsub = T // phase_sub
-    y2 = (y * y).reshape(nsub, phase_sub)
-    raw = 0.5 * torch.angle(y2.mean(dim=1))               # psi mod pi
+    y2 = (y * y).reshape(lead + (nsub, phase_sub))
+    raw = 0.5 * torch.angle(y2.mean(dim=-1))              # psi mod pi
     psi = state.psi
     psi_seq = []
     for k in range(nsub):
-        r = raw[k]
+        r = raw[..., k]
         psi = r + torch.round((psi - r) / math.pi) * math.pi
         psi_seq.append(psi)
     psi_last = psi
-    psi_full = torch.stack(psi_seq)[:, None].expand(nsub, phase_sub
-                                                     ).reshape(T)
+    psi_full = torch.stack(psi_seq, dim=-1)[..., None].expand(
+        lead + (nsub, phase_sub)).reshape(lead + (T,))
     yr = y * torch.complex(torch.cos(psi_full), -torch.sin(psi_full))
 
     # --- bit timing: energy over candidate fractional offsets ---------------
@@ -131,9 +136,9 @@ def recover_bits(z: Tensor, cfg: BitRecoveryConfig,
     offs = (torch.arange(TIMING_GRID, dtype=torch.float32, device=dev)
             / TIMING_GRID) * SPS
     pos = offs[:, None] + k[None, :] * SPS                # [G, nbits]
-    e = torch.abs(_interp_linear(yr, pos)) ** 2
-    energy = e.sum(dim=1)
-    tau_best = _take(offs, torch.argmax(energy))
+    e = torch.abs(_interp_linear(yr, pos.expand(lead + pos.shape))) ** 2
+    energy = e.sum(dim=-1)
+    tau_best = torch.take(offs, torch.argmax(energy, dim=-1))
     dt = tau_best - torch.remainder(state.tau, SPS)
     dt = dt - SPS * torch.round(dt / SPS)                 # wrap to ±SPS/2
     max_step = (SPS / TIMING_GRID) * min(1.0, nbits_probe / 190.0)
@@ -143,14 +148,14 @@ def recover_bits(z: Tensor, cfg: BitRecoveryConfig,
     # --- sample the bit grid -------------------------------------------------
     capacity = bit_capacity(T)
     bk = torch.arange(capacity, dtype=torch.float32, device=dev)
-    bit_pos = tau0 + bk * SPS
+    bit_pos = tau0[..., None] + bk * SPS
     valid = bit_pos <= (T - 2)
     sym = _interp_linear(yr, torch.clamp(bit_pos, 0.0, T - 2))
     hard = sym.real >= 0.0
-    prev = torch.cat([state.prev_sym[None], hard[:-1]])
+    prev = torch.cat([state.prev_sym[..., None], hard[..., :-1]], dim=-1)
     bits = (hard ^ prev).to(torch.int8)
 
-    count = valid.to(torch.int32).sum(dtype=torch.int32)
+    count = valid.to(torch.int32).sum(dim=-1, dtype=torch.int32)
     # hard[count - 1], wrapping to the last entry at count == 0 as jnp does
     prev_sym_last = _take(hard, torch.remainder(count - 1, capacity))
     tau_next = tau0 + count.to(torch.float32) * SPS - T
@@ -158,17 +163,17 @@ def recover_bits(z: Tensor, cfg: BitRecoveryConfig,
     # --- RDS_DEMOD view: sample-hold of the last emitted point ---------------
     sym4 = sym * 4.0
     t = torch.arange(T, dtype=torch.float32, device=dev)
-    j = torch.floor((t - tau0) / SPS).to(torch.int32)
-    j = torch.minimum(j, count - 1)
+    j = torch.floor((t - tau0[..., None]) / SPS).to(torch.int32)
+    j = torch.minimum(j, count[..., None] - 1)
     held = _take(sym4, torch.clamp(j, 0, capacity - 1))
-    demod24 = torch.where(j < 0, state.last_iq, held)
+    demod24 = torch.where(j < 0, state.last_iq[..., None], held)
     last_iq = torch.where(count > 0,
                           _take(sym4, torch.clamp(count - 1, 0, capacity - 1)),
                           state.last_iq)
 
     new = BitRecoveryState(mf_carry=mf_carry, psi=psi_last, tau=tau_next,
                            prev_sym=prev_sym_last,
-                           timing_locked=torch.ones((), dtype=torch.bool,
+                           timing_locked=torch.ones(lead, dtype=torch.bool,
                                                     device=dev),
                            last_iq=last_iq)
     blk = BitBlock(bits=bits, valid=valid, count=count, iq=sym4)

@@ -154,10 +154,11 @@ def test_meter_line_matches_jax(wav, tmp_path, capsys):
         lines[who] = [ln.rstrip() for ln in res[who][2].split("\r")
                       if ln.startswith("[")]
     # how many lines depends on the wall clock (a repaint at most every
-    # 0.25 s, and every 8th block); the first block's always prints
+    # 0.25 s, and every 8th block); the first block's always prints.  The
+    # levels are "%+5.1f": above -10 dB the field pads before its sign
     import re
     fmt = re.compile(r"\[ *\d+\.\ds\] pilot=(LOCK|----) \d+\.\d\d "
-                     r"L=[+-] *\d+\.\ddB R=[+-] *\d+\.\ddB")
+                     r"L= *[+-] *\d+\.\ddB R= *[+-] *\d+\.\ddB")
     for who in ("jax", "port"):
         assert lines[who] and all(fmt.match(ln) for ln in lines[who]), who
     a, b = lines["port"][0], lines["jax"][0]

@@ -4,8 +4,8 @@ the CPU.
 
 - front_end_rows == JAX's vmap(front_end) over stations on one shared block
   and over the band scan's offsets x blocks, and == front_end row by row
-  on every split path (input filter, reference cascade, input tap, native
-  rate), bit for bit;
+  on every path (input filter, reference cascade, input tap, native rate),
+  bit for bit;
 - MultiStationReceiver.step == JAX's on a two-station capture: both
   packages run ~1 s (pilot locked) from the JAX state handed over with
   convert.state_from_numpy, then compare three blocks: audio within 2e-4
@@ -225,7 +225,10 @@ def test_front_end_rows_matches_jax_vmap(layout):
 def test_front_end_rows_equals_front_end_per_row(opts):
     """Every path: row r of front_end_rows == front_end on row r's state,
     controls and block, bit for bit (the fused path's plain version is the
-    same arithmetic row by row; the split paths loop over the rows)."""
+    same arithmetic row by row; the split paths run the rows as one batch
+    of the same ops).  On one thread: MKL threads a lone 65536-point FFT
+    (the input filter on one row's frame) but not a batch of them, and
+    rounds the two otherwise (P.one_thread)."""
     kw = dict(block_fm=FE_BLOCK_FM, rds="off", **opts)
     trx = Receiver(ReceiverConfig(**kw), device="cpu")
     jrx = JReceiver(JConfig(**kw))
@@ -241,12 +244,13 @@ def test_front_end_rows_equals_front_end_per_row(opts):
         wire = rng.integers(-20000, 20000, shape).astype(np.int16)
     ts, tc, _, _ = _rows_inputs(trx, jrx, R)
     bidx = torch.tensor([1, 0, 1], dtype=torch.int32)
-    v, fe = trx.front_end_rows(ts, tc, torch.from_numpy(wire), bidx)
+    with P.one_thread():
+        v, fe = trx.front_end_rows(ts, tc, torch.from_numpy(wire), bidx)
+        rows = [trx.front_end(tree_index(ts, r), tree_index(tc, r),
+                              torch.from_numpy(wire[int(bidx[r])]))
+                for r in range(R)]
     assert v.shape == (R, FE_BLOCK_FM)
-    for r in range(R):
-        vr, (dc, itail, t1, t2, itap, rc) = trx.front_end(
-            tree_index(ts, r), tree_index(tc, r),
-            torch.from_numpy(wire[int(bidx[r])]))
+    for r, (vr, (dc, itail, t1, t2, itap, rc)) in enumerate(rows):
         assert torch.equal(v[r], vr)
         for name, got in (("rf_dc", dc), ("band1", t1), ("band2", t2),
                           ("input_filt", itail if kw.get("input_filter")
@@ -256,6 +260,29 @@ def test_front_end_rows_equals_front_end_per_row(opts):
                 assert fe[name] is None, name
             else:
                 assert torch.equal(fe[name][r], got), name
+
+
+def test_front_end_rows_plain_in_passes_equals_one_pass(monkeypatch):
+    """frontend_rows_plain takes its rows in passes of at most
+    PLAIN_ROW_SAMPLES input samples; a pass of one row each (as at the band
+    scan's 76 rows of a full block) equals one pass of every row bit for
+    bit."""
+    from sdrjfm_tpu_torch.kernels import frontend as FE
+    trx = Receiver(ReceiverConfig(block_fm=FE_BLOCK_FM, rds="off",
+                                  iq_format="i16"), device="cpu")
+    jrx = JReceiver(JConfig(block_fm=FE_BLOCK_FM, rds="off",
+                            iq_format="i16"))
+    rng = np.random.default_rng(11)
+    R, T = 3, trx.cfg.block_in
+    wire = torch.from_numpy(rng.integers(-20000, 20000, (2, T, 2)).astype(
+        np.int16))
+    ts, tc, _, _ = _rows_inputs(trx, jrx, R)
+    bidx = torch.tensor([1, 0, 1], dtype=torch.int32)
+    one = trx.front_end_rows(ts, tc, wire, bidx)
+    monkeypatch.setattr(FE, "PLAIN_ROW_SAMPLES", T)
+    passes = trx.front_end_rows(ts, tc, wire, bidx)
+    for a, b in zip(tree_leaves(one), tree_leaves(passes)):
+        assert torch.equal(a, b)
 
 
 def test_front_end_rows_plain_raises_on_a_bad_block_index():
@@ -305,6 +332,29 @@ def test_scan_true_and_false_agree(capture, port_rx, demodulated):
         np.testing.assert_array_equal(a["audio"], b["audio"])
         np.testing.assert_array_equal(a["rds_bits"], b["rds_bits"])
         assert a["meta"] == b["meta"]
+
+
+def test_squelch_levels_per_station_equal_single_station_runs(capture):
+    """demodulate_stations(squelch_levels=) under nsq: each station equals
+    its single-station run_offline at its own level bit for bit; level 100
+    closes the squelch (silent audio, no pilot lock), level 0 leaves it
+    open."""
+    rx = Receiver(ReceiverConfig(**KW, squelch="nsq"), device="cpu")
+    levels = [0.0, 100.0]
+    res = MS.demodulate_stations(rx, capture, OFFSETS, squelch_levels=levels)
+    for got, off, lvl in zip(res, OFFSETS, levels):
+        single = run_offline(rx, capture, rx.initial_controls()._replace(
+            lo_freq_hz=torch.tensor(off, dtype=torch.int32),
+            squelch_level=torch.tensor(lvl, dtype=torch.float32)))
+        np.testing.assert_array_equal(got["audio"], single.audio)
+        np.testing.assert_array_equal(got["rds_bits"], single.rds_bits)
+        assert got["meta"] == single.meta[-1]
+    assert np.sqrt(np.mean(res[0]["audio"] ** 2)) > 0.05
+    assert not res[1]["audio"].any()
+    assert res[0]["meta"]["pilot_locked"]
+    assert not res[1]["meta"]["pilot_locked"]
+    with pytest.raises(ValueError, match="squelch levels"):
+        MS.demodulate_stations(rx, capture, OFFSETS, squelch_levels=[0.0])
 
 
 def test_rds_off_gives_no_bits(capture):

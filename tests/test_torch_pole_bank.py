@@ -87,20 +87,22 @@ def test_pole_bank_plain_matches_jax_and_float64(which, T):
     bank = L.pole_bank_constants(specs, "cpu")
     assert bank.poles.shape[1] == max(len(s.poles) for s in specs) < \
         L.POLE_MAXP
-    y, wT = L.pole_bank(torch.from_numpy(x), bank,
-                        [torch.from_numpy(w) for w in w0])
+    P = bank.poles.shape[1]
+    y, wT = L.pole_bank(torch.from_numpy(x), bank, torch.stack(
+        [torch.nn.functional.pad(torch.from_numpy(w), (0, P - len(w)))
+         for w in w0]))
     for b, spec in enumerate(specs):
         ref, wref, scale = _f64(spec, x[b], w0[b])
         jy, jw = _jax_pole_part(spec, x[b], w0[b])
-        assert wT[b].shape == (len(spec.poles),)
+        wT_b = wT[b, :len(spec.poles)]
         np.testing.assert_allclose(y[b].numpy(), ref, rtol=0,
                                    atol=POLE_RTOL * scale)
         np.testing.assert_allclose(y[b].numpy(), jy, rtol=0,
                                    atol=POLE_RTOL * scale)
         wscale = float(np.abs(wref).max())
-        np.testing.assert_allclose(wT[b].numpy(), wref, rtol=0,
+        np.testing.assert_allclose(wT_b.numpy(), wref, rtol=0,
                                    atol=POLE_RTOL * 10 * wscale)
-        np.testing.assert_allclose(wT[b].numpy(), jw, rtol=0,
+        np.testing.assert_allclose(wT_b.numpy(), jw, rtol=0,
                                    atol=POLE_RTOL * 10 * wscale)
 
 
@@ -108,14 +110,15 @@ def test_pole_bank_on_the_cpu_launches_nothing():
     specs = _specs("mixed")
     x, w0 = _inputs(specs, 300, 1)
     before = L.pole_bank.launches
-    y, wT = L.pole_bank(torch.from_numpy(x), L.pole_bank_constants(specs,
-                                                                   "cpu"),
-                        [torch.from_numpy(w) for w in w0])
+    bank = L.pole_bank_constants(specs, "cpu")
+    P = bank.poles.shape[1]
+    w = torch.stack([torch.nn.functional.pad(torch.from_numpy(v),
+                                             (0, P - len(v))) for v in w0])
+    y, wT = L.pole_bank(torch.from_numpy(x), bank, w)
     assert L.pole_bank.launches == before
-    assert [w.shape[0] for w in wT] == [len(s.poles) for s in specs]
+    assert wT.shape == (len(specs), P)
     with pytest.raises(ValueError):
-        L.pole_bank(torch.from_numpy(x), L.pole_bank_constants(specs, "cpu"),
-                    [torch.from_numpy(w0[0])] * 2)
+        L.pole_bank(torch.from_numpy(x), bank, w[:1])
 
 
 # --------------------------------------------------------------------------

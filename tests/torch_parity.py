@@ -2,6 +2,8 @@
 JAX receiver into a capture, hand its state across to the port with
 convert.state_from_numpy, and step both packages over the same blocks."""
 
+from contextlib import contextmanager
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +16,20 @@ from sdrjfm_tpu.models.receiver import ReceiverConfig as JConfig
 from sdrjfm_tpu.rds import encode as jencode
 from sdrjfm_tpu_torch import convert
 from sdrjfm_tpu_torch.models.receiver import Receiver, ReceiverConfig
+
+
+@contextmanager
+def one_thread():
+    """Run torch's CPU ops on one thread.  MKL transforms a lone FFT on
+    several threads but a batch of them one transform a thread, and the two
+    round differently; on one thread a row of a batch equals the call on
+    that row alone bit for bit."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def station_iq(seconds: float, seed: int = 0, noise: float = 0.01,
