@@ -26,10 +26,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
              19 x 4 rows on 4 blocks; each row of the 4-station launch and
              an R = 1 launch bit for bit equal to the one-station entry; an
              out-of-range block index gives that row NaN; one device kernel
-             per call.
+             per call.  The fm chain's loop kernels (csrc/loops.cu) against
+             their plain versions at one row, 4 and 19 stations (2S = 8 and
+             38 rows for the run length) and on ragged shapes: pss_scan and
+             psi_unwrap within LOOP_ATOL, run lengths, squelch decisions
+             and every integer and bool state exactly.  Kernel A: 20
+             launches of one call (B = 2 and the 4-station fold, B = 8)
+             bit-identical.
 3b. graph  — the look-back kernels under CUDA-graph replay: two real-scan
-             calls (R=2, R=1), one pole-bank call at the squelch's shapes
-             and a 4-row front-end launch captured in one graph, replayed
+             calls (R=2, R=1), one pole-bank call at the squelch's shapes,
+             a 4-row front-end launch and the four loop kernels at the
+             single-station path's shapes captured in one graph, replayed
              three times on new inputs, each replay against the plain
              versions.
 4. main    — synthesises an 8 s stereo+RDS capture and drives it through
@@ -37,7 +44,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
              block_fm=131072 with the int16 wire: PI/PS/RT back at BER 0,
              pilot and PSS locked, 48 kHz stereo audio.  rx steps through
              the captured graph (Receiver.jit_step): the wrappers' launch
-             counts over the run are the warm-up steps' and the capture's,
+             counts (MAIN_PER_STEP: the front end, two real scans, the PSS
+             scan, the run length and the psi unwrap a step; every later
+             launch check holds these too) over the run are the warm-up
+             steps' and the capture's,
              and the device launches in a profiler trace of a second run
              are the warm-up steps' and one replay's a block.
 5. reference — the same capture through the port on the CPU (the kernels'
@@ -154,12 +164,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
              multiply, IEEE division, sincosf, hypotf and decoder 3's clock
              phase step on one thread (a microkernel timed by clock64), and
              from them, on a line of its own, each sequential stage's
-             latency floor beside its time.
+             latency floor beside its time.  The loop kernels the same way
+             (pss_scan and runlength also at 4 and 19 rows, runlength at
+             38; torch.cummax as runlength's yardstick; the latency floors
+             of pss_scan, psi_unwrap and squelch_decide).
 7. profile — torch.profiler over 5 steady steps: the device's busy share
              of the wall time, device ops per step, the top ops by device
-             time; for the main path, for the heaviest option config and
-             for the main path with RDS decoder 3 (each after its step
-             time).
+             time, and no cummax; for the main path, for the heaviest
+             option config and for the main path with RDS decoder 3 (each
+             after its step time).
 8. scanned — for the same three configs, run_offline_scanned over the
              capture, 7 passes after the capturing one: wall ms per block
              (median, spread), its real-time factor, the same for
@@ -198,7 +211,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
 BLOCK_FM = 131072
-SOURCES = ("frontend.cu", "linrec.cu", "rds_scan.cu")   # every kernel
+SOURCES = ("frontend.cu", "linrec.cu", "rds_scan.cu", "loops.cu")  # every kernel
 FE_ATOL, FE_RTOL = 2e-5, 1e-5      # f32 FIR of 307 taps summed in another
                                    # order + sincosf vs torch sin/cos ulps
 SCAN_RTOL = 1e-5                   # of max|y|: two f32 scans over 131072
@@ -206,6 +219,8 @@ SCAN_RTOL = 1e-5                   # of max|y|: two f32 scans over 131072
                                    # ~1e-6 of the scale off float64
 SCAN_F64_RTOL = 2e-6               # of max|y|: the kernel vs the float64
                                    # recurrence on the host
+A_REPEATS = 20                     # launches of one pole-bank call that
+                                   # must agree bit for bit
 POLE_RTOL = 1e-6                   # of max_n sum_p |r_p||w_p[n]| (the sum's
                                    # terms cancel: the residues reach ~170),
                                    # kernel vs plain and vs float64; both sit
@@ -658,11 +673,218 @@ def phase_row_kernels(rx):
     return err_max
 
 
+# ---------------------------------------------------------------------------
+# phase loop_kernels: the fm chain's sequential loops (csrc/loops.cu)
+# ---------------------------------------------------------------------------
+
+LOOP_ATOL = 1e-6                   # pss_scan / psi_unwrap against their
+                                   # plain versions on the card (both built
+                                   # op by op: -fmad=false; bit for bit
+                                   # expected); run lengths, squelch
+                                   # decisions and every integer and bool
+                                   # state exactly
+PSS_SUB = 4096                     # the PSS sub-block (ops/pss.SUBBLOCK)
+PSI_SUB = 2048                     # the RDS carrier-phase sub-block
+
+
+def _pss_args(rng, lead, n, dev):
+    """pss_scan's inputs for rows `lead` of n sub-blocks, at the path's
+    magnitudes (|S_k| ~ 50, |W_k| ~ 0.01), the first row loud enough to
+    hit the clamp, a quiet row whose error stays below the lock threshold,
+    lock flags as the path hands them (a strided view of the per-sample
+    flags), entry states around the hold so `minimized` turns on and off."""
+    from sdrjfm_tpu_torch import constants as C
+    R = int(np.prod(lead)) if lead else 1
+    t = lambda a, dt=None: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a)).to(dev).reshape(lead + a.shape[1:])
+    scale = np.full((R, 1), 50.0)
+    scale[0] = 1e4
+    wscale = np.full((R, 1), 0.01)
+    wscale[-1] = 1e-7
+    S = scale * (rng.standard_normal((R, n)) + 1j * rng.standard_normal((R, n)))
+    W = wscale * (rng.standard_normal((R, n))
+                  + 1j * rng.standard_normal((R, n)))
+    full = np.repeat(rng.random((R, n)) < 0.85, PSS_SUB, axis=1)
+    full[0] = True
+    lk = torch.from_numpy(full).to(dev).reshape(lead + (n, PSS_SUB))[..., 0]
+    hold = int(C.PSS_LOCK_STABLE_S * C.FM_RATE)
+    state = (t(rng.uniform(-0.7, 0.7, R).astype(np.float32)),
+             t(rng.uniform(-0.01, 0.01, R).astype(np.float32)),
+             t(rng.random(R) < 0.5),
+             t((hold - PSS_SUB * rng.integers(0, 3, R)).astype(np.int32)),
+             t((hold - PSS_SUB * rng.integers(0, 3, R)).astype(np.int32)))
+    return (t(S.astype(np.complex64)), t(W.astype(np.complex64)), lk, state,
+            PSS_SUB, hold, float(np.float32(C.PSS_ALPHA)),
+            float(np.float32((1.0 - 1.0 / C.FM_RATE) ** PSS_SUB)))
+
+
+def _psi_args(rng, R, T, nsub, dev):
+    raw = rng.uniform(-np.pi / 2, np.pi / 2, (R, nsub)).astype(np.float32)
+    psi0 = rng.uniform(-10.0, 10.0, R).astype(np.float32)
+    y = 0.3 * (rng.standard_normal((R, T)) + 1j * rng.standard_normal((R, T)))
+    return tuple(torch.from_numpy(a).to(dev)
+                 for a in (raw, psi0, y.astype(np.complex64)))
+
+
+def _rl_flags(rng, R, T):
+    """All true, all false, short random runs, long runs crossing 1024,
+    2048, 4096 and the kernel's 16384-sample blocks, in turn."""
+    rows = []
+    for r in range(R):
+        kind = r % 4
+        f = (np.ones(T, bool) if kind in (0, 3) else np.zeros(T, bool)
+             if kind == 1 else rng.random(T) < 0.9)
+        if kind == 3:
+            f[[c for c in (1000, 5000, 16380, 20000, 70000, 131000)
+               if c < T]] = False
+        rows.append(f)
+    return np.stack(rows)
+
+
+def _squelch_args(rng, mode, R, n, dev, H=8192):
+    """Period ends as the path hands them (a strided view of [R, n H]
+    averages); ratios a / b around each row's thr within the hysteresis
+    band and outside it, one row with thr below it; level mode: the
+    carrier around thr, one value on it exactly and one NaN."""
+    from sdrjfm_tpu_torch.kernels.loops import HYSTERESIS_NSQ
+    thr = rng.uniform(0.2, 1.0, R).astype(np.float32)
+    thr[0] = np.float32(HYSTERESIS_NSQ / 2)
+    b = rng.uniform(0.5, 2.0, (R, n)).astype(np.float32)
+    if mode == "nsq":
+        a = (b * thr[:, None] * (1.0 + rng.uniform(-0.004, 0.004, (R, n)))
+             ).astype(np.float32)
+    else:
+        a = (thr[:, None] * (1.0 + rng.uniform(-0.5, 0.5, (R, n)))
+             ).astype(np.float32)
+        a[-1, 0] = thr[-1]
+        a[-1, -1] = np.nan
+    full = lambda v: torch.from_numpy(np.repeat(v, H, axis=1)).to(  # noqa: E731
+        dev).reshape(R, n, H)[..., -1]
+    return (mode, full(a), full(b), torch.from_numpy(thr).to(dev),
+            torch.from_numpy(rng.random(R) < 0.5).to(dev))
+
+
+def _tensors(tree) -> list:
+    """The tensors of nested tuples, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, tuple):
+        return [t for v in tree for t in _tensors(v)]
+    return []
+
+
+def _leaves_err(got, want):
+    """(max abs error of the float leaves, whether every integer and bool
+    leaf is equal) of two sequences of tensors."""
+    err, same = 0.0, True
+    for a, b in zip(got, want):
+        if a.dtype in (torch.bool, torch.int32, torch.int64):
+            same &= bool(torch.equal(a, b))
+        else:
+            same &= a.shape == b.shape
+            err = max(err, float((a - b).abs().max()))
+    return err, same
+
+
+def phase_loop_kernels(dev="cuda"):
+    """pss_scan, psi_unwrap, runlength and squelch_decide against their
+    plain versions on the card at the main path's shapes (one row, a
+    station a row at S = 4 and 19, and the demod pair's 2S for the run
+    length) and on ragged ones: pss_scan and psi_unwrap within LOOP_ATOL,
+    run lengths and decisions and every integer and bool state exactly.
+    Returns each kernel's max abs error."""
+    from sdrjfm_tpu_torch import constants as C
+    from sdrjfm_tpu_torch.kernels import loops as L
+    rng = np.random.default_rng(31)
+    errs = {}
+    # PSS: the single-station path's 0-dim rows, S = 4 and 19 stations, a
+    # ragged 3-sub-block block
+    rows = []
+    for lead, n in (((), 32), ((1,), 32), ((4,), 32), ((19,), 32),
+                    ((19,), 3)):
+        args = _pss_args(rng, lead, n, dev)
+        accs, st = L.pss_scan(*args)
+        accs_p, st_p = L.pss_scan_plain(*args)
+        torch.cuda.synchronize()
+        err, same = _leaves_err(_tensors((accs, st)),
+                                _tensors((accs_p, st_p)))
+        clamped = bool((accs_p.abs() == C.PSS_CLAMP).any())
+        rows.append({"rows": list(lead), "subblocks": n, "max_abs_err": err,
+                     "states_equal": same,
+                     "bit_for_bit": err == 0.0 and same,
+                     "clamp_reached": clamped,
+                     "minimized": [bool(v) for v in
+                                   st_p[2].reshape(-1)[:4].cpu()]})
+        need(err <= LOOP_ATOL and same, f"pss_scan: {rows[-1]}")
+    errs["pss_scan"] = max(r["max_abs_err"] for r in rows)
+    emit({"phase": "kernels", "kernel": "pss_scan", "atol": LOOP_ATOL,
+          "max_abs_err": errs["pss_scan"], "cases": rows})
+    # psi: the main path's 16384 samples in 8 sub-blocks at R = 1, 4, 19;
+    # ragged: 3000 samples in 3 (not a multiple of the 2048-sample chunk),
+    # 6144 in 12
+    rows = []
+    for R, T, nsub in ((1, 16384, 8), (4, 16384, 8), (19, 16384, 8),
+                       (1, 3000, 3), (19, 6144, 12)):
+        args = _psi_args(rng, R, T, nsub, dev)
+        yr, last = L.psi_unwrap(*args)
+        yr_p, last_p = L.psi_unwrap_plain(*args)
+        torch.cuda.synchronize()
+        e_y = float((yr - yr_p).abs().max())
+        e_p = float((last - last_p).abs().max())
+        rows.append({"rows": R, "T": T, "subblocks": nsub,
+                     "max_abs_err": e_y, "psi_err": e_p,
+                     "bit_for_bit": e_y == 0.0 and e_p == 0.0})
+        need(max(e_y, e_p) <= LOOP_ATOL, f"psi_unwrap: {rows[-1]}")
+    errs["psi_unwrap"] = max(max(r["max_abs_err"], r["psi_err"])
+                             for r in rows)
+    emit({"phase": "kernels", "kernel": "psi_unwrap", "atol": LOOP_ATOL,
+          "max_abs_err": errs["psi_unwrap"], "cases": rows})
+    # run length: R = 1 (the path), S = 4 and 19 and 2S rows; ragged rows
+    # (12000 samples, 1 sample, a tile and 5 more), and a flags view off the
+    # 16-byte grid
+    rows = []
+    cases = [(R, BLOCK_FM, 0) for R in (1, 4, 8, 19, 38)]
+    cases += [(2, 12000, 0), (3, 1, 0), (1, BLOCK_FM + 5, 0),
+              (1, BLOCK_FM, 1)]
+    for R, T, off in cases:
+        flags = torch.from_numpy(_rl_flags(rng, R, T + off)).to(dev)
+        flags = flags[:, off:] if R > 1 or off == 0 else flags[0, off:][None]
+        r0 = torch.from_numpy(rng.choice([0, 7, 10 ** 6], R).astype(
+            np.int32)).to(dev)
+        rl, last = L.runlength(flags, r0)
+        rl_p, last_p = L.runlength_plain(flags, r0)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(rl, rl_p) and torch.equal(last, last_p))
+        rows.append({"rows": R, "T": T, "flags_offset_bytes": off,
+                     "equal": same})
+        need(same, f"runlength: {rows[-1]}")
+    errs["runlength"] = 0.0
+    emit({"phase": "kernels", "kernel": "runlength", "exact": True,
+          "max_abs_err": 0.0, "cases": rows})
+    # squelch decisions: both lattices at 16 periods a block (R = 1, 4, 19)
+    # and 5 periods over 3 rows
+    rows = []
+    for mode in ("nsq", "level"):
+        for R, n in ((1, 16), (4, 16), (19, 16), (3, 5)):
+            args = _squelch_args(rng, mode, R, n, dev)
+            sups, last = L.squelch_decide(*args)
+            sups_p, last_p = L.squelch_decide_plain(*args)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(sups, sups_p)
+                        and torch.equal(last, last_p))
+            flips = int((sups_p[..., 1:] != sups_p[..., :-1]).sum())
+            rows.append({"mode": mode, "rows": R, "periods": n,
+                         "equal": same, "decision_flips": flips})
+            need(same, f"squelch_decide: {rows[-1]}")
+    errs["squelch_decide"] = 0.0
+    emit({"phase": "kernels", "kernel": "squelch_decide", "exact": True,
+          "max_abs_err": 0.0, "cases": rows})
+    return errs
+
+
 def phase_main():
     from sdrjfm_tpu_torch import app
     from sdrjfm_tpu_torch.io.wavio import read_wav
-    from sdrjfm_tpu_torch.kernels.frontend import frontend
-    from sdrjfm_tpu_torch.kernels.linrec import linrec
 
     OUT.mkdir(parents=True, exist_ok=True)
     wav, audio, report = OUT / "iq.wav", OUT / "audio.wav", OUT / "report.json"
@@ -673,15 +895,14 @@ def phase_main():
     need(rc == 0, "synth")
     synth_s = time.perf_counter() - t0
     from sdrjfm_tpu_torch.runtime.graph import WARMUP_STEPS
-    frontend.launches = 0
-    linrec.launches = 0
+    cs = _reset(MAIN_PER_STEP)
     argv = ["rx", "--iq", str(wav), "--audio", str(audio), "--rds",
             "--report", str(report), "--block-fm", str(BLOCK_FM),
             "--iq-format", "i16", "--device", "cuda"]
     t0 = time.perf_counter()
     rc = app.main(argv)
     rx_s = time.perf_counter() - t0
-    launches = {"frontend": frontend.launches, "linrec": linrec.launches}
+    launches = {k: c.launches for k, c in cs.items()}
     need(rc == 0, f"rx exited {rc}")
     # the same run again under the profiler, for the device's launches
     rc, device = _device_launches(lambda: app.main(argv))
@@ -707,13 +928,13 @@ def phase_main():
     # steps' launches and the capture; the profiler sees the warm-up
     # launches and every replay's
     steps = WARMUP_STEPS + 1
-    need(blocks > 0 and launches == {"frontend": steps, "linrec": 2 * steps},
-         f"wrapper launches {launches}, want {steps} front ends and "
-         f"{2 * steps} scans (warm-up steps and capture)")
+    need(blocks > 0 and launches == _main_launches(steps),
+         f"wrapper launches {launches}, want {_main_launches(steps)} (the "
+         f"warm-up steps and the capture)")
     runs = blocks + WARMUP_STEPS
-    need(device["frontend"] == runs and device["linrec"] == 2 * runs,
-         f"device launches {device}, want {runs} front ends and {2 * runs} "
-         f"scans (warm-up steps and one replay a block)")
+    need({k: device[k] for k in MAIN_PER_STEP} == _main_launches(runs),
+         f"device launches {device}, want {_main_launches(runs)} (the "
+         f"warm-up steps and one replay a block)")
     need(rds["pi_code"] == "0x10F0" and rds["station_label"].strip() == "TPU FM"
          and rds["radio_text"] == "VERIFY RUN", "RDS PI/PS/RT")
     need(rds["bit_error_rate"] == 0.0, "RDS BER")
@@ -893,7 +1114,8 @@ def phase_times(rx, wav, fe_err, sc_err, launches, card):
 
 # substrings of the hand kernels' names in a profile (csrc/*.cu)
 HAND_KERNELS = ("frontend", "linrec", "pole_", "costas_", "fir_kernel",
-                "poles_emit", "mm_core", "clock_kernel")
+                "poles_emit", "mm_core", "clock_kernel", "pss_scan",
+                "psi_unwrap", "runlength", "squelch_decide")
 
 
 def phase_profile(rx, wav, card, what: str = "main path"):
@@ -922,7 +1144,10 @@ def phase_profile(rx, wav, card, what: str = "main path"):
     rows.sort(reverse=True)
     dev_total_us = sum(r[0] for r in rows)
     launches = sum(r[2] for r in rows)
+    # the run length is a hand kernel now: no cummax on the device
+    cummax = sum(r[2] for r in rows if "cummax" in r[1].lower())
     emit({"phase": "profile", "what": what, "steps": nstep, "card": card,
+          "cummax_events_per_step": cummax / nstep,
           "wall_ms_per_step": wall / nstep * 1e3,
           "device_ms_per_step": (dev_total_us / nstep / 1e3
                                  if rows else "not measured"),
@@ -937,6 +1162,8 @@ def phase_profile(rx, wav, card, what: str = "main path"):
           "top_device_ops": [{"op": k[:80], "us_per_step": us / nstep,
                               "calls_per_step": c / nstep}
                              for us, k, c in rows[:12]]})
+    need(cummax == 0, f"profile {what}: {cummax} cummax events in "
+         f"{nstep} steps")
 
 
 
@@ -1050,6 +1277,27 @@ def phase_option_kernels(dev="cuda"):
         rows.append(row)
     emit({"phase": "kernels", "kernel": "pole_bank", "rtol_of_scale": POLE_RTOL,
           "max_abs_err": a_err, "cases": rows})
+    # deterministic: A_REPEATS launches of one call on the same inputs,
+    # queued back to back (the squelch's B = 2 and its 4-station fold, B =
+    # 8), every output bit-identical to the first
+    det = {}
+    for fold in (1, 4):
+        bank = fold_bank(pole_bank_constants(specs, dev), fold)
+        B = len(specs) * fold
+        x = torch.from_numpy((0.3 * rng.standard_normal((B, BLOCK_FM))
+                              ).astype(np.float32)).to(dev)
+        w0 = torch.from_numpy((0.05 * (rng.standard_normal((B, 10))
+                                       + 1j * rng.standard_normal((B, 10)))
+                               ).astype(np.complex64)).to(dev)
+        runs = [pole_bank(x, bank, w0) for _ in range(A_REPEATS)]
+        torch.cuda.synchronize()
+        det[f"B={B}"] = all(torch.equal(y, runs[0][0])
+                            and torch.equal(wT, runs[0][1])
+                            for y, wT in runs[1:])
+    emit({"phase": "kernels", "kernel": "pole_bank", "what": "determinism",
+          "launches": A_REPEATS, "bit_identical": det})
+    need(all(det.values()), f"pole_bank: {A_REPEATS} launches on the same "
+         f"inputs differ: {det}")
 
     # B1-B3: warm up in the plain version on the CPU, hand the same state
     # to the kernel and to the plain version on the card, then chained
@@ -1201,16 +1449,28 @@ def _head(src, dst, blocks: int, raw_block_bytes: int = 0):
 
 
 def _counters():
+    from sdrjfm_tpu_torch.kernels import loops as L
     from sdrjfm_tpu_torch.kernels.frontend import frontend
     from sdrjfm_tpu_torch.kernels.linrec import linrec, pole_bank
     from sdrjfm_tpu_torch.rds import scan_decoders as SD
     return {"frontend": frontend, "linrec": linrec, "pole_bank": pole_bank,
             "rds_scan1": SD.decoder1_scan, "rds_scan2": SD.decoder2_scan,
-            "rds_scan3": SD.decoder3_scan}
+            "rds_scan3": SD.decoder3_scan, "pss_scan": L.pss_scan,
+            "runlength": L.runlength, "psi_unwrap": L.psi_unwrap,
+            "squelch_decide": L.squelch_decide}
+
+
+def _reset(keys) -> dict:
+    """The wrappers of `keys`, each count set to 0."""
+    cs = _counters()
+    for k in keys:
+        cs[k].launches = 0
+    return {k: cs[k] for k in keys}
 
 
 # (name, capture, flags, launches per block, checks): every option of the
-# port's receiver through the CLI
+# port's receiver through the CLI; the loop kernels' launches a block come
+# from _loop_launches(flags)
 OPTION_RUNS = [
     ("scan1", "station", ["--rds", "--rds-decoder", "scan1"],
      {"frontend": 1, "linrec": 2, "rds_scan1": 1}, "rds"),
@@ -1290,6 +1550,7 @@ def _run_options(wav, dev, cmp_dev, tmp):
     decoders = {k: c for k, c in counters.items() if k.startswith("rds_")}
     results, launches_by_kernel = [], {}
     for name, cap, flags, per_block, check in OPTION_RUNS:
+        per_block = dict(per_block, **_loop_launches(flags))
         fl = [f.format(tmp=tmp) for f in flags]
         audio, rep = tmp / f"{name}.wav", tmp / f"{name}.json"
         for c in counters.values():
@@ -1699,7 +1960,104 @@ def phase_option_times(a_err, b_err, launches, card):
                                          "per_symbol": v[1]}
                      for k, v in STAGE_CHAINS.items()},
           "stages": floors, "card": card})
-    return kernels
+    return kernels, cycles, clock
+
+
+# the loop kernels' dependent chains a step, at the latencies the latency
+# microkernel measures.  PSS: -2 acc (mul), sincosf, c Si (mul), + s Sr
+# (add), 0.5 x (mul), x boost (mul), alpha x (mul), acc + (add), the clamp
+# (2), the unlock select (1).  psi: psi - r (add), x 1/pi (mul), rint (1),
+# x pi (mul), r + (add).  A squelch decision: its two selects.
+LOOP_CHAINS = {"pss_scan": {"sincosf": 1, "mul": 5, "add": 5},
+               "psi_unwrap": {"mul": 2, "add": 3},
+               "squelch_decide": {"add": 2}}
+SINCOS_FLOPS = 40                  # an accurate sinf and cosf, ~20 each
+
+
+def phase_loop_times(errs, launches, opt_launches, card, cycles, clock):
+    """The loop kernels at the main path's shapes (one row; pss_scan and
+    runlength also at S = 4 and 19 rows, runlength at 2S = 38): device ms
+    and host us a call, the plain version's ms, the bound from bytes and
+    operations, the sequential ones' latency floor (their chain a step at
+    the measured latencies, over the measured clock), and for runlength
+    torch.cummax on its int32 input as the library yardstick."""
+    from sdrjfm_tpu_torch.kernels import loops as L
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(41)
+    M = BLOCK_FM
+    out = []
+
+    def entry(name, replaces, call, plain, nbytes, flops, steps=0,
+              library=None, shape="", by_rows=None, nlaunch=0):
+        ms, host = device_ms(call, name)
+        plain_ms = paced_ms(plain, reps=3, iters=5)
+        lib_ms = device_ms(library, f"{name} library")[0] if library else None
+        bound, by = _bound_ms(nbytes, flops)
+        row = {"name": name, "route": "cuda",
+               "source": "sdrjfm_tpu_torch/csrc/loops.cu",
+               "replaces": replaces, "launches": nlaunch,
+               "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+               "host_us_per_call": host, "shape": shape}
+        if name in LOOP_CHAINS:
+            row["latency_floor_ms"] = (
+                steps * _chain_cycles(LOOP_CHAINS[name], cycles) / clock
+                * 1e3)
+        if by_rows:
+            row["ms_by_rows"] = by_rows
+        emit({"phase": "times", "what": "loop kernel", **row, "card": card})
+        out.append(row)
+
+    n = M // PSS_SUB
+    args = _pss_args(rng, (), n, dev)
+    rows = {}
+    for S in (4, 19):
+        a = _pss_args(rng, (S,), n, dev)
+        rows[f"R={S}"] = device_ms(lambda: L.pss_scan(*a), f"pss R={S}")[0]
+    entry("pss_scan", "sdrjfm_tpu/ops/pss.py:164",
+          lambda: L.pss_scan(*args), lambda: L.pss_scan_plain(*args),
+          n * (8 + 8 + 1 + 4) + 2 * 17, n * (SINCOS_FLOPS + 15), steps=n,
+          shape=f"{n} sub-blocks of {PSS_SUB} a block, one row (a station "
+                f"a row)", by_rows=rows, nlaunch=launches["pss_scan"])
+    T24 = M // 8
+    args = _psi_args(rng, 1, T24, T24 // PSI_SUB, dev)
+    entry("psi_unwrap", "sdrjfm_tpu/rds/bitrecovery.py:128",
+          lambda: L.psi_unwrap(*args), lambda: L.psi_unwrap_plain(*args),
+          T24 * 16 + (T24 // PSI_SUB) * 4 + 8,
+          6 * T24 + (T24 // PSI_SUB) * (SINCOS_FLOPS + 5),
+          steps=T24 // PSI_SUB,
+          shape=f"complex64 [1, {T24}] derotated by {T24 // PSI_SUB} "
+                f"sub-blocks' psi", nlaunch=launches["psi_unwrap"])
+    flags = torch.from_numpy(_rl_flags(rng, 3, M)[2:]).to(dev)
+    r0 = torch.zeros(1, dtype=torch.int32, device=dev)
+    lib_in = torch.where(flags, -1, torch.arange(M, dtype=torch.int32,
+                                                 device=dev))
+    rows = {}
+    for R in (4, 19, 38):
+        fR = torch.from_numpy(_rl_flags(rng, R, M)).to(dev)
+        zR = torch.zeros(R, dtype=torch.int32, device=dev)
+        rows[f"R={R}"] = device_ms(lambda: L.runlength(fR, zR),
+                                   f"runlength R={R}")[0]
+    entry("runlength", "sdrjfm_tpu/ops/blockops.py:400",
+          lambda: L.runlength(flags, r0), lambda: L.runlength_plain(flags, r0),
+          M * (1 + 4) + 8, 4 * M,
+          library=lambda: torch.cummax(lib_in, dim=-1),
+          shape=f"bool [1, {M}] -> int32 [1, {M}] (the pilot lock counter)",
+          by_rows=rows, nlaunch=launches["runlength"])
+    nper = M // 8192
+    args = _squelch_args(rng, "nsq", 1, nper, dev)
+    lvl = _squelch_args(rng, "level", 1, nper, dev)
+    entry("squelch_decide", "sdrjfm_tpu/ops/squelch.py:120",
+          lambda: L.squelch_decide(*args),
+          lambda: L.squelch_decide_plain(*args),
+          nper * 8 + 4 + 1 + nper + 1, nper * 4, steps=nper,
+          shape=f"{nper} hold periods of 8192 a block, one row; the level "
+                f"lattice (squelch.py:208) "
+                f"{device_ms(lambda: L.squelch_decide(*lvl), 'lsq')[0]:.5f} "
+                f"ms",
+          nlaunch=opt_launches.get("squelch_decide", {}).get("nsq_station",
+                                                             0))
+    return out
 
 
 def phase_config_step(wav, card, what: str, **options):
@@ -1749,6 +2107,7 @@ def phase_graph(card, rx):
     from sdrjfm_tpu_torch import constants as C
     from sdrjfm_tpu_torch.kernels.frontend import (frontend_rows,
                                                    frontend_rows_plain)
+    from sdrjfm_tpu_torch.kernels import loops as L
     from sdrjfm_tpu_torch.kernels.linrec import (linrec, linrec_plain,
                                                  pole_bank,
                                                  pole_bank_constants,
@@ -1765,6 +2124,24 @@ def phase_graph(card, rx):
     x = torch.zeros(2, M, device=dev)
     w0 = torch.zeros(len(specs), 10, dtype=torch.complex64, device=dev)
     fe_wire, fe_idx, fe_p = _rows_case(rng, "i16", 4, 1, 12 * M, dev)
+    # the loops at the single-station path's shapes, static inputs the
+    # graph reads (the strided views are views of the static tensors)
+    pss_in = _pss_args(rng, (), M // PSS_SUB, dev)
+    psi_in = _psi_args(rng, 1, M // 8, M // 8 // PSI_SUB, dev)
+    rl_in = (torch.from_numpy(_rl_flags(rng, 4, M)[3:]).to(dev),
+             torch.zeros(1, dtype=torch.int32, device=dev))
+    sq_in = _squelch_args(rng, "nsq", 1, M // 8192, dev)
+
+    def loop_tensors():
+        """The loops' static inputs, and fresh values of the same shapes."""
+        fresh = (_pss_args(rng, (), M // PSS_SUB, dev),
+                 _psi_args(rng, 1, M // 8, M // 8 // PSI_SUB, dev),
+                 (torch.from_numpy(_rl_flags(rng, 4, M)[3:] ^ (
+                     rng.random((1, M)) < 1e-4)).to(dev),
+                  torch.from_numpy(rng.integers(0, 10 ** 6, 1).astype(
+                      np.int32)).to(dev)),
+                 _squelch_args(rng, "nsq", 1, M // 8192, dev))
+        return _tensors((pss_in, psi_in, rl_in, sq_in)), _tensors(fresh)
 
     def rand(*shape, scale=1.0, cplx=False):
         v = scale * rng.standard_normal(shape)
@@ -1784,12 +2161,16 @@ def phase_graph(card, rx):
         fe_wire.copy_(_fe_inputs(rng, "i16", 12 * M, dev)[None])
         for buf, v in zip(fe_p, _row_params(rng, 4, dev)):
             buf.copy_(v)
+        for buf, v in zip(*loop_tensors()):
+            buf.copy_(v)
 
     def body():
         return (linrec(d2, g2, y02), linrec(d1, g1, y01),
                 pole_bank(x, bank, w0),
                 frontend_rows(fe_wire, "i16", fe_idx, fe_p[0], rx.k_decim12,
-                              *fe_p[1:], True))
+                              *fe_p[1:], True),
+                L.pss_scan(*pss_in), L.psi_unwrap(*psi_in),
+                L.runlength(*rl_in), L.squelch_decide(*sq_in))
 
     new_inputs()
     side = torch.cuda.Stream()
@@ -1844,9 +2225,21 @@ def phase_graph(card, rx):
         ok &= (bool((fe_e <= FE_ATOL + FE_RTOL * yp.abs()).all())
                and row["frontend_rows4_carry_err"] <= FE_ATOL
                and row["frontend_rows4_dc_err"] <= 1e-6)
-    emit({"phase": "graph", "what": "2 real scans (R=2, R=1), 1 pole bank "
-          "and a 4-row front end in one CUDA graph, 3 replays on new "
-          "inputs", "ok": bool(ok),
+        for name, got, plain, args in (
+                ("pss_scan", outs[4], L.pss_scan_plain, pss_in),
+                ("psi_unwrap", outs[5], L.psi_unwrap_plain, psi_in),
+                ("runlength", outs[6], L.runlength_plain, rl_in),
+                ("squelch_decide", outs[7], L.squelch_decide_plain, sq_in)):
+            err, same = _leaves_err(_tensors(got), _tensors(plain(*args)))
+            row[f"{name}_max_abs_err"] = err
+            row[f"{name}_states_equal"] = same
+            ok &= same and err <= (LOOP_ATOL if name in ("pss_scan",
+                                                         "psi_unwrap")
+                                   else 0.0)
+    emit({"phase": "graph", "what": "2 real scans (R=2, R=1), 1 pole bank, "
+          "a 4-row front end and the four loop kernels (pss_scan, "
+          "psi_unwrap, runlength, squelch_decide) in one CUDA graph, 3 "
+          "replays on new inputs", "ok": bool(ok), "loop_atol": LOOP_ATOL,
           "scan_rtol_of_max": SCAN_RTOL, "pole_rtol_of_scale": POLE_RTOL,
           "fe_atol": FE_ATOL, "fe_rtol": FE_RTOL,
           "replays": rows, "card": card})
@@ -1854,10 +2247,11 @@ def phase_graph(card, rx):
 
 
 RUNNER_AUDIO_ATOL = 1e-5           # a runner's audio vs the eager run's on
-                                   # the card: the same kernels, but a
-                                   # look-back scan may join a predecessor's
-                                   # prefix or its aggregate (timing), so the
-                                   # last bits may differ; RDS bits equal
+                                   # the card: the same kernels, whose
+                                   # look-backs sum in a fixed order (equal
+                                   # on an H100 since they do; while a join
+                                   # rounded by timing, up to 6.5e-6 apart);
+                                   # RDS bits equal
 CLI_AUDIO_ATOL = 2.0 / 32768       # PCM16 wavs and PCM of two card runs:
                                    # the floats above, rounded to 16 bits
 
@@ -1883,7 +2277,32 @@ def _rds_ok(bits, meta):
 # launches its Costas stage once, one of decoder 2 its M&M core once
 DEVICE_KERNELS = {"frontend": "frontend_kernel", "linrec": "linrec_kernel",
                   "pole_bank": "pole_bank_kernel", "costas": "costas_kernel",
-                  "mm_core": "mm_core_kernel"}
+                  "mm_core": "mm_core_kernel", "pss_scan": "pss_scan_kernel",
+                  "runlength": "runlength_kernel",
+                  "psi_unwrap": "psi_unwrap_kernel",
+                  "squelch_decide": "squelch_decide_kernel"}
+# the main path's launches a step (for one station or all of them): the
+# front end, the real scan twice (the demod pair, the pilot metric), the
+# PSS scan, the pilot's run length and the RDS carrier-phase unwrap
+MAIN_PER_STEP = {"frontend": 1, "linrec": 2, "pss_scan": 1, "runlength": 1,
+                 "psi_unwrap": 1}
+
+
+def _main_launches(steps: int) -> dict:
+    return {k: v * steps for k, v in MAIN_PER_STEP.items()}
+
+
+def _loop_launches(flags) -> dict:
+    """The loop kernels an `rx` run with these flags launches a step: the
+    PSS scan and the pilot's run length on every stereo config, the RDS
+    unwrap under the block decoder, one decision launch under either
+    squelch."""
+    out = {"pss_scan": 1, "runlength": 1}
+    if "--rds" in flags and "--rds-decoder" not in flags:
+        out["psi_unwrap"] = 1
+    if "--squelch" in flags:
+        out["squelch_decide"] = 1
+    return out
 
 
 def _device_launches(fn):
@@ -2005,9 +2424,9 @@ def phase_runners(wav, card):
           "graph_launches": counts, "card": card})
     need(max(chunk_err.values()) <= RUNNER_AUDIO_ATOL, "chunks vs one chunk")
     for k, c in counts.items():
-        need(c["frontend"] == nblk and c["linrec"] == 2 * nblk,
-             f"{k}: launches under the graph {c}, want {nblk} front ends "
-             f"and {2 * nblk} scans")
+        need({n: c[n] for n in MAIN_PER_STEP} == _main_launches(nblk),
+             f"{k}: launches under the graph {c}, want "
+             f"{_main_launches(nblk)}")
     # decoders 1-3 under replay: the loop and scan runners against the
     # eager loop
     for rds in ("scan1", "scan2", "scan3"):
@@ -2331,8 +2750,6 @@ def phase_multistation(card):
     the station axis on a mesh; then the times at n = 1, 4 and 19.  Returns (the
     capture, its rx, the wrappers' counts)."""
     from sdrjfm_tpu_torch.io.wavio import read_iq_wav_raw
-    from sdrjfm_tpu_torch.kernels.frontend import frontend
-    from sdrjfm_tpu_torch.kernels.linrec import linrec
     from sdrjfm_tpu_torch.models.multistation import demodulate_stations
     from sdrjfm_tpu_torch.models.receiver import Receiver, ReceiverConfig
     from sdrjfm_tpu_torch.runtime.graph import WARMUP_STEPS
@@ -2350,20 +2767,18 @@ def phase_multistation(card):
     n = len(offsets)
     nblk = len(iq) // rx.cfg.wire_len
     # the main path, the wrappers' counts set to 0 just before it
-    frontend.launches = 0
-    linrec.launches = 0
+    cs = _reset(MAIN_PER_STEP)
     t0 = time.perf_counter()
     res = demodulate_stations(rx, iq, offsets)
     secs = time.perf_counter() - t0
-    launches = {"frontend": frontend.launches, "linrec": linrec.launches}
+    launches = {k: c.launches for k, c in cs.items()}
     steps = WARMUP_STEPS + 1
     emit({"phase": "multistation", "what": "main path", "stations": n,
           "blocks": nblk, "synth_s": synth_s, "s": secs,
           "launches": launches, "warmup_steps": WARMUP_STEPS})
-    need(launches == {"frontend": steps, "linrec": 2 * steps},
-         f"multistation: wrapper launches {launches}, want {steps} front "
-         f"ends and {2 * steps} scans (one and two a step for all {n} "
-         f"stations)")
+    need(launches == _main_launches(steps),
+         f"multistation: wrapper launches {launches}, want "
+         f"{_main_launches(steps)} (a step's for all {n} stations)")
     res_loop = demodulate_stations(rx, iq, offsets, scan=False)
     for s, (off, pi, name, _, _) in enumerate(MS_STATIONS):
         r = res[s]
@@ -2392,9 +2807,9 @@ def phase_multistation(card):
     _, dl = _device_launches(lambda: demodulate_stations(rx, iq, offsets))
     emit({"phase": "multistation", "what": "device launches under the graph "
           "(profiler)", "blocks": nblk, "device_launches": dl})
-    need(dl["frontend"] == nblk and dl["linrec"] == 2 * nblk,
-         f"multistation: device launches {dl}, want {nblk} front ends and "
-         f"{2 * nblk} scans for all {n} stations")
+    need({k: dl[k] for k in MAIN_PER_STEP} == _main_launches(nblk),
+         f"multistation: device launches {dl}, want {_main_launches(nblk)} "
+         f"for all {n} stations")
     for what, kw, per_step, levels in MS_CONFIGS:
         _ms_config(iq, offsets, what, kw, per_step, levels, nblk)
     _mesh_stations(rx, iq, offsets, res)
@@ -2415,10 +2830,11 @@ def phase_multistation(card):
 # level: 100 closes the noise squelch, the others leave it open on these
 # stations, whose high/low band ratio is ~0.018)
 MS_CONFIGS = (("nsq", dict(squelch="nsq"),
-               {"frontend": 1, "linrec": 3, "pole_bank": 1},
+               dict(MAIN_PER_STEP, linrec=3, pole_bank=1, squelch_decide=1),
                (0.0, 30.0, 60.0, 100.0)),
               ("input filter", dict(input_filter=True),
-               {"frontend": 0, "linrec": 2, "pole_bank": 0}, None))
+               dict(MAIN_PER_STEP, frontend=0, pole_bank=0,
+                    squelch_decide=0), None))
 SQ_STATE_RTOL = 1e-4    # of each squelch state leaf's largest magnitude:
                         # the station's squelch state in the n-station step
                         # against its own single-station step's (the inputs
@@ -2616,8 +3032,6 @@ def phase_scan(card, wav):
     import io
     from sdrjfm_tpu_torch import app
     from sdrjfm_tpu_torch.io.wavio import read_iq_wav
-    from sdrjfm_tpu_torch.kernels.frontend import frontend
-    from sdrjfm_tpu_torch.kernels.linrec import linrec
     from sdrjfm_tpu_torch.models.bandscan import BandScanner
     from sdrjfm_tpu_torch.models.receiver import Receiver, ReceiverConfig
 
@@ -2632,11 +3046,10 @@ def phase_scan(card, wav):
 
     stations = ROOT / "chiprun_work" / "stations.json"
     stations.unlink(missing_ok=True)
-    frontend.launches = 0
-    linrec.launches = 0
+    cs = _reset(MAIN_PER_STEP)
     hits, secs = scan("cuda", "--identify", "--seconds", str(MS_SECONDS),
                       "--stations", str(stations))
-    launches = {"frontend": frontend.launches, "linrec": linrec.launches}
+    launches = {k: c.launches for k, c in cs.items()}
     cpu_hits, cpu_s = scan("cpu")
     listed = json.loads(stations.read_text())["stations"]
     row = {"phase": "scan", "hits": hits, "s": secs, "cpu_s": cpu_s,
@@ -2659,11 +3072,11 @@ def phase_scan(card, wav):
                  <= SCAN_CONTRAST_ATOL_DB for a, b in zip(hits, cpu_hits)),
          f"scan: card hits {hits} vs cpu {cpu_hits}")
     # the wrappers over the card's run: one front end for every row of the
-    # scan, then the identify step's warm-up steps and capture, each one
-    # front end and two scans for all the hits
+    # scan, then the identify step's warm-up steps and capture, each a
+    # main-path step for all the hits
     from sdrjfm_tpu_torch.runtime.graph import WARMUP_STEPS
     steps = WARMUP_STEPS + 1
-    need(launches == {"frontend": 1 + steps, "linrec": 2 * steps},
+    need(launches == dict(_main_launches(steps), frontend=1 + steps),
          f"scan: wrapper launches {launches}")
     # BandScanner.decide's rows against 76 one-row scans, on the card
     iq, _ = read_iq_wav(str(wav))
@@ -2837,15 +3250,13 @@ def _build_fake_libs(outdir):
         return dict(ex.map(build, FAKE_LIBS))
 
 
-def _cli_run(argv, counters=("frontend", "linrec")):
+def _cli_run(argv, counters=tuple(MAIN_PER_STEP)):
     """`rx` in process with its stderr kept: (exit code, stderr, the
     wrappers' launch counts over the run, set to 0 just before it)."""
     import contextlib
     import io
     from sdrjfm_tpu_torch import app
-    cs = _counters()
-    for k in counters:
-        cs[k].launches = 0
+    cs = _reset(counters)
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
         rc = app.main(argv)
@@ -2915,7 +3326,7 @@ def phase_sources(card, wav):
             rows.append(row)
             emit(row)
             need(_live_ok(r), f"sources {name}: decode {row}")
-            want = {"frontend": steps, "linrec": 2 * steps}
+            want = _main_launches(steps)
             need(launches == want, f"sources {name}: wrapper launches "
                  f"{launches}, want {want}")
             need(device["frontend"] == r["blocks"] + WARMUP_STEPS,
@@ -3033,14 +3444,12 @@ def _scripted_run(ms_wav, dev):
     ctl = rx.initial_controls()._replace(
         lo_freq_hz=upload(CONTROL_LO_FROM, torch.int32, rx.device))
     proc.seed_from(ctl)
-    cs = _counters()
-    for k in ("frontend", "linrec"):
-        cs[k].launches = 0
+    cs = _reset(MAIN_PER_STEP)
     rx.jit_step().prepare()               # before the producer starts
     with NativeRawSource(str(ms_wav), pace=False) as src:
         res = run_live(rx, src, ctl, rds_feedback=live.feed,
                        command_hook=proc.apply)
-    launches = {k: cs[k].launches for k in ("frontend", "linrec")}
+    launches = {k: c.launches for k, c in cs.items()}
     return res, chan.responses, seen, live, launches, resets[0], proc
 
 
@@ -3126,7 +3535,7 @@ def phase_control(card, ms_wav, wav):
     need(resets == cresets == 1 and proc.retunes == 1,
          f"control: retune_reset fired {resets} times")
     steps = WARMUP_STEPS + 1
-    need(launches == {"frontend": steps, "linrec": 2 * steps},
+    need(launches == _main_launches(steps),
          f"control: wrapper launches {launches}")
     # the host cost of apply on the card
     idle_us, _ = _apply_us("cuda", lambda i: [])
@@ -3190,7 +3599,7 @@ def phase_control(card, ms_wav, wav):
          and r["control"]["hw_retunes"] == 2
          and r["control"]["tuned_hz"] == 98_000_000
          and got[3]["center_hz"] == 98_000_000, f"control CLI: {row}")
-    need(cli_launches == {"frontend": steps, "linrec": 2 * steps},
+    need(cli_launches == _main_launches(steps),
          f"control CLI: wrapper launches {cli_launches}")
     ctl_path.unlink(missing_ok=True)
 
@@ -3324,7 +3733,7 @@ def phase_checkpoint(card, wav):
         wsteps = WARMUP_STEPS + 1
         for what, got in (("--ckpt-dir", launches), ("--load-state",
                                                      rlaunches)):
-            need(got == {"frontend": wsteps, "linrec": 2 * wsteps},
+            need(got == _main_launches(wsteps),
                  f"checkpoint: {what} wrapper launches {got}")
         # times: a save of the card's state, the loop runner with and
         # without a save every block
@@ -3369,9 +3778,10 @@ def phase_checkpoint(card, wav):
 # ShardedReceiver: its front end (the 192 kS/s stream and the DC servo,
 # the tile sums reduced in the kernel's own order) must equal the
 # single-device front end's bit for bit; its audio comes from the same
-# replicated fm chain, held to RUNNER_AUDIO_ATOL: two eager single-device
-# runs on an H100 differ by up to 6.5e-6 themselves (a look-back scan's
-# timing-dependent join), printed beside it
+# replicated fm chain, held to RUNNER_AUDIO_ATOL; two eager single-device
+# runs' own difference is printed beside it (0 on an H100 since both
+# look-backs sum in a fixed order; up to 6.5e-6 while a join rounded by
+# timing)
 FULL_ATOL = 2e-4                   # FullyShardedReceiver vs the eager step:
                                    # f32 prefix reassociation
                                    # (tests/test_sharding.py:104)
@@ -3640,16 +4050,17 @@ def phase_sharded(card, wav, ms_wav, dev="cuda"):
         return row
 
     full("FullyShardedReceiver, main config", two["fsr"], eager, FULL_ATOL,
-         ("frontend", "linrec"))
+         tuple(MAIN_PER_STEP))
     # rank d > 0 runs the front end twice: its halo, then its slice
     fe = [_rank_kernels(z)["frontend"] for z in two["fsr"]]
     need(dev == "cpu" or fe == [1] + [2] * (len(fe) - 1),
          f"sharded: front-end launches a step per rank {fe}, want 1 on "
          f"rank 0 and 2 (halo + slice) on the others")
     full("FullyShardedReceiver, main config", four["fsr"], eager, FULL_ATOL,
-         ("frontend", "linrec"))
+         tuple(MAIN_PER_STEP))
     full("FullyShardedReceiver, input filter + nsq + scan2", two["heavy"],
-         heavy, NSQ_ATOL, ("linrec", "pole_bank", "mm_core"), budget=False)
+         heavy, NSQ_ATOL, ("linrec", "pole_bank", "mm_core", "pss_scan",
+                           "runlength", "squelch_decide"), budget=False)
 
     # StationTimeShardedReceiver 2 x 2 against MultiStationReceiver
     n_st = len(st_offsets)
@@ -3699,7 +4110,7 @@ def phase_sharded(card, wav, ms_wav, dev="cuda"):
         need(nccl["fsr_nccl"][0]["info"]["transport"] == "nccl",
              "sharded: two cards and two ranks did not take NCCL")
         full("FullyShardedReceiver, main config, NCCL", nccl["fsr_nccl"],
-             eager, FULL_ATOL, ("frontend", "linrec"))
+             eager, FULL_ATOL, tuple(MAIN_PER_STEP))
     else:
         emit({"phase": "sharded", "what": "nccl", "run": False,
               "why": f"{cards} card for 2 ranks: NCCL needs a card a rank; "
@@ -3737,6 +4148,7 @@ def main() -> int:
                   device="cuda")
     fe_err, sc_err = phase_kernels(rx)
     rows_err = phase_row_kernels(rx)
+    loop_errs = phase_loop_kernels()
     a_err, b_err = phase_option_kernels()
     phase_graph(card, rx)
     wav, launches = phase_main()
@@ -3751,8 +4163,12 @@ def main() -> int:
     ms_wav.unlink()
     phase_checkpoint(card, wav)
     kernels, step_ms = phase_times(rx, wav, fe_err, sc_err, launches, card)
-    kernels += phase_option_times(a_err, b_err, opt_launches, card)
+    opt_kernels, cycles, clock = phase_option_times(a_err, b_err,
+                                                    opt_launches, card)
+    kernels += opt_kernels
     kernels.append(rows_kernel_entry(rx, rows_err, ms_launches, card))
+    kernels += phase_loop_times(loop_errs, launches, opt_launches, card,
+                                cycles, clock)
     phase_profile(rx, wav, card)
     phase_scanned(rx, wav, card, "main path", step_ms)
     for what, options in OPTION_CONFIGS:

@@ -51,8 +51,7 @@ constexpr int THREADS = 256;
 constexpr int PER = 8;                        // consecutive samples a thread
 constexpr int CHUNK = THREADS * PER;          // 2048 samples a thread block
 constexpr int WARPS = THREADS / 32;
-constexpr unsigned AGG = 1u, PFX = 2u;        // published states (the real
-                                              // scan publishes AGG only)
+constexpr unsigned AGG = 1u;                  // a published aggregate
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
@@ -228,30 +227,34 @@ int sdr_linrec_chunk() { return CHUNK; }
 //     registers; a warp scan and the block's walk over its 4 warps join the
 //     segments' ends; the table is staged with every load in flight;
 //   * the chunk's carry-in, P complex values, comes from a decoupled
-//     look-back: each chunk publishes its aggregate (the zero-carry state at
-//     its end), then its inclusive prefix, into payload arrays, and only
-//     then release-stores the flag word (its state), so
-//     a reader that acquire-loads a ready flag finds the payload.  Warp 0
-//     reads LOOK = 64 predecessors' flags at a time (two a lane: one step
-//     covers a 131072-sample row) until one holds a prefix, and sums the
-//     payloads in between with their powers (a warp reduction a pole);
+//     look-back over aggregates only: each chunk publishes its aggregate
+//     (the zero-carry state at its end) into a payload array and then
+//     release-stores its flag, so a reader that acquire-loads a ready flag
+//     finds the payload.  Warp 0 then sums EVERY predecessor's aggregate,
+//     and w0 as the value before chunk 0, each with its power
+//     g^(CHUNK m), in a fixed order: LOOK = 64 predecessors a step (two a
+//     lane, then a xor tree a pole), the steps nearest first, each step's
+//     sum decayed by g^(CHUNK LOOK)^step composed by complex products.
+//     One step covers a 131072-sample row (64 chunks).  No chunk reads an
+//     inclusive prefix, so the carry is the same sum whatever the timing
+//     and a launch is deterministic (a look-back that stops at the nearest
+//     published prefix rounds by which prefixes were ready, PERF.md).  The
+//     aggregates need no chain, so they are ready together;
 //   * no rerun: y[i] = y_loc[i] + Re sum_p (r_p g_p^(i+1)) C_p, with C_p the
 //     state just before the thread's segment, and the state at T-1 is
 //     w_loc + g^(i+1) C.
 // Every power (the warp scan's g^(SEG 2^k), g^(SEG lane), g^(SEG 32),
 // g^(CHUNK m), the correction's r g^(i+1) and g^(i+1)) is computed in
 // float64 on the host and rounded once (kernels/linrec.py pole_table): a
-// power formed in f32 would lose ~n * 1e-7 rad of phase.  Rounding of the
-// look-back sum depends on which predecessors had published their prefix,
-// so results may differ in the last bits between runs.  Measured: PERF.md
-// (chip_smoke.py phases kernels and times).
+// power formed in f32 would lose ~n * 1e-7 rad of phase.  Measured:
+// PERF.md (chip_smoke.py phases kernels and times).
 // ---------------------------------------------------------------------------
 
 namespace poles {
 
 constexpr int THREADS = 256;
 constexpr int SEG = 8;                        // consecutive samples a thread
-constexpr int CHUNK = THREADS * SEG;          // 1024 samples a thread block
+constexpr int CHUNK = THREADS * SEG;          // 2048 samples a thread block
 constexpr int WARPS = THREADS / 32;
 constexpr int MAXP = 16;                      // poles a bank, at most
 constexpr int LPL = 2;                        // predecessors a lane reads
@@ -297,15 +300,15 @@ __device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
   asm volatile("st.release.gpu.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
-// flags [B * nch] (the state, 0 until published), agg / pfx [B * nch * P]
-// complex64: each chunk's aggregate and inclusive prefix; ticket: one
-// counter, 0 at the launch, whose tickets are 0 .. B * nch - 1.
+// flags [B * nch] (the state, 0 until published), agg [B * nch * P]
+// complex64: each chunk's aggregate; ticket: one counter, 0 at the launch,
+// whose tickets are 0 .. B * nch - 1.
 __global__ void __launch_bounds__(THREADS)
 pole_bank_kernel(const float* __restrict__ d, const float2* __restrict__ tab,
                  const float2* __restrict__ w0, float* __restrict__ y,
                  float2* __restrict__ wT, int P, int T, int nch,
                  unsigned* __restrict__ flags, float2* __restrict__ agg,
-                 float2* __restrict__ pfx, unsigned* __restrict__ ticket) {
+                 unsigned* __restrict__ ticket) {
   __shared__ float buf[CHUNK + CHUNK / 32];
   __shared__ float2 s_tab[MAXP][NTAB];
   __shared__ float2 s_w[MAXP][WARPS];   // warp ends, then the state before
@@ -377,93 +380,77 @@ pole_bank_kernel(const float* __restrict__ d, const float2* __restrict__ tab,
   __syncthreads();
 
   if (warp == 0) {
-    float2 E = make_float2(0.0f, 0.0f);         // the state before the chunk
-    if (c == 0) {
-      if (lane < P) E = w0[b * P + lane];
-    } else {
-      if (lane < P) {
-        float2 A = make_float2(0.0f, 0.0f);     // the chunk, zero carry-in
-        for (int w = 0; w < WARPS; ++w)
-          A = cfma(s_tab[lane][T_GW], A, s_w[lane][w]);
-        agg[slot * P + lane] = A;
-        __threadfence();
-      }
-      __syncwarp();
-      if (lane == 0) st_release(flags + slot, AGG);
-      // lane p < P ends with pole p's sum; the window's power in `mult`
-      float2 mult = make_float2(1.0f, 0.0f);
-      for (int first = c - 1;; first -= LOOK) {
-        // lane j reads the chunks first - m, m = j + 32 k for k < LPL (m
-        // chunks before chunk first; their ends decay by g^(CHUNK m))
-        unsigned st[LPL];
-        bool wait;
-        do {
-          wait = false;
-#pragma unroll
-          for (int k = 0; k < LPL; ++k) {
-            const int pred = first - lane - 32 * k;
-            st[k] = PFX;                        // before chunk 0: never read
-            if (pred >= 0) {
-              const unsigned f = ld_acquire(flags + (slot - c + pred));
-              st[k] = f & 3u;
-            }
-            wait |= st[k] == 0u;
-          }
-        } while (__any_sync(FULL, wait));
-        int kp = LOOK;                          // m of the nearest prefix
-#pragma unroll
-        for (int k = LPL - 1; k >= 0; --k) {
-          const unsigned pm = __ballot_sync(FULL, st[k] == PFX);
-          if (pm) kp = 32 * k + __ffs(pm) - 1;
-        }
-        float2 acc[MAXP];
-#pragma unroll
-        for (int p = 0; p < MAXP; ++p) acc[p] = make_float2(0.0f, 0.0f);
-#pragma unroll
-        for (int k = 0; k < LPL; ++k) {
-          const int m = lane + 32 * k, pred = first - m;
-          const bool use = m <= kp && pred >= 0;
-          const float2* src =
-              (st[k] == PFX ? pfx : agg) + (slot - c + max(pred, 0)) * P;
-          // all P loads in flight at once, then the weighted sums
-          float2 v[MAXP];
-#pragma unroll
-          for (int p = 0; p < MAXP; ++p)
-            v[p] = (use && p < P) ? __ldcg(src + p) : make_float2(0.0f, 0.0f);
-#pragma unroll
-          for (int p = 0; p < MAXP; ++p)
-            if (p < P) acc[p] = cfma(s_tab[p][T_GC + m], v[p], acc[p]);
-        }
-#pragma unroll
-        for (int p = 0; p < MAXP; ++p) {
-          if (p < P) {
-            float2 t = acc[p];
-#pragma unroll
-            for (int o = 16; o > 0; o >>= 1) {
-              const float2 u = shfl_xor2(t, o);
-              t.x += u.x;
-              t.y += u.y;
-            }
-            if (p == lane) E = cfma(mult, t, E);
-          }
-        }
-        if (kp < LOOK) break;
-        if (lane < P) mult = cmul(mult, s_tab[lane][T_GC + LOOK]);
-      }
-    }
     if (lane < P) {
-      // the state before each warp, then after the chunk: its prefix
-      float2 acc = E;
-      for (int w = 0; w < WARPS; ++w) {
-        const float2 wt = s_w[lane][w];
-        s_w[lane][w] = acc;
-        acc = cfma(s_tab[lane][T_GW], acc, wt);
-      }
-      pfx[slot * P + lane] = acc;
+      float2 A = make_float2(0.0f, 0.0f);       // the chunk, zero carry-in
+      for (int w = 0; w < WARPS; ++w)
+        A = cfma(s_tab[lane][T_GW], A, s_w[lane][w]);
+      agg[slot * P + lane] = A;
       __threadfence();
     }
     __syncwarp();
-    if (lane == 0) st_release(flags + slot, PFX);
+    if (lane == 0) st_release(flags + slot, AGG);
+    // the state before the chunk: E = sum over m >= 0 of g^(CHUNK m)
+    // v(c - 1 - m), v(k) the aggregate of chunk k and v(-1) = w0, in a
+    // fixed order; lane p < P ends with pole p's sum, the step's power in
+    // `mult`
+    float2 E = make_float2(0.0f, 0.0f);
+    float2 mult = make_float2(1.0f, 0.0f);
+    const float2* row_agg = agg + (slot - c) * P;
+    for (int first = c - 1; first >= -1; first -= LOOK) {
+      // lane j reads the chunks first - m, m = j + 32 k for k < LPL
+      bool wait;
+      do {
+        wait = false;
+#pragma unroll
+        for (int k = 0; k < LPL; ++k) {
+          const int pred = first - lane - 32 * k;
+          if (pred >= 0) wait |= ld_acquire(flags + (slot - c + pred)) == 0u;
+        }
+      } while (__any_sync(FULL, wait));
+      float2 acc[MAXP];
+#pragma unroll
+      for (int p = 0; p < MAXP; ++p) acc[p] = make_float2(0.0f, 0.0f);
+#pragma unroll
+      for (int k = 0; k < LPL; ++k) {
+        const int m = lane + 32 * k, pred = first - m;
+        // all P loads in flight at once, then the weighted sums
+        float2 v[MAXP];
+#pragma unroll
+        for (int p = 0; p < MAXP; ++p) {
+          v[p] = make_float2(0.0f, 0.0f);
+          if (p < P) {
+            if (pred >= 0) v[p] = __ldcg(row_agg + pred * P + p);
+            else if (pred == -1) v[p] = w0[b * P + p];
+          }
+        }
+#pragma unroll
+        for (int p = 0; p < MAXP; ++p)
+          if (p < P) acc[p] = cfma(s_tab[p][T_GC + m], v[p], acc[p]);
+      }
+#pragma unroll
+      for (int p = 0; p < MAXP; ++p) {
+        if (p < P) {
+          float2 t = acc[p];
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1) {
+            const float2 u = shfl_xor2(t, o);
+            t.x += u.x;
+            t.y += u.y;
+          }
+          if (p == lane) E = cfma(mult, t, E);
+        }
+      }
+      if (lane < P) mult = cmul(mult, s_tab[lane][T_GC + LOOK]);
+    }
+    if (lane < P) {
+      // the state before each warp
+      float2 st = E;
+      for (int w = 0; w < WARPS; ++w) {
+        const float2 wt = s_w[lane][w];
+        s_w[lane][w] = st;
+        st = cfma(s_tab[lane][T_GW], st, wt);
+      }
+    }
   }
   __syncthreads();
 
@@ -499,14 +486,14 @@ extern "C" {
 // the per-pole table; w0, wT: [B, P] complex64.  The look-back scratch,
 // which no other launch uses until this one has run (allocate it per
 // call): flags, B * nch + 1 32-bit words, the last of them the ticket
-// counter, zeroed here by a memset on `stream` before the kernel; agg, pfx:
-// B * nch * P complex64 each.  nch = ceil(T / sdr_pole_chunk()).  All
+// counter, zeroed here by a memset on `stream` before the kernel; agg:
+// B * nch * P complex64.  nch = ceil(T / sdr_pole_chunk()).  All
 // device pointers; one memset and one launch on `stream`, with the same
 // arguments on each replay of a captured graph.  Returns the first CUDA
 // error.
 int sdr_pole_bank(const void* d, const void* tab, const void* w0, void* y,
                   void* wT, int B, int P, int T, void* flags, void* agg,
-                  void* pfx, void* stream) {
+                  void* stream) {
   if (B < 1 || P < 1 || P > poles::MAXP || T < 1
       || T > 0x7fffffff - poles::CHUNK)
     return (int)cudaErrorInvalidValue;
@@ -519,8 +506,7 @@ int sdr_pole_bank(const void* d, const void* tab, const void* w0, void* y,
   if (e != cudaSuccess) return (int)e;
   poles::pole_bank_kernel<<<(unsigned)(nch * B), poles::THREADS, 0, st>>>(
       (const float*)d, (const float2*)tab, (const float2*)w0, (float*)y,
-      (float2*)wT, P, T, (int)nch, fl, (float2*)agg, (float2*)pfx,
-      fl + nch * B);
+      (float2*)wT, P, T, (int)nch, fl, (float2*)agg, fl + nch * B);
   return (int)cudaGetLastError();
 }
 

@@ -27,10 +27,11 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # only good to ~2^-21.4 absolute near 0 and far worse for large arguments).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# per-source additions: the RDS decoders are feedback loops, so every
-# multiply and add rounds on its own as in their plain versions (an FMA
-# contraction moves the Costas phase and the bit clock from there on)
-EXTRA_FLAGS = {"rds_scan.cu": ["-fmad=false"]}
+# per-source additions: the RDS decoders and the fm chain's sub-block loops
+# are feedback loops, so every multiply and add rounds on its own as in
+# their plain versions (an FMA contraction moves the Costas phase and the
+# bit clock from there on)
+EXTRA_FLAGS = {"rds_scan.cu": ["-fmad=false"], "loops.cu": ["-fmad=false"]}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -16,7 +16,8 @@ such primitive, so the port carries hand-written CUDA kernels in
   blockops.py:378-382), with the residue-weighted sum y = Re sum_i r_i w_i
   fused so the [P, T] pole states never reach device memory.  A call is
   one launch: a single pass with a decoupled look-back that carries the P
-  complex states between chunks of 2048 samples.  The states come and go
+  complex states between chunks of 2048 samples, each chunk summing every
+  predecessor's aggregate in a fixed order (deterministic).  The states come and go
   as one [B, P] tensor; S stations' banks are one launch of the bank's
   constants folded S times (`fold_bank`, built once per S).
 
@@ -296,7 +297,7 @@ class PoleBankKernel:
             lib = build.load(SOURCE)
             fn = lib.sdr_pole_bank
             fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                           + [ctypes.c_void_p] * 4)
+                           + [ctypes.c_void_p] * 3)
             fn.restype = ctypes.c_int
             geom = (lib.sdr_pole_chunk(), lib.sdr_pole_seg(),
                     lib.sdr_pole_maxp(), lib.sdr_pole_look(),
@@ -340,18 +341,16 @@ class PoleBankKernel:
                 raise ValueError(f"pole_bank: shape {(B, T)} out of range")
             # this launch's look-back scratch: the flags and, last, the
             # ticket counter (the entry point zeroes both), and the
-            # aggregate and prefix payloads, P complex values a chunk
+            # aggregate payloads, P complex values a chunk
             flags = torch.empty(blocks + 1, dtype=torch.int32, device=dev)
             agg = torch.empty(blocks * P, dtype=torch.complex64, device=dev)
-            pfx = torch.empty_like(agg)
             y = torch.empty_like(drive)
             wT = torch.empty(B, P, dtype=torch.complex64, device=dev)
             with torch.cuda.device(dev):
                 rc = self._entry()(
                     drive.data_ptr(), tab.data_ptr(), w0.data_ptr(),
                     y.data_ptr(), wT.data_ptr(), B, P, T, flags.data_ptr(),
-                    agg.data_ptr(), pfx.data_ptr(),
-                    torch.cuda.current_stream(dev).cuda_stream)
+                    agg.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
             if rc != 0:
                 raise RuntimeError(f"pole_bank kernel launch failed: CUDA "
                                    f"error {rc}")

@@ -1,0 +1,356 @@
+"""The fm chain's last sequential device loops as hand kernels
+(`csrc/loops.cu`), each beside its plain torch version.
+
+The JAX package runs these as `lax.scan` / `associative_scan` on the
+device; the port ran them as Python loops of 0-dim (or [S]) tensor ops,
+and the run length as `torch.cummax`:
+
+- `pss_scan`: the PSS sub-block recurrence (JAX sdrjfm_tpu/ops/pss.py:164),
+  32 steps a 131072-sample block; called by ops/pss.py `pss_adapt`.
+- `psi_unwrap`: the RDS carrier-phase unwrap (JAX
+  sdrjfm_tpu/rds/bitrecovery.py:128) fused with the derotation it feeds;
+  called by rds/bitrecovery.py `recover_bits`.
+- `runlength`: the consecutive-true run length (JAX
+  sdrjfm_tpu/ops/blockops.py:391-405 `runlength_true`), the pilot lock
+  counter; called by ops/blockops.py `runlength_true`.
+- `squelch_decide`: the noise and level squelch decision lattices (JAX
+  sdrjfm_tpu/ops/squelch.py:120 and :208); called by ops/squelch.py.
+
+Each takes R independent rows: leading dims [...] of its inputs, one row
+for one station, S for the n-station step.  A wrapper runs its plain
+version on a CPU tensor, and on a CUDA tensor launches its kernel (built
+with nvcc at the first launch, never at import) or raises; `launches`
+counts the launches, eager or recorded into a CUDA graph being captured
+(a graph's replays are not counted), never the plain version's calls.  No
+kernel keeps scratch between calls and no launch argument changes from
+call to call at one shape, so each is safe to capture in a CUDA graph.
+The plain versions are the torch code the callers ran before, moved here
+as it was: the CPU path is unchanged bit for bit, and on the card they
+are the kernels' references.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import constants as C
+from . import build
+
+Tensor = torch.Tensor
+
+SOURCE = "loops.cu"
+PSI_MAXSUB = 1024          # sub-blocks a row of psi_unwrap (csrc PSI_MAXSUB)
+RL_SPAN = 131072           # samples a runlength cluster step (csrc RL_SPAN)
+HYSTERESIS_NSQ = 0.001     # the noise squelch's decision band
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def pss_scan_plain(S_k: Tensor, W_k: Tensor, sub_locked: Tensor, state,
+                   subblock: int, hold: int, alpha: float, decay: float
+                   ) -> Tuple[Tensor, tuple]:
+    """The PSS offset recurrence over the sub-blocks.  S_k, W_k [..., n]
+    complex64 (the sums of F^2 and of EMA-weighted F^2 a sub-block);
+    sub_locked [..., n] bool; state = (acc, mean_error, minimized,
+    lock_run, unlock_run), [...] each.  Returns (accs [..., n], the offset
+    held over each sub-block, and the new state tuple)."""
+    S = subblock
+    Sr, Si, Wr, Wi = S_k.real, S_k.imag, W_k.real, W_k.imag
+    acc, me, minimized, lock_run, unlock_run = state
+    accs = []
+    for k in range(sub_locked.shape[-1]):
+        lk = sub_locked[..., k]
+        boost = torch.where(minimized, 1.0, C.PSS_ERROR_BOOST)
+        c, s = torch.cos(-2.0 * acc), torch.sin(-2.0 * acc)
+        # Im(e^{-2j acc} * S_k), Im(e^{-2j acc} * W_k)
+        err_sum = 0.5 * (c * Si[..., k] + s * Sr[..., k]) * boost
+        acc_n = torch.clamp(acc + alpha * err_sum, -C.PSS_CLAMP, C.PSS_CLAMP)
+        me_n = decay * me + 0.5 * boost * (c * Wi[..., k] + s * Wr[..., k])
+        below = torch.abs(me_n) < C.PSS_LOCK_THRESHOLD
+        lock_n = torch.where(below, lock_run + S, 0)
+        unlock_n = torch.where(below, 0, unlock_run + S)
+        min_n = torch.where(below, minimized | (lock_n > hold),
+                            minimized & ~(unlock_n > hold))
+        accs.append(torch.where(lk, acc, 0.0))
+        # pilot unlock resets the analyzer (fm-processor.cpp:698-701)
+        acc = torch.where(lk, acc_n, 0.0)
+        me = torch.where(lk, me_n, 0.0)
+        minimized = lk & min_n
+        lock_run = torch.where(lk, lock_n, 0)
+        unlock_run = torch.where(lk, unlock_n, 0)
+    return torch.stack(accs, dim=-1), (acc, me, minimized, lock_run,
+                                       unlock_run)
+
+
+def psi_unwrap_plain(raw: Tensor, psi0: Tensor, y: Tensor
+                     ) -> Tuple[Tensor, Tensor]:
+    """The carrier-phase unwrap psi = r + round((psi - r) / pi) pi over the
+    sub-blocks' estimates raw [..., nsub] from psi0 [...], then y [..., T]
+    complex64 derotated by each sub-block's psi.  Returns (y e^{-j psi}
+    [..., T], the last psi [...])."""
+    T = y.shape[-1]
+    lead = y.shape[:-1]
+    nsub = raw.shape[-1]
+    phase_sub = T // nsub
+    psi = psi0
+    psi_seq = []
+    for k in range(nsub):
+        r = raw[..., k]
+        psi = r + torch.round((psi - r) / math.pi) * math.pi
+        psi_seq.append(psi)
+    psi_last = psi
+    psi_full = torch.stack(psi_seq, dim=-1)[..., None].expand(
+        lead + (nsub, phase_sub)).reshape(lead + (T,))
+    yr = y * torch.complex(torch.cos(psi_full), -torch.sin(psi_full))
+    return yr, psi_last
+
+
+def runlength_plain(flags: Tensor, r0: Tensor) -> Tuple[Tensor, Tensor]:
+    """Consecutive-true run length ending at each sample, with carry-in r0
+    (the reference's SampleLockStableCnt pattern).  flags [..., T], r0
+    [...], each row its own run."""
+    T = flags.shape[-1]
+    idx = torch.arange(T, dtype=torch.int32, device=flags.device)
+    last_false = torch.cummax(torch.where(flags, -1, idx), dim=-1).values
+    rl = torch.where(last_false >= 0, idx - last_false,
+                     idx + 1 + r0.to(torch.int32)[..., None])
+    rl = torch.where(flags, rl, 0).to(torch.int32)
+    return rl, rl[..., -1]
+
+
+def squelch_decide_plain(mode: str, a: Tensor, b: Optional[Tensor],
+                         thr: Tensor, sup0: Tensor) -> Tuple[Tensor, Tensor]:
+    """The squelch's latched decision at each period end.  mode "nsq": a,
+    b = the high and low band averages [..., n], open where a < b thr -
+    HYSTERESIS_NSQ, close where a >= b thr + HYSTERESIS_NSQ, forced shut
+    when thr < HYSTERESIS_NSQ; mode "level": a = the carrier level [..., n]
+    (b unused, None), closed below thr, open at or above it.  thr [...], sup0
+    [...] bool.  Returns (the decisions [..., n] bool, the last [...])."""
+    sup = sup0
+    sups = []
+    if mode == "nsq":
+        for k in range(a.shape[-1]):
+            open_ = a[..., k] < b[..., k] * thr - HYSTERESIS_NSQ
+            close = a[..., k] >= b[..., k] * thr + HYSTERESIS_NSQ
+            sup = torch.where(thr < HYSTERESIS_NSQ, True,
+                              torch.where(open_, False,
+                                          torch.where(close, True, sup)))
+            sups.append(sup)
+    elif mode == "level":
+        for k in range(a.shape[-1]):
+            sup = torch.where(a[..., k] < thr, True,
+                              torch.where(a[..., k] >= thr, False, sup))
+            sups.append(sup)
+    else:
+        raise ValueError(f"squelch_decide: mode {mode!r}")
+    return torch.stack(sups, dim=-1), sup
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+
+
+def _rows(x: Tensor, R: int, n: int):
+    """x [..., n] as an [R, n] view (a copy only where no view exists) and
+    its two strides in elements."""
+    x2 = x.reshape(R, n)
+    return x2, x2.stride(0), x2.stride(1)
+
+
+def _vec(x: Tensor, lead, dtype) -> Tensor:
+    """x broadcast over the rows `lead`, as a contiguous [R] tensor."""
+    if x.dtype != dtype:
+        raise TypeError(f"expected {dtype}, got {x.dtype}")
+    return x.expand(lead).reshape(-1).contiguous()
+
+
+class _LoopKernel:
+    """A kernel of csrc/loops.cu: its C entry `sdr_<name>` and a launch
+    counter."""
+
+    name = ""
+    argtypes: list = []
+
+    def __init__(self):
+        self.launches = 0
+        self._fn = None
+
+    def _entry(self):
+        if self._fn is None:
+            lib = build.load(SOURCE)
+            geom = (lib.sdr_psi_maxsub(), lib.sdr_rl_span())
+            if geom != (PSI_MAXSUB, RL_SPAN):
+                raise RuntimeError(f"{SOURCE}: csrc geometry {geom} != the "
+                                   f"wrapper's")
+            fn = getattr(lib, f"sdr_{self.name}")
+            fn.argtypes = self.argtypes + [_P]
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def _on_card(self, dev: torch.device) -> bool:
+        """False for the CPU (run the plain version); True for a card;
+        raises for any other device."""
+        if dev.type == "cpu":
+            return False
+        if dev.type != "cuda":
+            raise ValueError(f"{self.name}: unsupported device {dev}")
+        return True
+
+    def _launch(self, dev: torch.device, *args) -> None:
+        with torch.cuda.device(dev):
+            rc = self._entry()(*args,
+                               torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.name} kernel launch failed: CUDA "
+                               f"error {rc}")
+        self.launches += 1
+
+
+class PssScanKernel(_LoopKernel):
+    """__call__(S_k, W_k, sub_locked, state, subblock, hold, alpha, decay)
+    as pss_scan_plain; one thread a row."""
+
+    name = "pss_scan"
+    argtypes = [_P, _P, _P, _LL, _LL] + [_P] * 11 + [_I, _I] + [_F] * 5 \
+        + [_I, _I]
+
+    def __call__(self, S_k, W_k, sub_locked, state, subblock: int, hold: int,
+                 alpha: float, decay: float):
+        dev = S_k.device
+        if not self._on_card(dev):
+            return pss_scan_plain(S_k, W_k, sub_locked, state, subblock,
+                                  hold, alpha, decay)
+        lead, n = S_k.shape[:-1], S_k.shape[-1]
+        R = math.prod(lead)
+        if (S_k.dtype != torch.complex64 or W_k.dtype != torch.complex64
+                or W_k.shape != S_k.shape or sub_locked.dtype != torch.bool
+                or sub_locked.shape != S_k.shape):
+            raise TypeError("pss_scan: S_k, W_k [..., n] complex64 and "
+                            "sub_locked [..., n] bool")
+        S2 = S_k.reshape(R, n).contiguous()
+        W2 = W_k.reshape(R, n).contiguous()
+        lk, lk_r, lk_c = _rows(sub_locked, R, n)
+        ins = [_vec(v, lead, dt) for v, dt in zip(
+            state, (torch.float32, torch.float32, torch.bool, torch.int32,
+                    torch.int32))]
+        accs = torch.empty(R, n, dtype=torch.float32, device=dev)
+        outs = [torch.empty(R, dtype=v.dtype, device=dev) for v in ins]
+        self._launch(dev, S2.data_ptr(), W2.data_ptr(), lk.data_ptr(), lk_r,
+                     lk_c, *(v.data_ptr() for v in ins), accs.data_ptr(),
+                     *(v.data_ptr() for v in outs), R, n, float(alpha),
+                     float(decay), float(C.PSS_ERROR_BOOST),
+                     float(C.PSS_CLAMP), float(C.PSS_LOCK_THRESHOLD),
+                     int(subblock), int(hold))
+        return accs.reshape(lead + (n,)), tuple(v.reshape(lead) for v in outs)
+
+
+class PsiUnwrapKernel(_LoopKernel):
+    """__call__(raw, psi0, y) as psi_unwrap_plain; grid (chunks of 2048
+    samples, rows)."""
+
+    name = "psi_unwrap"
+    argtypes = [_P] * 5 + [_I] * 3 + [_F, _F]
+
+    def __call__(self, raw, psi0, y):
+        dev = y.device
+        if not self._on_card(dev):
+            return psi_unwrap_plain(raw, psi0, y)
+        lead, T = y.shape[:-1], y.shape[-1]
+        nsub = raw.shape[-1]
+        R = math.prod(lead)
+        if (y.dtype != torch.complex64 or raw.dtype != torch.float32
+                or raw.shape[:-1] != lead):
+            raise TypeError("psi_unwrap: y [..., T] complex64, raw [..., "
+                            "nsub] float32")
+        if not (1 <= nsub <= PSI_MAXSUB and T % nsub == 0 and R <= 65535):
+            raise ValueError(f"psi_unwrap: {nsub} sub-blocks of {T} "
+                             f"samples, {R} rows")
+        y2 = y.reshape(R, T).contiguous()
+        raw2 = raw.reshape(R, nsub).contiguous()
+        p0 = _vec(psi0, lead, torch.float32)
+        yr = torch.empty_like(y2)
+        last = torch.empty(R, dtype=torch.float32, device=dev)
+        # torch on the card divides by a scalar as a multiply by its f32
+        # reciprocal
+        inv_pi = float(np.float32(1.0) / np.float32(math.pi))
+        self._launch(dev, raw2.data_ptr(), p0.data_ptr(), y2.data_ptr(),
+                     yr.data_ptr(), last.data_ptr(), R, T, nsub, inv_pi,
+                     float(np.float32(math.pi)))
+        return yr.reshape(lead + (T,)), last.reshape(lead)
+
+
+class RunlengthKernel(_LoopKernel):
+    """__call__(flags, r0) as runlength_plain; a cluster of 8 blocks a
+    row."""
+
+    name = "runlength"
+    argtypes = [_P] * 4 + [_I, _I]
+
+    def __call__(self, flags, r0):
+        dev = flags.device
+        if not self._on_card(dev):
+            return runlength_plain(flags, r0)
+        lead, T = flags.shape[:-1], flags.shape[-1]
+        R = math.prod(lead)
+        if flags.dtype != torch.bool:
+            raise TypeError("runlength: flags must be bool")
+        if not (1 <= T < 2 ** 31 - RL_SPAN and R <= 65535):
+            raise ValueError(f"runlength: {R} rows of {T} samples")
+        f2 = flags.reshape(R, T).contiguous()
+        r = _vec(r0.to(torch.int32), lead, torch.int32)
+        rl = torch.empty(R, T, dtype=torch.int32, device=dev)
+        last = torch.empty(R, dtype=torch.int32, device=dev)
+        self._launch(dev, f2.data_ptr(), r.data_ptr(), rl.data_ptr(),
+                     last.data_ptr(), R, T)
+        return rl.reshape(lead + (T,)), last.reshape(lead)
+
+
+class SquelchDecideKernel(_LoopKernel):
+    """__call__(mode, a, b, thr, sup0) as squelch_decide_plain; one thread
+    a row."""
+
+    name = "squelch_decide"
+    argtypes = [_I, _P, _LL, _LL, _P, _LL, _LL] + [_P] * 4 + [_I, _I, _F]
+
+    def __call__(self, mode: str, a, b, thr, sup0):
+        dev = a.device
+        if not self._on_card(dev):
+            return squelch_decide_plain(mode, a, b, thr, sup0)
+        if mode not in ("nsq", "level"):
+            raise ValueError(f"squelch_decide: mode {mode!r}")
+        b = a if mode == "level" else b
+        lead, n = a.shape[:-1], a.shape[-1]
+        R = math.prod(lead)
+        if (a.dtype != torch.float32 or b.dtype != torch.float32
+                or b.shape != a.shape):
+            raise TypeError("squelch_decide: a, b [..., n] float32")
+        a2, a_r, a_c = _rows(a, R, n)
+        b2, b_r, b_c = _rows(b, R, n)
+        t = _vec(thr, lead, torch.float32)
+        s0 = _vec(sup0, lead, torch.bool)
+        sups = torch.empty(R, n, dtype=torch.bool, device=dev)
+        last = torch.empty(R, dtype=torch.bool, device=dev)
+        self._launch(dev, 0 if mode == "nsq" else 1, a2.data_ptr(), a_r, a_c,
+                     b2.data_ptr(), b_r, b_c, t.data_ptr(), s0.data_ptr(),
+                     sups.data_ptr(), last.data_ptr(), R, n,
+                     float(HYSTERESIS_NSQ))
+        return sups.reshape(lead + (n,)), last.reshape(lead)
+
+
+pss_scan = PssScanKernel()
+psi_unwrap = PsiUnwrapKernel()
+runlength = RunlengthKernel()
+squelch_decide = SquelchDecideKernel()

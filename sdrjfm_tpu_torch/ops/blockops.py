@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from ..kernels.linrec import (PoleBank, fold_bank, linrec, pole_bank,
                               pole_bank_constants)
+from ..kernels.loops import runlength
 
 Tensor = torch.Tensor
 
@@ -416,14 +417,9 @@ def iir_apply(x: Tensor, spec: IIRSpec, state) -> Tuple[Tensor, tuple]:
 def runlength_true(flags: Tensor, r0: Tensor) -> Tuple[Tensor, Tensor]:
     """Consecutive-true run length ending at each sample, with carry-in r0
     (the reference's SampleLockStableCnt pattern).  flags [..., T], r0
-    [...], each row its own run."""
-    T = flags.shape[-1]
-    idx = torch.arange(T, dtype=torch.int32, device=flags.device)
-    last_false = torch.cummax(torch.where(flags, -1, idx), dim=-1).values
-    rl = torch.where(last_false >= 0, idx - last_false,
-                     idx + 1 + r0.to(torch.int32)[..., None])
-    rl = torch.where(flags, rl, 0).to(torch.int32)
-    return rl, rl[..., -1]
+    [...], each row its own run: kernels.loops.runlength, one launch on
+    the card (JAX: an associative scan of max)."""
+    return runlength(flags, r0)
 
 
 # ---------------------------------------------------------------------------

@@ -6,11 +6,12 @@ F = lowpass(e^{j base} * demod) computed once for the whole block, the
 Costas error under the rotation e^{-j acc} is Im(e^{-2j acc} F^2)/2, so the
 per-sub-block sums of F^2 are formed in one vectorised pass and only a
 scalar recurrence over the sub-blocks remains.  JAX runs that recurrence as
-a `lax.scan`; here it is a Python loop over 0-dim device tensors (32 steps
-per 131072-sample block), with `torch.where` in place of the pilot-unlock
-reset.  It never synchronises with the host.  A block may carry leading
-station rows ([..., T], states [...]): the recurrence then runs on [...]
-vectors, one station's op count for every row.
+a `lax.scan`; here it is `kernels.loops.pss_scan` (32 steps per
+131072-sample block): one launch of a hand kernel on the card, its plain
+version (a Python loop over 0-dim device tensors) on the CPU.  It never
+synchronises with the host.  A block may carry leading station rows ([...,
+T], states [...]): the recurrence then runs one row a station, in the same
+launch.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 
 from .. import constants as C
 from . import design
+from ..kernels.loops import pss_scan
 from .blockops import fir_apply
 
 Tensor = torch.Tensor
@@ -109,46 +111,26 @@ def pss_adapt(demod: Tensor, base_phase: Tensor, locked: Tensor,
     G = (F * F).reshape(lead + (nsub, S))
     S_k = G.sum(dim=-1)
     W_k = (G * cfg.ema_weights).sum(dim=-1)
-    Sr, Si, Wr, Wi = S_k.real, S_k.imag, W_k.real, W_k.imag
     sub_locked = locked.reshape(lead + (nsub, S))[..., 0]
     if axis is not None:
         # one packed gather (f32, lossless); the scan below then sees the
         # whole block's sub-block sums, in rank order
-        g = axis.all_gather(torch.stack([Sr, Si, Wr, Wi,
+        g = axis.all_gather(torch.stack([S_k.real, S_k.imag, W_k.real,
+                                         W_k.imag,
                                          sub_locked.to(torch.float32)]))
         g = g.movedim(0, -2)                      # [5, ..., P, nsub]
         Sr, Si, Wr, Wi, lk = g.reshape(g.shape[:-2] + (-1,))
+        S_k, W_k = torch.complex(Sr, Si), torch.complex(Wr, Wi)
         sub_locked = lk > 0.5
 
-    acc, me = state.acc, state.mean_error
-    minimized, lock_run, unlock_run = (state.minimized, state.lock_run,
-                                       state.unlock_run)
-    accs = []
-    for k in range(sub_locked.shape[-1]):
-        lk = sub_locked[..., k]
-        boost = torch.where(minimized, 1.0, C.PSS_ERROR_BOOST)
-        c, s = torch.cos(-2.0 * acc), torch.sin(-2.0 * acc)
-        # Im(e^{-2j acc} * S_k), Im(e^{-2j acc} * W_k)
-        err_sum = 0.5 * (c * Si[..., k] + s * Sr[..., k]) * boost
-        acc_n = torch.clamp(acc + alpha * err_sum, -C.PSS_CLAMP, C.PSS_CLAMP)
-        me_n = decay * me + 0.5 * boost * (c * Wi[..., k] + s * Wr[..., k])
-        below = torch.abs(me_n) < C.PSS_LOCK_THRESHOLD
-        lock_n = torch.where(below, lock_run + S, 0)
-        unlock_n = torch.where(below, 0, unlock_run + S)
-        min_n = torch.where(below, minimized | (lock_n > hold),
-                            minimized & ~(unlock_n > hold))
-        accs.append(torch.where(lk, acc, 0.0))
-        # pilot unlock resets the analyzer (fm-processor.cpp:698-701)
-        acc = torch.where(lk, acc_n, 0.0)
-        me = torch.where(lk, me_n, 0.0)
-        minimized = lk & min_n
-        lock_run = torch.where(lk, lock_n, 0)
-        unlock_run = torch.where(lk, unlock_n, 0)
+    accs, (acc, me, minimized, lock_run, unlock_run) = pss_scan(
+        S_k, W_k, sub_locked, (state.acc, state.mean_error, state.minimized,
+                               state.lock_run, state.unlock_run),
+        S, hold, alpha, decay)
     new_state = PSSState(acc=acc, tail=tail, mean_error=me,
                          minimized=minimized, lock_run=lock_run,
                          unlock_run=unlock_run)
     if axis is not None:
-        accs = accs[axis.index * nsub:(axis.index + 1) * nsub]
-    offsets = torch.stack(accs, dim=-1)[..., None].expand(
-        lead + (nsub, S)).reshape(lead + (T,))
+        accs = accs[..., axis.index * nsub:(axis.index + 1) * nsub]
+    offsets = accs[..., None].expand(lead + (nsub, S)).reshape(lead + (T,))
     return offsets, new_state

@@ -8,11 +8,12 @@ Level squelch gates on the demodulator's tracked carrier amplitude against
 
 Block shape: both band filters run in ONE call of the pole-bank kernel
 (`iir_apply_many`), both decaying averages in ONE two-row launch of the
-real scan, and the ~23 Hz decision lattice is a Python loop over 0-dim
-device tensors (16 hold periods a block at block_fm=131072): no host sync.
-A block may carry leading station rows ([..., T], the level [...]): every
-row's filters share the pole-bank launch, its averages the scan launch,
-and the decision loop runs on [...] vectors.
+real scan, and the ~23 Hz decision lattice is one launch of
+`kernels.loops.squelch_decide` (16 hold periods a block at
+block_fm=131072; its plain version, a loop over the periods, on the CPU):
+no host sync.  A block may carry leading station rows ([..., T], the level
+[...]): every row's filters share the pole-bank launch, its averages the
+scan launch, its decisions the decision launch.
 """
 
 from __future__ import annotations
@@ -23,13 +24,12 @@ import numpy as np
 import torch
 
 from .. import constants as C
+from ..kernels.loops import HYSTERESIS_NSQ, squelch_decide
 from . import design
 from .blockops import (IIRBank, IIRSpec, ema_apply_rows, iir_apply_many,
                        iir_bank)
 
 Tensor = torch.Tensor
-
-HYSTERESIS_NSQ = 0.001
 
 
 class SquelchConfig(NamedTuple):
@@ -77,10 +77,11 @@ def _periods(T: int, H: int) -> int:
     return T // H
 
 
-def _gate(x: Tensor, sups, H: int) -> Tensor:
-    """x with each hold period zeroed where its decision suppresses."""
-    keep = (~torch.stack(sups, dim=-1)).to(x.dtype)         # [..., nper]
-    return (x.reshape(x.shape[:-1] + (len(sups), H))
+def _gate(x: Tensor, sups: Tensor, H: int) -> Tensor:
+    """x with each hold period zeroed where its decision (sups [...,
+    nper]) suppresses."""
+    keep = (~sups).to(x.dtype)                              # [..., nper]
+    return (x.reshape(x.shape[:-1] + (sups.shape[-1], H))
             * keep[..., None]).reshape(x.shape)
 
 
@@ -99,9 +100,9 @@ def _gathered_periods(axis, *xs: Tensor):
     return tuple(g.reshape(g.shape[:-2] + (-1,)))
 
 
-def _own(sups, nper: int, axis):
+def _own(sups: Tensor, nper: int, axis) -> Tensor:
     return sups if axis is None else \
-        sups[axis.index * nper:(axis.index + 1) * nper]
+        sups[..., axis.index * nper:(axis.index + 1) * nper]
 
 
 def noise_squelch(x: Tensor, level: Tensor, cfg: SquelchConfig,
@@ -142,15 +143,7 @@ def noise_squelch(x: Tensor, level: Tensor, cfg: SquelchConfig,
             state.avg_low, axis)
     ah_p, al_p = _gathered_periods(axis, ah.reshape(per)[..., -1],
                                    al.reshape(per)[..., -1])
-    sup = state.suppress
-    sups = []
-    for k in range(ah_p.shape[-1]):
-        open_ = ah_p[..., k] < al_p[..., k] * thr - HYSTERESIS_NSQ
-        close = ah_p[..., k] >= al_p[..., k] * thr + HYSTERESIS_NSQ
-        sup = torch.where(thr < HYSTERESIS_NSQ, True,
-                          torch.where(open_, False,
-                                      torch.where(close, True, sup)))
-        sups.append(sup)
+    sups, sup = squelch_decide("nsq", ah_p, al_p, thr, state.suppress)
     new = SquelchState(hp_state=hp_state, lp_state=lp_state, avg_high=ah_last,
                        avg_low=al_last, suppress=sup, phase=state.phase)
     return _gate(x, _own(sups, nper, axis), H), new
@@ -169,12 +162,7 @@ def level_squelch(x: Tensor, carrier: Tensor, level: Tensor,
     thr = torch.pow(10.0, (level.to(torch.float32) - 80.0) / 30.0)
     c_p, = _gathered_periods(
         axis, carrier.reshape(carrier.shape[:-1] + (nper, H))[..., -1])
-    sup = state.suppress
-    sups = []
-    for k in range(c_p.shape[-1]):
-        sup = torch.where(c_p[..., k] < thr, True,
-                          torch.where(c_p[..., k] >= thr, False, sup))
-        sups.append(sup)
+    sups, sup = squelch_decide("level", c_p, None, thr, state.suppress)
     return _gate(x, _own(sups, nper, axis), H), state._replace(suppress=sup)
 
 

@@ -109,12 +109,15 @@ def spawn(target, world: int, args=(), device="cpu",
 
 def counters() -> dict:
     """The kernel wrappers whose `launches` a job reports."""
+    from ..kernels import loops as L
     from ..kernels.frontend import frontend
     from ..kernels.linrec import linrec, pole_bank
     from ..rds import scan_decoders as SD
     return {"frontend": frontend, "linrec": linrec, "pole_bank": pole_bank,
             "rds_scan1": SD.decoder1_scan, "rds_scan2": SD.decoder2_scan,
-            "rds_scan3": SD.decoder3_scan}
+            "rds_scan3": SD.decoder3_scan, "pss_scan": L.pss_scan,
+            "runlength": L.runlength, "psi_unwrap": L.psi_unwrap,
+            "squelch_decide": L.squelch_decide}
 
 
 def _controls(rx, values: dict):

@@ -3,8 +3,9 @@ sdrjfm_tpu.rds.bitrecovery).
 
   matched filter : decoder-2's complex RRC, 45 taps, as a batched conv
   carrier phase  : per-sub-block squared-BPSK estimate psi = angle(mean(y^2))/2
-                   with a continuity unwrap against the carried estimate
-                   (a Python loop over the few sub-blocks, on the device)
+                   with a continuity unwrap against the carried estimate,
+                   fused with the derotation (kernels.loops.psi_unwrap: one
+                   launch on the card, a loop over the sub-blocks on the CPU)
   bit timing     : the bit clock is exactly 384/19 samples at 24 kHz; a
                    per-block energy maximisation over 64 fractional offsets,
                    the bit grid sampled by linear-interpolation gather
@@ -18,13 +19,13 @@ the bits come out [..., capacity] with a count [...], as JAX's vmap gives.
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from .. import constants as C
+from ..kernels.loops import psi_unwrap
 from ..ops import design
 from ..ops.blockops import fir_apply
 
@@ -119,16 +120,7 @@ def recover_bits(z: Tensor, cfg: BitRecoveryConfig,
     nsub = T // phase_sub
     y2 = (y * y).reshape(lead + (nsub, phase_sub))
     raw = 0.5 * torch.angle(y2.mean(dim=-1))              # psi mod pi
-    psi = state.psi
-    psi_seq = []
-    for k in range(nsub):
-        r = raw[..., k]
-        psi = r + torch.round((psi - r) / math.pi) * math.pi
-        psi_seq.append(psi)
-    psi_last = psi
-    psi_full = torch.stack(psi_seq, dim=-1)[..., None].expand(
-        lead + (nsub, phase_sub)).reshape(lead + (T,))
-    yr = y * torch.complex(torch.cos(psi_full), -torch.sin(psi_full))
+    yr, psi_last = psi_unwrap(raw, state.psi, y)
 
     # --- bit timing: energy over candidate fractional offsets ---------------
     nbits_probe = int(T // SPS) - 1

@@ -198,19 +198,14 @@ def _emulate(x, tab, w0):
             return before, E
 
         ew = np.zeros((nch, warps), np.complex128)
-        pfx0 = None
         for c in range(nch):
-            if c == 0:
-                E = w0[p]
-            else:
-                # every predecessor but chunk 0 shows its aggregate
-                E = 0.0
-                for j in range(c):
-                    wgt = t[o["gc"] + j % LK] * t[o["gc"] + LK] ** (j // LK)
-                    E += wgt * (pfx0 if j == c - 1 else agg[c - 1 - j])
-            ew[c], I = walk(E, c)
-            if c == 0:
-                pfx0 = I
+            # every predecessor's aggregate, and w0 as the value before
+            # chunk 0, each decayed by its power from the table
+            E = 0.0
+            for j in range(c + 1):
+                wgt = t[o["gc"] + j % LK] * t[o["gc"] + LK] ** (j // LK)
+                E += wgt * (w0[p] if j == c else agg[c - 1 - j])
+            ew[c], _ = walk(E, c)
         Cth = xl + t[o["gl"]:o["gl"] + 32] * ew[:, :, None]
         Cth = Cth.reshape(nch, threads)
         y += np.real(t[o["rg"]:o["rg"] + S][None, None, :] * Cth[:, :, None])
