@@ -29,13 +29,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
              per call.  The fm chain's loop kernels (csrc/loops.cu) against
              their plain versions at one row, 4 and 19 stations (2S = 8 and
              38 rows for the run length) and on ragged shapes: pss_scan and
-             psi_unwrap within LOOP_ATOL, run lengths, squelch decisions
-             and every integer and bool state exactly.  Kernel A: 20
-             launches of one call (B = 2 and the 4-station fold, B = 8)
-             bit-identical.
+             psi_unwrap within LOOP_ATOL, the fused pss_adapt within
+             PSS_ADAPT_ATOL and psi_recover within PSI_RECOVER_ATOL (also
+             at 36 sub-blocks, sub-blocks of 1024 and 2048, and phase
+             sub-blocks of 512 to 4096 and of 1000 and 1536 samples), run
+             lengths, squelch decisions and every integer and bool state
+             exactly.  Kernel A: 20 launches of one call (B = 2 and the
+             4-station fold, B = 8) bit-identical.
 3b. graph  — the look-back kernels under CUDA-graph replay: two real-scan
              calls (R=2, R=1), one pole-bank call at the squelch's shapes,
-             a 4-row front-end launch and the four loop kernels at the
+             a 4-row front-end launch and the six loop kernels at the
              single-station path's shapes captured in one graph, replayed
              three times on new inputs, each replay against the plain
              versions.
@@ -45,11 +48,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
              pilot and PSS locked, 48 kHz stereo audio.  rx steps through
              the captured graph (Receiver.jit_step): the wrappers' launch
              counts (MAIN_PER_STEP: the front end, two real scans, the PSS
-             scan, the run length and the psi unwrap a step; every later
-             launch check holds these too) over the run are the warm-up
-             steps' and the capture's,
+             adaptation, the run length and the RDS carrier phase a step;
+             every later launch check holds these too) over the run are
+             the warm-up steps' and the capture's,
              and the device launches in a profiler trace of a second run
-             are the warm-up steps' and one replay's a block.
+             are the warm-up steps' and one replay's a block, with no
+             pss_scan or psi_unwrap launch (the time-sharded path's and
+             the unfused entries).
 5. reference — the same capture through the port on the CPU (the kernels'
              plain versions): audio, metadata and RDS bits agree.
 5a. runners — every runner on the card against the eager rx.step loop on
@@ -166,11 +171,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
              from them, on a line of its own, each sequential stage's
              latency floor beside its time.  The loop kernels the same way
              (pss_scan and runlength also at 4 and 19 rows, runlength at
-             38; torch.cummax as runlength's yardstick; the latency floors
-             of pss_scan, psi_unwrap and squelch_decide).
+             38, pss_adapt and psi_recover at 1, 4 and 19 beside the device
+             time of the route each replaced: the torch sums, the unfused
+             kernel and the expand as one sequence; torch.cummax as
+             runlength's yardstick; the latency floors of the sequential
+             ones).
 7. profile — torch.profiler over 5 steady steps: the device's busy share
              of the wall time, device ops per step, the top ops by device
-             time, and no cummax; for the main path, for the heaviest
+             time, the loop kernels' launches a step by name (one
+             pss_adapt and one psi_recover, no pss_scan or psi_unwrap),
+             and no cummax; for the main path, for the heaviest
              option config and for the main path with RDS decoder 3 (each
              after its step time).
 8. scanned — for the same three configs, run_offline_scanned over the
@@ -683,6 +693,25 @@ LOOP_ATOL = 1e-6                   # pss_scan / psi_unwrap against their
                                    # expected); run lengths, squelch
                                    # decisions and every integer and bool
                                    # state exactly
+PSS_ADAPT_ATOL = 1e-6              # pss_adapt's offsets and acc against its
+                                   # plain version on the card: the kernel
+                                   # sums each sub-block's 4096 terms in
+                                   # another order than torch's reductions
+                                   # (S_k ~1e-7 of its terms' magnitude
+                                   # apart), which moves acc by alpha boost
+                                   # / 2 times that a step (~1e-8 at the
+                                   # path's |S_k| <= ~1e3); the integer and
+                                   # bool states equal on inputs away from
+                                   # the lock threshold
+PSI_RECOVER_ATOL = 2e-6            # psi_recover's yr and psi against its
+                                   # plain version on the card: each
+                                   # sub-block's mean of y^2 summed in
+                                   # another order and atan2f of another
+                                   # build put the estimate ~1e-7 rad from
+                                   # torch's; psi = r + k pi then rounds to
+                                   # its own ulp (4.8e-7 at |psi| < 8), and
+                                   # yr moves by |y| (<= ~1.5 here) times
+                                   # that; the bits of the path equal
 PSS_SUB = 4096                     # the PSS sub-block (ops/pss.SUBBLOCK)
 PSI_SUB = 2048                     # the RDS carrier-phase sub-block
 
@@ -716,6 +745,63 @@ def _pss_args(rng, lead, n, dev):
     return (t(S.astype(np.complex64)), t(W.astype(np.complex64)), lk, state,
             PSS_SUB, hold, float(np.float32(C.PSS_ALPHA)),
             float(np.float32((1.0 - 1.0 / C.FM_RATE) ** PSS_SUB)))
+
+
+def _pss_adapt_args(rng, lead, n, dev, sub=PSS_SUB):
+    """pss_adapt's inputs for rows `lead` of n sub-blocks of `sub`: F as
+    the path's lowpassed L-R band at baseband (a tone of amplitude
+    0.05-0.3 at a phase of its own, a 500 Hz modulation, a little noise);
+    the first row's phase past pi/4, so acc reaches the clamp, and the last
+    row quiet (its error below the lock threshold); the per-sample lock
+    flags with unlocked sub-blocks and flips inside sub-blocks (only a
+    sub-block's first flag counts); entry states around the hold so
+    `minimized` turns on and off."""
+    from sdrjfm_tpu_torch import constants as C
+    from sdrjfm_tpu_torch.ops.pss import make_pss_config
+    R = int(np.prod(lead)) if lead else 1
+    T = n * sub
+    t = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a)).to(dev).reshape(lead + a.shape[1:])
+    amp = rng.uniform(0.05, 0.3, (R, 1))
+    phi = rng.uniform(-0.7, 0.7, (R, 1))
+    phi[0] = 1.2
+    if R > 1:
+        amp[-1] = 1e-3
+    m = 1.0 + 0.3 * np.sin(2 * np.pi * 500 / C.FM_RATE * np.arange(T)
+                           + rng.uniform(0, 2 * np.pi, (R, 1)))
+    F = amp * (m * np.exp(1j * phi) + 0.01 * (
+        rng.standard_normal((R, T)) + 1j * rng.standard_normal((R, T))))
+    locked = np.repeat(rng.random((R, n)) < 0.85, sub, axis=1)
+    locked[0] = True
+    flips = rng.random((R, T)) < 0.01
+    flips[:, ::sub] = False
+    cfg = make_pss_config(C.FM_RATE, sub)
+    hold = int(C.PSS_LOCK_STABLE_S * C.FM_RATE)
+    state = (t(rng.uniform(-0.7, 0.7, R).astype(np.float32)),
+             t(rng.uniform(-0.01, 0.01, R).astype(np.float32)),
+             t(rng.random(R) < 0.5),
+             t((hold - sub * rng.integers(0, 3, R)).astype(np.int32)),
+             t((hold - sub * rng.integers(0, 3, R)).astype(np.int32)))
+    return (t(F.astype(np.complex64)), t(locked ^ flips),
+            cfg.ema_weights.to(dev), state, sub, hold,
+            float(np.float32(C.PSS_ALPHA)), float(np.float32(cfg.ema_decay)))
+
+
+def _psi_recover_args(rng, R, T, P, dev):
+    """psi_recover's inputs: R rows of T samples as the matched filter
+    hands them (a BPSK baseband of ~20 samples a symbol, amplitude
+    0.3-0.8, its carrier phase drifting 0.25 rad a 2048 samples from a
+    phase of its own, a little noise), psi0 in (-4, 4), sub-blocks of P."""
+    n = np.arange(T)
+    sym = np.repeat(rng.choice([-1.0, 1.0], (R, T // 20 + 1)), 20,
+                    axis=1)[:, :T]
+    phase = rng.uniform(-np.pi, np.pi, (R, 1)) + 0.25 / 2048 * n
+    y = (rng.uniform(0.3, 0.8, (R, 1)) * sym * np.exp(1j * phase)
+         + 0.02 * (rng.standard_normal((R, T))
+                   + 1j * rng.standard_normal((R, T))))
+    psi0 = rng.uniform(-4.0, 4.0, R).astype(np.float32)
+    return (torch.from_numpy(y.astype(np.complex64)).to(dev),
+            torch.from_numpy(psi0).to(dev), P)
 
 
 def _psi_args(rng, R, T, nsub, dev):
@@ -787,12 +873,14 @@ def _leaves_err(got, want):
 
 
 def phase_loop_kernels(dev="cuda"):
-    """pss_scan, psi_unwrap, runlength and squelch_decide against their
-    plain versions on the card at the main path's shapes (one row, a
-    station a row at S = 4 and 19, and the demod pair's 2S for the run
-    length) and on ragged ones: pss_scan and psi_unwrap within LOOP_ATOL,
-    run lengths and decisions and every integer and bool state exactly.
-    Returns each kernel's max abs error."""
+    """pss_scan, psi_unwrap, pss_adapt, psi_recover, runlength and
+    squelch_decide against their plain versions on the card at the main
+    path's shapes (one row, a station a row at S = 4 and 19, and the demod
+    pair's 2S for the run length) and on ragged ones: pss_scan and
+    psi_unwrap within LOOP_ATOL, pss_adapt within PSS_ADAPT_ATOL,
+    psi_recover within PSI_RECOVER_ATOL, run lengths and decisions and
+    every integer and bool state exactly.  Returns each kernel's max abs
+    error."""
     from sdrjfm_tpu_torch import constants as C
     from sdrjfm_tpu_torch.kernels import loops as L
     rng = np.random.default_rng(31)
@@ -839,6 +927,54 @@ def phase_loop_kernels(dev="cuda"):
                              for r in rows)
     emit({"phase": "kernels", "kernel": "psi_unwrap", "atol": LOOP_ATOL,
           "max_abs_err": errs["psi_unwrap"], "cases": rows})
+    # the fused PSS adaptation: the single-station path's 0-dim rows, S = 4
+    # and 19 stations; ragged: 36 sub-blocks (two cluster steps, the
+    # second of 4), 3, and sub-blocks of 2048 and 1024
+    rows = []
+    for lead, n, sub in (((), 32, PSS_SUB), ((1,), 32, PSS_SUB),
+                         ((4,), 32, PSS_SUB), ((19,), 32, PSS_SUB),
+                         ((3,), 36, PSS_SUB), ((19,), 3, PSS_SUB),
+                         ((4,), 20, 2048), ((2,), 70, 1024)):
+        args = _pss_adapt_args(rng, lead, n, dev, sub)
+        off, st = L.pss_adapt(*args)
+        off_p, st_p = L.pss_adapt_plain(*args)
+        torch.cuda.synchronize()
+        err, same = _leaves_err(_tensors((off, st)), _tensors((off_p, st_p)))
+        flags = st_p[2].reshape(-1)
+        rows.append({"rows": list(lead), "subblocks": n, "subblock": sub,
+                     "max_abs_err": err, "states_equal": same,
+                     "bit_for_bit": err == 0.0 and same,
+                     "clamp_reached": bool((off_p.abs() == C.PSS_CLAMP)
+                                           .any()),
+                     "minimized": [bool(v) for v in flags[:4].cpu()]})
+        need(err <= PSS_ADAPT_ATOL and same, f"pss_adapt: {rows[-1]}")
+    errs["pss_adapt"] = max(r["max_abs_err"] for r in rows)
+    emit({"phase": "kernels", "kernel": "pss_adapt", "atol": PSS_ADAPT_ATOL,
+          "max_abs_err": errs["pss_adapt"], "cases": rows})
+    # the fused RDS carrier phase: the main path's 16384 samples in 8
+    # sub-blocks at R = 1, 4, 19; ragged: sub-blocks of 512 (32 a cluster
+    # step), 4096 (each over two blocks), 1000 (not dividing a block's
+    # 2048) and 1536 (block_fm 12288), 18432 samples (airspy's block: two
+    # cluster steps)
+    rows = []
+    for R, T, P in ((1, 16384, PSI_SUB), (4, 16384, PSI_SUB),
+                    (19, 16384, PSI_SUB), (4, 16384, 512), (2, 32768, 4096),
+                    (3, 3000, 1000), (1, 1536, 1536), (2, 18432, PSI_SUB)):
+        args = _psi_recover_args(rng, R, T, P, dev)
+        yr, last = L.psi_recover(*args)
+        yr_p, last_p = L.psi_recover_plain(*args)
+        torch.cuda.synchronize()
+        e_y = float((yr - yr_p).abs().max())
+        e_p = float((last - last_p).abs().max())
+        rows.append({"rows": R, "T": T, "phase_sub": P, "max_abs_err": e_y,
+                     "psi_err": e_p,
+                     "bit_for_bit": e_y == 0.0 and e_p == 0.0})
+        need(max(e_y, e_p) <= PSI_RECOVER_ATOL, f"psi_recover: {rows[-1]}")
+    errs["psi_recover"] = max(max(r["max_abs_err"], r["psi_err"])
+                              for r in rows)
+    emit({"phase": "kernels", "kernel": "psi_recover",
+          "atol": PSI_RECOVER_ATOL, "max_abs_err": errs["psi_recover"],
+          "cases": rows})
     # run length: R = 1 (the path), S = 4 and 19 and 2S rows; ragged rows
     # (12000 samples, 1 sample, a tile and 5 more), and a flags view off the
     # 16-byte grid
@@ -932,9 +1068,10 @@ def phase_main():
          f"wrapper launches {launches}, want {_main_launches(steps)} (the "
          f"warm-up steps and the capture)")
     runs = blocks + WARMUP_STEPS
-    need({k: device[k] for k in MAIN_PER_STEP} == _main_launches(runs),
+    need({k: device[k] for k in MAIN_PER_STEP} == _main_launches(runs)
+         and not any(device[k] for k in UNFUSED),
          f"device launches {device}, want {_main_launches(runs)} (the "
-         f"warm-up steps and one replay a block)")
+         f"warm-up steps and one replay a block) and no {UNFUSED}")
     need(rds["pi_code"] == "0x10F0" and rds["station_label"].strip() == "TPU FM"
          and rds["radio_text"] == "VERIFY RUN", "RDS PI/PS/RT")
     need(rds["bit_error_rate"] == 0.0, "RDS BER")
@@ -1115,7 +1252,8 @@ def phase_times(rx, wav, fe_err, sc_err, launches, card):
 # substrings of the hand kernels' names in a profile (csrc/*.cu)
 HAND_KERNELS = ("frontend", "linrec", "pole_", "costas_", "fir_kernel",
                 "poles_emit", "mm_core", "clock_kernel", "pss_scan",
-                "psi_unwrap", "runlength", "squelch_decide")
+                "pss_adapt", "psi_unwrap", "psi_recover", "runlength",
+                "squelch_decide")
 
 
 def phase_profile(rx, wav, card, what: str = "main path"):
@@ -1146,8 +1284,11 @@ def phase_profile(rx, wav, card, what: str = "main path"):
     launches = sum(r[2] for r in rows)
     # the run length is a hand kernel now: no cummax on the device
     cummax = sum(r[2] for r in rows if "cummax" in r[1].lower())
+    loops = _loop_kernels_per_step([(k, c) for _, k, c in rows], nstep)
+    want = _fused_per_step(rx.cfg.rds == "block")
     emit({"phase": "profile", "what": what, "steps": nstep, "card": card,
           "cummax_events_per_step": cummax / nstep,
+          "loop_kernels_per_step": loops,
           "wall_ms_per_step": wall / nstep * 1e3,
           "device_ms_per_step": (dev_total_us / nstep / 1e3
                                  if rows else "not measured"),
@@ -1164,6 +1305,22 @@ def phase_profile(rx, wav, card, what: str = "main path"):
                              for us, k, c in rows[:12]]})
     need(cummax == 0, f"profile {what}: {cummax} cummax events in "
          f"{nstep} steps")
+    need(loops == want, f"profile {what}: loop kernels a step {loops}, "
+         f"want {want}")
+
+
+def _loop_kernels_per_step(events, nstep) -> dict:
+    """The PSS and psi kernels' launches a step by name, from a profiler's
+    (kernel name, count) pairs over nstep steps."""
+    return {k: sum(c for key, c in events if DEVICE_KERNELS[k] in key)
+            / nstep for k in LOOP_NAMES}
+
+
+def _fused_per_step(rds_block: bool) -> dict:
+    """What an unsharded step launches of them: one PSS adaptation, one
+    RDS carrier phase under the block decoder, no unfused entry."""
+    return {"pss_adapt": 1.0, "psi_recover": 1.0 if rds_block else 0.0,
+            "pss_scan": 0.0, "psi_unwrap": 0.0}
 
 
 
@@ -1456,7 +1613,8 @@ def _counters():
     return {"frontend": frontend, "linrec": linrec, "pole_bank": pole_bank,
             "rds_scan1": SD.decoder1_scan, "rds_scan2": SD.decoder2_scan,
             "rds_scan3": SD.decoder3_scan, "pss_scan": L.pss_scan,
-            "runlength": L.runlength, "psi_unwrap": L.psi_unwrap,
+            "pss_adapt": L.pss_adapt, "runlength": L.runlength,
+            "psi_unwrap": L.psi_unwrap, "psi_recover": L.psi_recover,
             "squelch_decide": L.squelch_decide}
 
 
@@ -1971,16 +2129,24 @@ def phase_option_times(a_err, b_err, launches, card):
 LOOP_CHAINS = {"pss_scan": {"sincosf": 1, "mul": 5, "add": 5},
                "psi_unwrap": {"mul": 2, "add": 3},
                "squelch_decide": {"add": 2}}
+# the fused kernels run the same chains between their loads and stores
+LOOP_CHAINS.update(pss_adapt=LOOP_CHAINS["pss_scan"],
+                   psi_recover=LOOP_CHAINS["psi_unwrap"])
 SINCOS_FLOPS = 40                  # an accurate sinf and cosf, ~20 each
 
 
-def phase_loop_times(errs, launches, opt_launches, card, cycles, clock):
-    """The loop kernels at the main path's shapes (one row; pss_scan and
-    runlength also at S = 4 and 19 rows, runlength at 2S = 38): device ms
-    and host us a call, the plain version's ms, the bound from bytes and
-    operations, the sequential ones' latency floor (their chain a step at
-    the measured latencies, over the measured clock), and for runlength
-    torch.cummax on its int32 input as the library yardstick."""
+def phase_loop_times(errs, launches, opt_launches, sharded_launches, card,
+                     cycles, clock):
+    """The loop kernels at the main path's shapes (one row; pss_scan,
+    pss_adapt, psi_recover and runlength also at S = 4 and 19 rows,
+    runlength at 2S = 38): device ms and host us a call, the plain
+    version's ms, the bound from bytes and operations, the sequential
+    ones' latency floor (their chain a step at the measured latencies, over
+    the measured clock), for pss_adapt and psi_recover the device ms of the
+    route each replaced (the torch ops and the unfused kernel, timed as one
+    sequence) at the same rows, and for runlength torch.cummax on its int32
+    input as the library yardstick.  `launches` are the main path's (0 for
+    the unfused entries; pss_scan's on a time-sharded rank beside it)."""
     from sdrjfm_tpu_torch.kernels import loops as L
     dev = torch.device("cuda")
     rng = np.random.default_rng(41)
@@ -1988,7 +2154,7 @@ def phase_loop_times(errs, launches, opt_launches, card, cycles, clock):
     out = []
 
     def entry(name, replaces, call, plain, nbytes, flops, steps=0,
-              library=None, shape="", by_rows=None, nlaunch=0):
+              library=None, shape="", by_rows=None, nlaunch=0, extra=None):
         ms, host = device_ms(call, name)
         plain_ms = paced_ms(plain, reps=3, iters=5)
         lib_ms = device_ms(library, f"{name} library")[0] if library else None
@@ -2005,6 +2171,7 @@ def phase_loop_times(errs, launches, opt_launches, card, cycles, clock):
                 * 1e3)
         if by_rows:
             row["ms_by_rows"] = by_rows
+        row.update(extra or {})
         emit({"phase": "times", "what": "loop kernel", **row, "card": card})
         out.append(row)
 
@@ -2018,7 +2185,8 @@ def phase_loop_times(errs, launches, opt_launches, card, cycles, clock):
           lambda: L.pss_scan(*args), lambda: L.pss_scan_plain(*args),
           n * (8 + 8 + 1 + 4) + 2 * 17, n * (SINCOS_FLOPS + 15), steps=n,
           shape=f"{n} sub-blocks of {PSS_SUB} a block, one row (a station "
-                f"a row)", by_rows=rows, nlaunch=launches["pss_scan"])
+                f"a row)", by_rows=rows, nlaunch=launches.get("pss_scan", 0),
+          extra={"sharded_launches": sharded_launches.get("pss_scan", 0)})
     T24 = M // 8
     args = _psi_args(rng, 1, T24, T24 // PSI_SUB, dev)
     entry("psi_unwrap", "sdrjfm_tpu/rds/bitrecovery.py:128",
@@ -2027,7 +2195,53 @@ def phase_loop_times(errs, launches, opt_launches, card, cycles, clock):
           6 * T24 + (T24 // PSI_SUB) * (SINCOS_FLOPS + 5),
           steps=T24 // PSI_SUB,
           shape=f"complex64 [1, {T24}] derotated by {T24 // PSI_SUB} "
-                f"sub-blocks' psi", nlaunch=launches["psi_unwrap"])
+                f"sub-blocks' psi", nlaunch=launches.get("psi_unwrap", 0))
+
+    def pss_route(F, locked, w, state, sub, hold, alpha, decay):
+        S_k, W_k, lk = L.pss_sums(F, locked, w, sub)
+        accs, st = L.pss_scan(S_k, W_k, lk, state, sub, hold, alpha, decay)
+        return L.pss_offsets(accs, sub), st
+
+    def psi_route(y, psi0, P):
+        return L.psi_unwrap(L.psi_estimate(y, P), psi0, y)
+
+    for name, call, plain, route, inputs, replaces, size in (
+            ("pss_adapt", L.pss_adapt, L.pss_adapt_plain, pss_route,
+             lambda R: _pss_adapt_args(rng, (R,) if R > 1 else (), n, dev),
+             "sdrjfm_tpu/ops/pss.py:121-124,164,170",
+             lambda R: (R * M * (8 + 4) + R * n + PSS_SUB * 4 + R * 34,
+                        R * (12 * M + n * (SINCOS_FLOPS + 15)), n)),
+            ("psi_recover", L.psi_recover, L.psi_recover_plain, psi_route,
+             lambda R: _psi_recover_args(rng, R, T24, PSI_SUB, dev),
+             "sdrjfm_tpu/rds/bitrecovery.py:120-121,128",
+             lambda R: (R * (T24 * 16 + 8),
+                        R * (14 * T24 + (T24 // PSI_SUB)
+                             * (20 + SINCOS_FLOPS + 5)), T24 // PSI_SUB))):
+        ins = {R: inputs(R) for R in (1, 4, 19)}
+        rows, route_ms, bounds = {}, {}, {}
+        for R, a in ins.items():
+            if R > 1:
+                rows[f"R={R}"] = device_ms(lambda: call(*a),
+                                           f"{name} R={R}")[0]
+            route_ms[f"R={R}"] = device_ms(lambda: route(*a),
+                                           f"{name} route R={R}")[0]
+            bounds[f"R={R}"] = _bound_ms(*size(R)[:2])[0]
+        nbytes, flops, steps = size(1)
+        entry(name, replaces, lambda: call(*ins[1]), lambda: plain(*ins[1]),
+              nbytes, flops, steps=steps,
+              shape=("complex64 F [1, 131072] -> float32 offsets [1, "
+                     "131072], 32 sub-blocks of 4096 (a station a row)"
+                     if name == "pss_adapt" else
+                     f"complex64 [1, {T24}] -> derotated [1, {T24}], "
+                     f"{T24 // PSI_SUB} sub-blocks (a station a row)"),
+              by_rows=rows, nlaunch=launches.get(name, 0),
+              extra={"bound_ms_by_rows": bounds,
+                     "replaced_route_ms_by_rows": route_ms,
+                     "replaced_route": (
+                         "pss_sums (F * F, the two sums, the flags' "
+                         "stride) + pss_scan + the expand"
+                         if name == "pss_adapt" else
+                         "y * y, mean, angle (psi_estimate) + psi_unwrap")})
     flags = torch.from_numpy(_rl_flags(rng, 3, M)[2:]).to(dev)
     r0 = torch.zeros(1, dtype=torch.int32, device=dev)
     lib_in = torch.where(flags, -1, torch.arange(M, dtype=torch.int32,
@@ -2131,6 +2345,8 @@ def phase_graph(card, rx):
     rl_in = (torch.from_numpy(_rl_flags(rng, 4, M)[3:]).to(dev),
              torch.zeros(1, dtype=torch.int32, device=dev))
     sq_in = _squelch_args(rng, "nsq", 1, M // 8192, dev)
+    pa_in = _pss_adapt_args(rng, (), M // PSS_SUB, dev)
+    pr_in = _psi_recover_args(rng, 1, M // 8, PSI_SUB, dev)
 
     def loop_tensors():
         """The loops' static inputs, and fresh values of the same shapes."""
@@ -2140,8 +2356,11 @@ def phase_graph(card, rx):
                      rng.random((1, M)) < 1e-4)).to(dev),
                   torch.from_numpy(rng.integers(0, 10 ** 6, 1).astype(
                       np.int32)).to(dev)),
-                 _squelch_args(rng, "nsq", 1, M // 8192, dev))
-        return _tensors((pss_in, psi_in, rl_in, sq_in)), _tensors(fresh)
+                 _squelch_args(rng, "nsq", 1, M // 8192, dev),
+                 _pss_adapt_args(rng, (), M // PSS_SUB, dev),
+                 _psi_recover_args(rng, 1, M // 8, PSI_SUB, dev))
+        return (_tensors((pss_in, psi_in, rl_in, sq_in, pa_in, pr_in)),
+                _tensors(fresh))
 
     def rand(*shape, scale=1.0, cplx=False):
         v = scale * rng.standard_normal(shape)
@@ -2170,7 +2389,8 @@ def phase_graph(card, rx):
                 frontend_rows(fe_wire, "i16", fe_idx, fe_p[0], rx.k_decim12,
                               *fe_p[1:], True),
                 L.pss_scan(*pss_in), L.psi_unwrap(*psi_in),
-                L.runlength(*rl_in), L.squelch_decide(*sq_in))
+                L.runlength(*rl_in), L.squelch_decide(*sq_in),
+                L.pss_adapt(*pa_in), L.psi_recover(*pr_in))
 
     new_inputs()
     side = torch.cuda.Stream()
@@ -2229,17 +2449,23 @@ def phase_graph(card, rx):
                 ("pss_scan", outs[4], L.pss_scan_plain, pss_in),
                 ("psi_unwrap", outs[5], L.psi_unwrap_plain, psi_in),
                 ("runlength", outs[6], L.runlength_plain, rl_in),
-                ("squelch_decide", outs[7], L.squelch_decide_plain, sq_in)):
+                ("squelch_decide", outs[7], L.squelch_decide_plain, sq_in),
+                ("pss_adapt", outs[8], L.pss_adapt_plain, pa_in),
+                ("psi_recover", outs[9], L.psi_recover_plain, pr_in)):
             err, same = _leaves_err(_tensors(got), _tensors(plain(*args)))
             row[f"{name}_max_abs_err"] = err
             row[f"{name}_states_equal"] = same
-            ok &= same and err <= (LOOP_ATOL if name in ("pss_scan",
-                                                         "psi_unwrap")
-                                   else 0.0)
+            ok &= same and err <= {"pss_scan": LOOP_ATOL,
+                                   "psi_unwrap": LOOP_ATOL,
+                                   "pss_adapt": PSS_ADAPT_ATOL,
+                                   "psi_recover": PSI_RECOVER_ATOL}.get(
+                                       name, 0.0)
     emit({"phase": "graph", "what": "2 real scans (R=2, R=1), 1 pole bank, "
-          "a 4-row front end and the four loop kernels (pss_scan, "
-          "psi_unwrap, runlength, squelch_decide) in one CUDA graph, 3 "
-          "replays on new inputs", "ok": bool(ok), "loop_atol": LOOP_ATOL,
+          "a 4-row front end and the six loop kernels (pss_scan, "
+          "psi_unwrap, runlength, squelch_decide, pss_adapt, psi_recover) "
+          "in one CUDA graph, 3 replays on new inputs", "ok": bool(ok),
+          "loop_atol": LOOP_ATOL, "pss_adapt_atol": PSS_ADAPT_ATOL,
+          "psi_recover_atol": PSI_RECOVER_ATOL,
           "scan_rtol_of_max": SCAN_RTOL, "pole_rtol_of_scale": POLE_RTOL,
           "fe_atol": FE_ATOL, "fe_rtol": FE_RTOL,
           "replays": rows, "card": card})
@@ -2278,14 +2504,24 @@ def _rds_ok(bits, meta):
 DEVICE_KERNELS = {"frontend": "frontend_kernel", "linrec": "linrec_kernel",
                   "pole_bank": "pole_bank_kernel", "costas": "costas_kernel",
                   "mm_core": "mm_core_kernel", "pss_scan": "pss_scan_kernel",
+                  "pss_adapt": "pss_adapt_kernel",
                   "runlength": "runlength_kernel",
                   "psi_unwrap": "psi_unwrap_kernel",
+                  "psi_recover": "psi_recover_kernel",
                   "squelch_decide": "squelch_decide_kernel"}
 # the main path's launches a step (for one station or all of them): the
 # front end, the real scan twice (the demod pair, the pilot metric), the
-# PSS scan, the pilot's run length and the RDS carrier-phase unwrap
-MAIN_PER_STEP = {"frontend": 1, "linrec": 2, "pss_scan": 1, "runlength": 1,
-                 "psi_unwrap": 1}
+# PSS adaptation, the pilot's run length and the RDS carrier phase
+MAIN_PER_STEP = {"frontend": 1, "linrec": 2, "pss_adapt": 1, "runlength": 1,
+                 "psi_recover": 1}
+# the unfused entries: the time-sharded path's PSS scan, and the psi unwrap
+# that no path launches any more
+UNFUSED = ("pss_scan", "psi_unwrap")
+LOOP_NAMES = ("pss_adapt", "psi_recover") + UNFUSED
+# a time-sharded rank's kernels a step: the PSS sums are gathered across
+# ranks, so the scan runs unfused
+SHARDED_KERNELS = ("frontend", "linrec", "pss_scan", "runlength",
+                   "psi_recover")
 
 
 def _main_launches(steps: int) -> dict:
@@ -2294,12 +2530,12 @@ def _main_launches(steps: int) -> dict:
 
 def _loop_launches(flags) -> dict:
     """The loop kernels an `rx` run with these flags launches a step: the
-    PSS scan and the pilot's run length on every stereo config, the RDS
-    unwrap under the block decoder, one decision launch under either
-    squelch."""
-    out = {"pss_scan": 1, "runlength": 1}
+    PSS adaptation and the pilot's run length on every stereo config, the
+    RDS carrier phase under the block decoder, one decision launch under
+    either squelch."""
+    out = {"pss_adapt": 1, "runlength": 1}
     if "--rds" in flags and "--rds-decoder" not in flags:
-        out["psi_unwrap"] = 1
+        out["psi_recover"] = 1
     if "--squelch" in flags:
         out["squelch_decide"] = 1
     return out
@@ -2693,6 +2929,7 @@ def _ms_times(rx, iq, offsets, card, passes: int = 7):
     dev_us = sum(r[0] for r in rows)
     top = [{"op": k[:80], "ms_per_step": us / nblk / 1e3,
             "per_step": c / nblk} for us, c, k in sorted(rows)[::-1][:8]]
+    loops = _loop_kernels_per_step([(k, c) for _, c, k in rows], nblk)
     wall_ms = statistics.median(walls)
     row = {"phase": "multistation", "what": "times", "stations": n,
            "blocks": nblk, "passes": passes,
@@ -2704,11 +2941,14 @@ def _ms_times(rx, iq, offsets, card, passes: int = 7):
            "device_busy_share": (dev_us / 1e6 / wall if rows
                                  else "not measured"),
            "device_events_per_step": sum(r[1] for r in rows) / nblk,
+           "loop_kernels_per_step": loops,
            "top_device_ops": top,
            "host_us_per_replay": host_us,
            "capture_and_instantiate_s": sc.capture_s,
            "first_call_s": first_s, "card": card}
     emit(row)
+    need(loops == _fused_per_step(True), f"multistation n = {n}: loop "
+         f"kernels a step {loops}, want {_fused_per_step(True)}")
     return row
 
 
@@ -3944,7 +4184,8 @@ def phase_sharded(card, wav, ms_wav, dev="cuda"):
     from a profiler trace; then multihost_worker.  Each line names the
     transport, the cards and the ranks a card; the step and collective ms
     of ranks sharing a card are not scaling figures.  dev="cpu" rehearses
-    the phase on the CPU (gloo ranks, no profiler)."""
+    the phase on the CPU (gloo ranks, no profiler).  Returns the wrappers'
+    launch counts over the 2-rank FullyShardedReceiver run on rank 0."""
     from sdrjfm_tpu_torch.io.wavio import read_iq_wav_raw
     from sdrjfm_tpu_torch.models.multistation import MultiStationReceiver
     from sdrjfm_tpu_torch.models.receiver import Receiver, ReceiverConfig
@@ -4050,14 +4291,14 @@ def phase_sharded(card, wav, ms_wav, dev="cuda"):
         return row
 
     full("FullyShardedReceiver, main config", two["fsr"], eager, FULL_ATOL,
-         tuple(MAIN_PER_STEP))
+         SHARDED_KERNELS)
     # rank d > 0 runs the front end twice: its halo, then its slice
     fe = [_rank_kernels(z)["frontend"] for z in two["fsr"]]
     need(dev == "cpu" or fe == [1] + [2] * (len(fe) - 1),
          f"sharded: front-end launches a step per rank {fe}, want 1 on "
          f"rank 0 and 2 (halo + slice) on the others")
     full("FullyShardedReceiver, main config", four["fsr"], eager, FULL_ATOL,
-         tuple(MAIN_PER_STEP))
+         SHARDED_KERNELS)
     full("FullyShardedReceiver, input filter + nsq + scan2", two["heavy"],
          heavy, NSQ_ATOL, ("linrec", "pole_bank", "mm_core", "pss_scan",
                            "runlength", "squelch_decide"), budget=False)
@@ -4110,7 +4351,7 @@ def phase_sharded(card, wav, ms_wav, dev="cuda"):
         need(nccl["fsr_nccl"][0]["info"]["transport"] == "nccl",
              "sharded: two cards and two ranks did not take NCCL")
         full("FullyShardedReceiver, main config, NCCL", nccl["fsr_nccl"],
-             eager, FULL_ATOL, tuple(MAIN_PER_STEP))
+             eager, FULL_ATOL, SHARDED_KERNELS)
     else:
         emit({"phase": "sharded", "what": "nccl", "run": False,
               "why": f"{cards} card for 2 ranks: NCCL needs a card a rank; "
@@ -4121,6 +4362,7 @@ def phase_sharded(card, wav, ms_wav, dev="cuda"):
     shutil.rmtree(work)
     secs = time.perf_counter() - t_phase
     emit({"phase": "sharded", "what": "phase", "s": secs, "card": card})
+    return two["fsr"][0]["info"]["launches"]
 
 
 def _kernel_sum_ms(fn) -> float:
@@ -4159,7 +4401,7 @@ def main() -> int:
     phase_scan(card, ms_wav)
     phase_sources(card, wav)
     phase_control(card, ms_wav, wav)
-    phase_sharded(card, wav, ms_wav)
+    sharded_launches = phase_sharded(card, wav, ms_wav)
     ms_wav.unlink()
     phase_checkpoint(card, wav)
     kernels, step_ms = phase_times(rx, wav, fe_err, sc_err, launches, card)
@@ -4167,8 +4409,8 @@ def main() -> int:
                                                     opt_launches, card)
     kernels += opt_kernels
     kernels.append(rows_kernel_entry(rx, rows_err, ms_launches, card))
-    kernels += phase_loop_times(loop_errs, launches, opt_launches, card,
-                                cycles, clock)
+    kernels += phase_loop_times(loop_errs, launches, opt_launches,
+                                sharded_launches, card, cycles, clock)
     phase_profile(rx, wav, card)
     phase_scanned(rx, wav, card, "main path", step_ms)
     for what, options in OPTION_CONFIGS:

@@ -1,6 +1,6 @@
-// The fm chain's last sequential device loops for Hopper (sm_90a): four
-// small kernels, each a port of a JAX `lax.scan` / `associative_scan` that
-// the torch code ran as a Python loop of 0-dim (or [S]) tensor ops or as
+// The fm chain's last sequential device loops for Hopper (sm_90a): small
+// kernels, each a port of a JAX `lax.scan` / `associative_scan` that the
+// torch code ran as a Python loop of 0-dim (or [S]) tensor ops or as
 // `torch.cummax`.  Every kernel takes R independent rows (R stations, or
 // one), launches once a call and allocates nothing: its outputs come from
 // the wrapper (kernels/loops.py), so a captured CUDA graph replays it with
@@ -8,28 +8,53 @@
 // loops are feedback recurrences, and each multiply and add rounds on its
 // own as in the plain versions, op by op.
 //
-// 1. pss_scan_kernel -- the PSS sub-block recurrence, JAX
-//    sdrjfm_tpu/ops/pss.py:164 (lax.scan(step, ...)): 32 steps a
-//    131072-sample block of boost, cos/sin(-2 acc), the Costas error, the
-//    clamp, the error EMA, the lock / unlock run counters, `minimized` and
-//    the pilot-unlock reset.  What bounds it: a dependent chain of ~40
-//    cycles of sincosf and ~10 f32 operations a step, ~1.5 us a block; the
-//    bytes (R x 32 x 17 B) are nothing.  Design: one thread a row runs the
-//    steps in order, 64 rows a block; the block first stages 32 steps of
-//    its rows' inputs in shared memory with every load in flight, so no
-//    step waits on a global load, and writes the offsets out from shared
-//    memory along the rows.
-// 2. psi_unwrap_kernel -- the RDS carrier-phase unwrap, JAX
-//    sdrjfm_tpu/rds/bitrecovery.py:128 (lax.scan(unwrap, ...)), fused with
-//    the derotation y e^{-j psi} it feeds.  What bounds it: the derotation's
-//    bytes, R x T complex64 read and written (0.26 MB a 16384-sample row,
-//    ~0.08 us at 3.35 TB/s).  Design: grid (chunks of 2048 samples, rows);
-//    in each block the sub-blocks' estimates are staged in shared memory,
-//    then one thread runs the unwrap psi = r + rint((psi - r) / pi) pi
-//    over the sub-blocks up to its chunk (8 steps a block at most;
-//    rint is half to even, as torch.round and jnp.round), the sub-blocks'
-//    cos / sin once each into shared memory, then 256 threads derotate 8
-//    samples each with coalesced loads and stores.
+// 1. pss_adapt_kernel -- the PSS adaptation of one block after its
+//    lowpass, JAX sdrjfm_tpu/ops/pss.py:121-124 (the sub-block sums of
+//    F^2 and of EMA-weighted F^2), :164 (lax.scan(step, ...)) and :170
+//    (jnp.repeat of the offsets): 32 steps a 131072-sample block of boost,
+//    cos/sin(-2 acc), the Costas error, the clamp, the error EMA, the lock
+//    / unlock run counters, `minimized` and the pilot-unlock reset, on sums
+//    it forms itself, and the offsets written at the full rate.  What
+//    bounds it: F read once and the offsets written once (R x T x 12 B,
+//    1.57 MB a 131072-sample row, ~0.47 us at 3.35 TB/s), then a dependent
+//    chain of sincosf and ~10 f32 operations a step (~3 us a block)
+//    between the read and the write.  Design: a row is one cluster of 8
+//    blocks of 512 threads; each block reduces its share of the sub-blocks
+//    (4 of 4096 samples) from 16-byte loads all in flight, F^2 and F^2 w
+//    formed in registers, each sub-block summed in a fixed order (each
+//    thread's terms, a warp butterfly, the warps in turn) and stores the
+//    sums into block 0's shared memory (distributed shared memory); after
+//    a cluster barrier one thread of block 0 runs the steps and its warp
+//    stores each offset into the block that holds its sub-block; after a
+//    second barrier each block writes its offsets with 16-byte stores.  No
+//    block reads another's memory, so no third barrier holds a block back
+//    from exiting.  More sub-blocks than a cluster holds (n > 32) loop over
+//    cluster steps, the state carried by that one thread.
+//    pss_scan_kernel is the same recurrence on sums formed outside (the
+//    time-sharded path gathers them across ranks between the sums and the
+//    steps): one thread a row, 64 rows a block, 32 steps of its rows'
+//    inputs staged in shared memory with every load in flight.
+// 2. psi_recover_kernel -- the RDS carrier phase of one block, JAX
+//    sdrjfm_tpu/rds/bitrecovery.py:120-121 (psi mod pi = angle(mean(y^2))
+//    / 2 a sub-block), :128 (lax.scan(unwrap, ...)) and the derotation y
+//    e^{-j psi} it feeds.  What bounds it: y read once and yr written once
+//    (0.26 MB a 16384-sample row, ~0.08 us at 3.35 TB/s).  Design: a row
+//    is one cluster of 8 blocks x 256 threads x 8 samples (16384 samples,
+//    a 131072-sample block's RDS rate); each block loads its samples once
+//    into registers, sums y^2 over each sub-block it touches in a fixed
+//    order, and after a cluster barrier one warp of block 0 adds the
+//    blocks' parts in rank order through distributed shared memory, scales
+//    the sum as torch's mean does, takes 0.5 atan2, runs the unwrap psi =
+//    r + rint((psi - r) / pi) pi on one lane (rint is half to even, as
+//    torch.round and jnp.round) and each sub-block's cos / sin once; after
+//    a second barrier every block reads its rotations, arrives at a third
+//    (block 0 may not exit before) and derotates the samples it holds in
+//    registers, waiting at it only after its stores.  A cluster step holds
+//    whole sub-blocks (512 to 16384 samples); longer rows loop over steps,
+//    psi carried.
+//    psi_unwrap_kernel is the unwrap and derotation on estimates formed
+//    outside: grid (chunks of 2048 samples, rows), each block's thread 0
+//    runs the unwrap up to its chunk.
 // 3. runlength_kernel -- the consecutive-true run length, JAX
 //    sdrjfm_tpu/ops/blockops.py:391-405 runlength_true
 //    (associative_scan(jnp.maximum) at :400): the pilot lock counter.  What
@@ -68,6 +93,17 @@ namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
 
+// the two halves of a cluster barrier: a thread arrives once it is done
+// with the other blocks' shared memory and waits where it needs all of
+// them to be (release / acquire)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
 // int32 addition that wraps as torch's and XLA's int32 tensors do
 __device__ __forceinline__ int wrap_add(int a, int b) {
   return (int)((unsigned)a + (unsigned)b);
@@ -84,6 +120,57 @@ struct PssConsts {
   float alpha, decay, boost, clamp, thresh;
   int sub, hold;
 };
+
+struct PssState {
+  float acc, me;
+  bool minimized;
+  int lock_run, unlock_run;
+};
+
+__device__ __forceinline__ PssState pss_load(
+    const float* acc0, const float* me0, const unsigned char* min0,
+    const int* lock0, const int* unlock0, int r) {
+  return PssState{acc0[r], me0[r], min0[r] != 0, lock0[r], unlock0[r]};
+}
+
+__device__ __forceinline__ void pss_store(
+    const PssState& st, float* acc1, float* me1, unsigned char* min1,
+    int* lock1, int* unlock1, int r) {
+  acc1[r] = st.acc;
+  me1[r] = st.me;
+  min1[r] = st.minimized ? 1 : 0;
+  lock1[r] = st.lock_run;
+  unlock1[r] = st.unlock_run;
+}
+
+// One sub-block of the recurrence on its sums s = S_k, w = W_k: advances
+// the state and returns the offset held over the sub-block.
+__device__ __forceinline__ float pss_step(PssState& st, float2 s, float2 w,
+                                          bool locked, const PssConsts& k) {
+  const float boost = st.minimized ? 1.0f : k.boost;
+  // sincosf: cosf's and sinf's values with one range reduction, a
+  // shorter chain a step than the two calls
+  float c, sn;
+  sincosf(-2.0f * st.acc, &sn, &c);
+  // Im(e^{-2j acc} S_k), Im(e^{-2j acc} W_k), each product rounded
+  const float err = 0.5f * (c * s.y + sn * s.x) * boost;
+  float acc_n = st.acc + k.alpha * err;
+  if (!isnan(acc_n)) acc_n = fminf(fmaxf(acc_n, -k.clamp), k.clamp);
+  const float me_n = k.decay * st.me + (0.5f * boost) * (c * w.y + sn * w.x);
+  const bool below = fabsf(me_n) < k.thresh;
+  const int lock_n = below ? wrap_add(st.lock_run, k.sub) : 0;
+  const int unlock_n = below ? 0 : wrap_add(st.unlock_run, k.sub);
+  const bool min_n = below ? (st.minimized || lock_n > k.hold)
+                           : (st.minimized && !(unlock_n > k.hold));
+  const float out = locked ? st.acc : 0.0f;
+  // pilot unlock resets the analyzer
+  st.acc = locked ? acc_n : 0.0f;
+  st.me = locked ? me_n : 0.0f;
+  st.minimized = locked && min_n;
+  st.lock_run = locked ? lock_n : 0;
+  st.unlock_run = locked ? unlock_n : 0;
+  return out;
+}
 
 // S, W: [R, n] complex64 sub-block sums; lk: the sub-block lock flags,
 // element (r, k) at lk[r * lk_r + k * lk_c]; the state in (acc0 .. unlock0)
@@ -108,16 +195,8 @@ pss_scan_kernel(const float2* __restrict__ S, const float2* __restrict__ W,
   const int tid = threadIdx.x, first = blockIdx.x * PSS_THREADS;
   const int r = first + tid, rows = min(PSS_THREADS, R - first);
   const bool live = r < R;
-  float acc = 0.0f, me = 0.0f;
-  bool minimized = false;
-  int lock_run = 0, unlock_run = 0;
-  if (live) {
-    acc = acc0[r];
-    me = me0[r];
-    minimized = min0[r] != 0;
-    lock_run = lock0[r];
-    unlock_run = unlock0[r];
-  }
+  PssState st{};
+  if (live) st = pss_load(acc0, me0, min0, lock0, unlock0, r);
   for (int k0 = 0; k0 < n; k0 += STAGE) {
     const int cnt = min(STAGE, n - k0);
     __syncthreads();                                  // the last stage read
@@ -131,30 +210,9 @@ pss_scan_kernel(const float2* __restrict__ S, const float2* __restrict__ W,
       }
     }
     __syncthreads();
-    for (int i = 0; live && i < cnt; ++i) {
-      const bool locked = s_lk[tid][i] != 0;
-      const float2 s = s_S[tid][i], w = s_W[tid][i];
-      const float boost = minimized ? 1.0f : k.boost;
-      const float x = -2.0f * acc;
-      const float c = cosf(x), sn = sinf(x);
-      // Im(e^{-2j acc} S_k), Im(e^{-2j acc} W_k), each product rounded
-      const float err = 0.5f * (c * s.y + sn * s.x) * boost;
-      float acc_n = acc + k.alpha * err;
-      if (!isnan(acc_n)) acc_n = fminf(fmaxf(acc_n, -k.clamp), k.clamp);
-      const float me_n = k.decay * me + (0.5f * boost) * (c * w.y + sn * w.x);
-      const bool below = fabsf(me_n) < k.thresh;
-      const int lock_n = below ? wrap_add(lock_run, k.sub) : 0;
-      const int unlock_n = below ? 0 : wrap_add(unlock_run, k.sub);
-      const bool min_n = below ? (minimized || lock_n > k.hold)
-                               : (minimized && !(unlock_n > k.hold));
-      s_acc[tid][i] = locked ? acc : 0.0f;
-      // pilot unlock resets the analyzer
-      acc = locked ? acc_n : 0.0f;
-      me = locked ? me_n : 0.0f;
-      minimized = locked && min_n;
-      lock_run = locked ? lock_n : 0;
-      unlock_run = locked ? unlock_n : 0;
-    }
+    for (int i = 0; live && i < cnt; ++i)
+      s_acc[tid][i] = pss_step(st, s_S[tid][i], s_W[tid][i],
+                               s_lk[tid][i] != 0, k);
     __syncthreads();
     // the offsets out along each row, consecutive threads on consecutive
     // steps
@@ -163,12 +221,142 @@ pss_scan_kernel(const float2* __restrict__ S, const float2* __restrict__ W,
       if (i < cnt) accs[(long long)(first + q) * n + k0 + i] = s_acc[q][i];
     }
   }
-  if (!live) return;
-  acc1[r] = acc;
-  me1[r] = me;
-  min1[r] = minimized ? 1 : 0;
-  lock1[r] = lock_run;
-  unlock1[r] = unlock_run;
+  if (live) pss_store(st, acc1, me1, min1, lock1, unlock1, r);
+}
+
+constexpr int PSS_FT = 512;                           // threads a block
+constexpr int PSS_WARPS = PSS_FT / 32;
+constexpr int PSS_PER = 16;                           // float4 a thread
+constexpr int PSS_CLUSTER = 8;                        // blocks a row
+
+// component by component, in a fixed order
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__device__ __forceinline__ float4 warp_sum4(float4 v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    v.x += __shfl_xor_sync(FULL, v.x, o);
+    v.y += __shfl_xor_sync(FULL, v.y, o);
+    v.z += __shfl_xor_sync(FULL, v.z, o);
+    v.w += __shfl_xor_sync(FULL, v.w, o);
+  }
+  return v;
+}
+
+// F: [R, n S] complex64 as float4 (two samples each), rows 16-byte
+// aligned; lk: the per-sample lock flags, element (r, t) at lk[r * lk_r +
+// t * lk_c], read at t = k S; w: [S] the EMA weights as float2; the state
+// in (acc0 .. unlock0) and out (acc1 .. unlock1), [R] each; off: [R, n S]
+// float32 as float4, the offset of every sample.  QPS: float4 a thread in
+// each sub-block, S = QPS x 1024 samples; a block takes SUBS = 16 / QPS
+// sub-blocks of each cluster step, block `rank` sub-blocks s0 + rank SUBS
+// .. + SUBS - 1.
+template <int QPS>
+__global__ void __cluster_dims__(PSS_CLUSTER, 1, 1)
+__launch_bounds__(PSS_FT)
+pss_adapt_kernel(const float4* __restrict__ F,
+                 const unsigned char* __restrict__ lk, long long lk_r,
+                 long long lk_c, const float2* __restrict__ w,
+                 const float* __restrict__ acc0,
+                 const float* __restrict__ me0,
+                 const unsigned char* __restrict__ min0,
+                 const int* __restrict__ lock0,
+                 const int* __restrict__ unlock0, float4* __restrict__ off,
+                 float* __restrict__ acc1, float* __restrict__ me1,
+                 unsigned char* __restrict__ min1, int* __restrict__ lock1,
+                 int* __restrict__ unlock1, int n, PssConsts k) {
+  constexpr int S = QPS * 2 * PSS_FT;                 // samples a sub-block
+  constexpr int SUBS = PSS_PER / QPS;                 // sub-blocks a block
+  constexpr int SPAN = SUBS * PSS_CLUSTER;            // a cluster's step
+  __shared__ float4 s_part[SUBS][PSS_WARPS];
+  __shared__ unsigned char s_lk[SUBS];
+  __shared__ float4 s_all[SPAN];        // block 0: the step's (S_k, W_k)
+  __shared__ unsigned char s_alk[SPAN]; // block 0: the step's lock flags
+  __shared__ float s_acc[SPAN];         // block 0: the step's offsets
+  __shared__ float s_mine[SUBS];        // this block's offsets
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row = blockIdx.y;
+  const bool leader = rank == 0 && tid == 0;
+  const long long T = (long long)n * S;
+  const float4* f = F + row * (T / 2);
+  float4* o = off + row * (T / 4);
+  // this thread's EMA weights, the same in every sub-block: float4 q of
+  // sub-block j holds its samples 2 ((q % QPS) PSS_FT + tid) and + 1
+  float2 wq[QPS];
+#pragma unroll
+  for (int qq = 0; qq < QPS; ++qq) wq[qq] = w[qq * PSS_FT + tid];
+  PssState st{};
+  if (leader) st = pss_load(acc0, me0, min0, lock0, unlock0, row);
+  for (int s0 = 0; s0 < n; s0 += SPAN) {
+    const int kb = s0 + rank * SUBS;
+    const int nsb = max(0, min(SUBS, n - kb));        // this block's
+    const float4* fb = f + (long long)kb * (S / 2);
+    float4 v[PSS_PER];
+#pragma unroll
+    for (int q = 0; q < PSS_PER; ++q)
+      v[q] = q / QPS < nsb ? __ldg(fb + q * PSS_FT + tid)
+                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (tid < nsb) s_lk[tid] = lk[row * lk_r + (long long)(kb + tid) * S
+                                  * lk_c];
+#pragma unroll
+    for (int j = 0; j < SUBS; ++j) {
+      float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int qq = 0; qq < QPS; ++qq) {
+        const float4 x = v[j * QPS + qq];
+        const float2 ww = wq[qq];
+        // G = F * F as torch forms it: (re re - im im, re im + im re)
+        const float g0r = x.x * x.x - x.y * x.y, g0i = x.x * x.y + x.y * x.x;
+        const float g1r = x.z * x.z - x.w * x.w, g1i = x.z * x.w + x.w * x.z;
+        a = add4(a, make_float4(g0r, g0i, g0r * ww.x, g0i * ww.x));
+        a = add4(a, make_float4(g1r, g1i, g1r * ww.y, g1i * ww.y));
+      }
+      a = warp_sum4(a);
+      if (lane == 0) s_part[j][warp] = a;
+    }
+    __syncthreads();
+    // each sub-block's sums, and its lock flag, pushed into block 0 (remote
+    // stores: no block reads another's memory after the second barrier,
+    // so no third is needed before a block exits)
+    if (tid < nsb) {
+      float4 a = s_part[tid][0];
+#pragma unroll
+      for (int q = 1; q < PSS_WARPS; ++q) a = add4(a, s_part[tid][q]);
+      *cluster.map_shared_rank(&s_all[rank * SUBS + tid], 0) = a;
+      *cluster.map_shared_rank(&s_alk[rank * SUBS + tid], 0) = s_lk[tid];
+    }
+    cluster.sync();                      // every block's sums in block 0
+    if (rank == 0 && warp == 0) {
+      const int cnt = min(SPAN, n - s0);
+      if (lane == 0)
+        for (int i = 0; i < cnt; ++i) {
+          const float4 a = s_all[i];
+          s_acc[i] = pss_step(st, make_float2(a.x, a.y),
+                              make_float2(a.z, a.w), s_alk[i] != 0, k);
+        }
+      __syncwarp();
+      // the offsets pushed into the blocks that hold their sub-blocks
+      for (int i = lane; i < cnt; i += 32)
+        *cluster.map_shared_rank(&s_mine[i % SUBS], i / SUBS) = s_acc[i];
+    }
+    cluster.sync();                      // every block's offsets in place
+    // the block's sub-blocks' offsets, consecutive threads on consecutive
+    // 16 bytes
+    float4* ob = o + (long long)kb * (S / 4);
+#pragma unroll
+    for (int p = 0; p < PSS_PER / 2; ++p) {
+      const int i4 = p * PSS_FT + tid, j = i4 / (S / 4);
+      if (j < nsb) {
+        const float a = s_mine[j];
+        ob[i4] = make_float4(a, a, a, a);
+      }
+    }
+  }
+  if (leader) pss_store(st, acc1, me1, min1, lock1, unlock1, row);
 }
 
 // ---------------------------------------------------------------------------
@@ -179,6 +367,18 @@ constexpr int PSI_THREADS = 256;
 constexpr int PSI_PER = 8;
 constexpr int PSI_CHUNK = PSI_THREADS * PSI_PER;     // samples a block
 constexpr int PSI_MAXSUB = 1024;                     // sub-blocks a row
+
+// the unwrap's step; (psi - r) / pi as torch on the card computes it:
+// times the f32 reciprocal
+__device__ __forceinline__ float psi_next(float psi, float r, float inv_pi,
+                                          float pi) {
+  return r + rintf((psi - r) * inv_pi) * pi;
+}
+
+// v e^{-j psi} with e = (cos psi, -sin psi), each product rounded
+__device__ __forceinline__ float2 derotate(float2 v, float2 e) {
+  return make_float2(v.x * e.x - v.y * e.y, v.x * e.y + v.y * e.x);
+}
 
 // raw: [R, nsub] the per-sub-block estimates (psi mod pi); psi0: [R] the
 // carried estimate; y, yr: [R, T] complex64; psi_last: [R].
@@ -200,10 +400,7 @@ psi_unwrap_kernel(const float* __restrict__ raw,
   if (tid == 0) {
     float psi = psi0[row];
     for (int k = 0; k <= kmax; ++k) {
-      const float r = s_psi[k];
-      // (psi - r) / pi as torch on the card computes it: times the f32
-      // reciprocal
-      psi = r + rintf((psi - r) * inv_pi) * pi;
+      psi = psi_next(psi, s_psi[k], inv_pi, pi);
       s_psi[k] = psi;
     }
     if (kmax == nsub - 1 && blockIdx.x == gridDim.x - 1) psi_last[row] = psi;
@@ -217,10 +414,163 @@ psi_unwrap_kernel(const float* __restrict__ raw,
   for (int j = 0; j < PSI_PER; ++j) {
     const int n = c0 + tid + j * PSI_THREADS;
     if (n < T) {
-      const float2 v = y[rb + n], e = s_rot[n / sub];
-      yr[rb + n] = make_float2(v.x * e.x - v.y * e.y, v.x * e.y + v.y * e.x);
+      yr[rb + n] = derotate(y[rb + n], s_rot[n / sub]);
     }
   }
+}
+
+constexpr int PR_THREADS = 256;
+constexpr int PR_WARPS = PR_THREADS / 32;
+constexpr int PR_PER = 4;                             // float4 a thread
+constexpr int PR_TILE = PR_THREADS * PR_PER * 2;      // samples a block
+constexpr int PR_CLUSTER = 8;                         // blocks a row
+constexpr int PR_SPAN = PR_TILE * PR_CLUSTER;         // a cluster's step
+constexpr int PR_MINSUB = 512;                        // samples a sub-block
+constexpr int PR_MAXG = PR_SPAN / PR_MINSUB;          // sub-blocks a step
+constexpr int PR_SLOTS = 5;                           // sub-blocks a block
+
+// y, yr: [R, T] complex64 as float4 (two samples each), rows 16-byte
+// aligned; psi0, psi_last: [R]; P: samples a sub-block, even, PR_MINSUB ..
+// PR_SPAN, dividing T.  Each cluster step takes G = PR_SPAN / P whole
+// sub-blocks (L = G P samples); block `rank` holds samples [rank PR_TILE,
+// + PR_TILE) of the step, which touch at most PR_SLOTS sub-blocks (slot s
+// = sub-block kf + s, kf the block's first).  mean_scale: torch's factor
+// of a mean over P samples, fl(1 / P).
+__global__ void __cluster_dims__(PR_CLUSTER, 1, 1)
+__launch_bounds__(PR_THREADS)
+psi_recover_kernel(const float4* __restrict__ y,
+                   const float* __restrict__ psi0, float4* __restrict__ yr,
+                   float* __restrict__ psi_last, int T, int P,
+                   float mean_scale, float inv_pi, float pi) {
+  __shared__ float2 s_part[PR_SLOTS][PR_WARPS];
+  __shared__ float2 s_sum[PR_SLOTS];    // the block's parts, read by block 0
+  __shared__ float s_psi[PR_MAXG];      // block 0: raw, then psi
+  __shared__ float2 s_rot[PR_MAXG];     // block 0: (cos psi, -sin psi)
+  __shared__ float2 s_mine[PR_SLOTS];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row = blockIdx.y;
+  const bool leader = rank == 0 && tid == 0;
+  const int L = (PR_SPAN / P) * P;
+  const float4* yy = y + (long long)row * (T / 2);
+  float4* out = yr + (long long)row * (T / 2);
+  float psi = leader ? psi0[row] : 0.0f;
+  for (int c0 = 0; c0 < T; c0 += L) {
+    const int len = min(L, T - c0);                   // whole sub-blocks
+    const int t0 = c0 + rank * PR_TILE;               // the block's first
+    const int blen = max(0, min(PR_TILE, len - rank * PR_TILE));
+    const int kf = t0 / P;
+    float4 v[PR_PER];
+    int slot[PR_PER];
+    float2 acc[PR_SLOTS];
+#pragma unroll
+    for (int s = 0; s < PR_SLOTS; ++s) acc[s] = make_float2(0.0f, 0.0f);
+#pragma unroll
+    for (int q = 0; q < PR_PER; ++q) {
+      const int i = q * PR_THREADS + tid, n = 2 * i;  // P even: a float4's
+      const bool in = n < blen;                       // two samples share
+      v[q] = in ? __ldg(yy + t0 / 2 + i)              // a sub-block
+                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      slot[q] = in ? (t0 + n) / P - kf : PR_SLOTS;
+    }
+#pragma unroll
+    for (int q = 0; q < PR_PER; ++q) {
+      const float4 x = v[q];
+      // y * y as torch forms it: (re re - im im, re im + im re)
+      const float2 g0 = make_float2(x.x * x.x - x.y * x.y,
+                                    x.x * x.y + x.y * x.x);
+      const float2 g1 = make_float2(x.z * x.z - x.w * x.w,
+                                    x.z * x.w + x.w * x.z);
+#pragma unroll
+      for (int s = 0; s < PR_SLOTS; ++s)
+        if (slot[q] == s) {
+          acc[s].x += g0.x;
+          acc[s].y += g0.y;
+          acc[s].x += g1.x;
+          acc[s].y += g1.y;
+        }
+    }
+#pragma unroll
+    for (int s = 0; s < PR_SLOTS; ++s) {
+      float2 a = acc[s];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        a.x += __shfl_xor_sync(FULL, a.x, o);
+        a.y += __shfl_xor_sync(FULL, a.y, o);
+      }
+      if (lane == 0) s_part[s][warp] = a;
+    }
+    __syncthreads();
+    if (tid < PR_SLOTS) {
+      float2 a = s_part[tid][0];
+#pragma unroll
+      for (int q = 1; q < PR_WARPS; ++q) {
+        a.x += s_part[tid][q].x;
+        a.y += s_part[tid][q].y;
+      }
+      s_sum[tid] = a;
+    }
+    cluster.sync();                      // every block's parts published
+    const int k0 = c0 / P, g = len / P;
+    if (rank == 0 && warp == 0) {
+      if (lane < g) {
+        // sub-block k0 + lane: the parts of the blocks that hold it, in
+        // rank order; every block's part read at once (a remote load's
+        // latency paid once, not once a block)
+        const int k = k0 + lane;
+        bool has[PR_CLUSTER];
+        float2 p[PR_CLUSTER];
+#pragma unroll
+        for (int b = 0; b < PR_CLUSTER; ++b) {
+          const int bt = c0 + b * PR_TILE;
+          const int bl = min(PR_TILE, len - b * PR_TILE);
+          const int bf = bt / P;
+          has[b] = bl > 0 && k >= bf && k <= (bt + bl - 1) / P;
+          p[b] = *cluster.map_shared_rank(&s_sum[has[b] ? k - bf : 0], b);
+        }
+        float2 a = make_float2(0.0f, 0.0f);
+#pragma unroll
+        for (int b = 0; b < PR_CLUSTER; ++b)
+          if (has[b]) {
+            a.x += p[b].x;
+            a.y += p[b].y;
+          }
+        // torch's mean (the sum times fl(1 / P)), then 0.5 angle
+        s_psi[lane] = 0.5f * atan2f(a.y * mean_scale, a.x * mean_scale);
+      }
+      __syncwarp();
+      if (lane == 0)
+        for (int i = 0; i < g; ++i) {
+          psi = psi_next(psi, s_psi[i], inv_pi, pi);
+          s_psi[i] = psi;
+        }
+      __syncwarp();
+      if (lane < g) {
+        float c, sn;
+        sincosf(s_psi[lane], &sn, &c);
+        s_rot[lane] = make_float2(c, -sn);
+      }
+    }
+    cluster.sync();                      // the step's rotations published
+    if (blen > 0 && tid < PR_SLOTS && kf + tid <= (t0 + blen - 1) / P)
+      s_mine[tid] = *cluster.map_shared_rank(&s_rot[kf + tid - k0], 0);
+    // done with block 0's memory: its next step, and its exit, wait for
+    // this (the wait below), while the samples go out
+    cluster_arrive();
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < PR_PER; ++q)
+      if (slot[q] < PR_SLOTS) {
+        const float4 x = v[q];
+        const float2 e = s_mine[slot[q]];
+        const float2 a = derotate(make_float2(x.x, x.y), e);
+        const float2 b = derotate(make_float2(x.z, x.w), e);
+        out[t0 / 2 + q * PR_THREADS + tid] = make_float4(a.x, a.y, b.x, b.y);
+      }
+    cluster_wait();
+  }
+  if (leader) psi_last[row] = psi;
 }
 
 // ---------------------------------------------------------------------------
@@ -449,6 +799,51 @@ int sdr_pss_scan(const void* S, const void* W, const void* lk, long long lk_r,
   return (int)cudaGetLastError();
 }
 
+int sdr_pss_adapt(const void* F, const void* lk, long long lk_r,
+                  long long lk_c, const void* w, const void* acc0,
+                  const void* me0, const void* min0, const void* lock0,
+                  const void* unlock0, void* off, void* acc1, void* me1,
+                  void* min1, void* lock1, void* unlock1, int R, int n,
+                  int sub, float alpha, float decay, float boost, float clamp,
+                  float thresh, int hold, void* stream) {
+  if (R < 1 || R > 65535 || n < 1 || (long long)n * sub > 0x7fffffff
+      || (uintptr_t)F % 16 != 0 || (uintptr_t)off % 16 != 0
+      || (uintptr_t)w % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  const PssConsts k{alpha, decay, boost, clamp, thresh, sub, hold};
+  const dim3 grid(PSS_CLUSTER, (unsigned)R);
+  cudaStream_t st = (cudaStream_t)stream;
+#define SDR_PSS_ADAPT(QPS)                                                  \
+  pss_adapt_kernel<QPS><<<grid, PSS_FT, 0, st>>>(                          \
+      (const float4*)F, (const unsigned char*)lk, lk_r, lk_c,              \
+      (const float2*)w, (const float*)acc0, (const float*)me0,             \
+      (const unsigned char*)min0, (const int*)lock0, (const int*)unlock0,  \
+      (float4*)off, (float*)acc1, (float*)me1, (unsigned char*)min1,       \
+      (int*)lock1, (int*)unlock1, n, k)
+  switch (sub) {
+    case 1024: SDR_PSS_ADAPT(1); break;
+    case 2048: SDR_PSS_ADAPT(2); break;
+    case 4096: SDR_PSS_ADAPT(4); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SDR_PSS_ADAPT
+  return (int)cudaGetLastError();
+}
+
+int sdr_psi_recover(const void* y, const void* psi0, void* yr,
+                    void* psi_last, int R, int T, int P, float mean_scale,
+                    float inv_pi, float pi, void* stream) {
+  if (R < 1 || R > 65535 || T < 1 || P < PR_MINSUB || P > PR_SPAN
+      || P % 2 != 0 || T % P != 0 || T > 0x7fffffff - PR_SPAN
+      || (uintptr_t)y % 16 != 0 || (uintptr_t)yr % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  psi_recover_kernel<<<dim3(PR_CLUSTER, (unsigned)R), PR_THREADS, 0,
+                       (cudaStream_t)stream>>>(
+      (const float4*)y, (const float*)psi0, (float4*)yr, (float*)psi_last, T,
+      P, mean_scale, inv_pi, pi);
+  return (int)cudaGetLastError();
+}
+
 int sdr_psi_unwrap(const void* raw, const void* psi0, const void* y, void* yr,
                    void* psi_last, int R, int T, int nsub, float inv_pi,
                    float pi, void* stream) {
@@ -516,6 +911,7 @@ int sdr_squelch_decide(int mode, const void* a, long long a_r, long long a_c,
 }
 
 int sdr_psi_maxsub() { return PSI_MAXSUB; }
+int sdr_psi_span() { return PR_SPAN; }
 int sdr_rl_span() { return RL_SPAN; }
 
 }  // extern "C"

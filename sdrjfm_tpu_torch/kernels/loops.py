@@ -5,11 +5,19 @@ The JAX package runs these as `lax.scan` / `associative_scan` on the
 device; the port ran them as Python loops of 0-dim (or [S]) tensor ops,
 and the run length as `torch.cummax`:
 
-- `pss_scan`: the PSS sub-block recurrence (JAX sdrjfm_tpu/ops/pss.py:164),
-  32 steps a 131072-sample block; called by ops/pss.py `pss_adapt`.
-- `psi_unwrap`: the RDS carrier-phase unwrap (JAX
-  sdrjfm_tpu/rds/bitrecovery.py:128) fused with the derotation it feeds;
-  called by rds/bitrecovery.py `recover_bits`.
+- `pss_adapt`: the PSS adaptation of a block from its lowpassed L-R band
+  F: the sub-block sums of F^2 and of EMA-weighted F^2 (JAX
+  sdrjfm_tpu/ops/pss.py:121-124), the sub-block recurrence (:164), 32
+  steps a 131072-sample block, and the offset of every sample (:170); called
+  by ops/pss.py `pss_adapt`.
+- `pss_scan`: the recurrence alone, on sums formed outside; called by
+  ops/pss.py `pss_adapt` on the time-sharded path, which gathers the sums
+  across ranks between the sums and the steps.
+- `psi_recover`: the RDS carrier phase of a block: the squared-BPSK
+  estimate a sub-block (JAX sdrjfm_tpu/rds/bitrecovery.py:120-121), the
+  unwrap (:128) and the derotation it feeds; called by rds/bitrecovery.py
+  `recover_bits`.
+- `psi_unwrap`: the unwrap and derotation on estimates formed outside.
 - `runlength`: the consecutive-true run length (JAX
   sdrjfm_tpu/ops/blockops.py:391-405 `runlength_true`), the pilot lock
   counter; called by ops/blockops.py `runlength_true`.
@@ -44,7 +52,10 @@ from . import build
 Tensor = torch.Tensor
 
 SOURCE = "loops.cu"
+PSS_SUBBLOCKS = (1024, 2048, 4096)  # the sub-blocks pss_adapt's kernel takes
 PSI_MAXSUB = 1024          # sub-blocks a row of psi_unwrap (csrc PSI_MAXSUB)
+PSI_MINSUB = 512           # samples a sub-block of psi_recover (csrc
+PSI_SPAN = 16384           # PR_MINSUB .. PR_SPAN)
 RL_SPAN = 131072           # samples a runlength cluster step (csrc RL_SPAN)
 HYSTERESIS_NSQ = 0.001     # the noise squelch's decision band
 
@@ -90,6 +101,43 @@ def pss_scan_plain(S_k: Tensor, W_k: Tensor, sub_locked: Tensor, state,
                                        unlock_run)
 
 
+def pss_sums(F: Tensor, locked: Tensor, weights: Tensor, subblock: int
+             ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The PSS scan's inputs from the lowpassed L-R band F [..., T]
+    complex64: S_k and W_k [..., n] complex64, the sums of F^2 and of
+    EMA-weighted (weights [subblock]) F^2 over each sub-block, and the lock
+    flag at each sub-block's first sample, from locked [..., T] bool."""
+    lead, T = F.shape[:-1], F.shape[-1]
+    nsub = T // subblock
+    G = (F * F).reshape(lead + (nsub, subblock))
+    S_k = G.sum(dim=-1)
+    W_k = (G * weights).sum(dim=-1)
+    sub_locked = locked.reshape(lead + (nsub, subblock))[..., 0]
+    return S_k, W_k, sub_locked
+
+
+def pss_offsets(accs: Tensor, subblock: int) -> Tensor:
+    """The offset of every sample: accs [..., n] held over each sub-block,
+    [..., n subblock]."""
+    lead, nsub = accs.shape[:-1], accs.shape[-1]
+    return accs[..., None].expand(lead + (nsub, subblock)).reshape(
+        lead + (nsub * subblock,))
+
+
+def pss_adapt_plain(F: Tensor, locked: Tensor, weights: Tensor, state,
+                    subblock: int, hold: int, alpha: float, decay: float
+                    ) -> Tuple[Tensor, tuple]:
+    """The PSS adaptation of a block from its lowpassed L-R band F [..., T]
+    complex64 (T a multiple of subblock) and the pilot's lock flags locked
+    [..., T] bool: the sub-block sums (pss_sums), the recurrence
+    (pss_scan_plain) and the offset of every sample.  Returns (offsets
+    [..., T] float32, the new state tuple)."""
+    S_k, W_k, sub_locked = pss_sums(F, locked, weights, subblock)
+    accs, new = pss_scan_plain(S_k, W_k, sub_locked, state, subblock, hold,
+                               alpha, decay)
+    return pss_offsets(accs, subblock), new
+
+
 def psi_unwrap_plain(raw: Tensor, psi0: Tensor, y: Tensor
                      ) -> Tuple[Tensor, Tensor]:
     """The carrier-phase unwrap psi = r + round((psi - r) / pi) pi over the
@@ -111,6 +159,24 @@ def psi_unwrap_plain(raw: Tensor, psi0: Tensor, y: Tensor
         lead + (nsub, phase_sub)).reshape(lead + (T,))
     yr = y * torch.complex(torch.cos(psi_full), -torch.sin(psi_full))
     return yr, psi_last
+
+
+def psi_estimate(y: Tensor, phase_sub: int) -> Tensor:
+    """Each sub-block's squared-BPSK carrier estimate psi mod pi =
+    angle(mean(y^2)) / 2: y [..., T] complex64 -> [..., T / phase_sub]."""
+    lead, T = y.shape[:-1], y.shape[-1]
+    y2 = (y * y).reshape(lead + (T // phase_sub, phase_sub))
+    return 0.5 * torch.angle(y2.mean(dim=-1))
+
+
+def psi_recover_plain(y: Tensor, psi0: Tensor, phase_sub: int
+                      ) -> Tuple[Tensor, Tensor]:
+    """The RDS carrier phase of a block y [..., T] complex64 (the matched
+    filter's output, T a multiple of phase_sub): each sub-block's estimate
+    (psi_estimate), unwrapped from psi0 [...], and y derotated by it
+    (psi_unwrap_plain).  Returns (y e^{-j psi} [..., T], the last psi
+    [...])."""
+    return psi_unwrap_plain(psi_estimate(y, phase_sub), psi0, y)
 
 
 def runlength_plain(flags: Tensor, r0: Tensor) -> Tuple[Tensor, Tensor]:
@@ -169,6 +235,12 @@ def _rows(x: Tensor, R: int, n: int):
     return x2, x2.stride(0), x2.stride(1)
 
 
+def _aligned(x: Tensor) -> Tensor:
+    """x contiguous with a 16-byte aligned start (a copy where it is not)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _vec(x: Tensor, lead, dtype) -> Tensor:
     """x broadcast over the rows `lead`, as a contiguous [R] tensor."""
     if x.dtype != dtype:
@@ -190,8 +262,9 @@ class _LoopKernel:
     def _entry(self):
         if self._fn is None:
             lib = build.load(SOURCE)
-            geom = (lib.sdr_psi_maxsub(), lib.sdr_rl_span())
-            if geom != (PSI_MAXSUB, RL_SPAN):
+            geom = (lib.sdr_psi_maxsub(), lib.sdr_psi_span(),
+                    lib.sdr_rl_span())
+            if geom != (PSI_MAXSUB, PSI_SPAN, RL_SPAN):
                 raise RuntimeError(f"{SOURCE}: csrc geometry {geom} != the "
                                    f"wrapper's")
             fn = getattr(lib, f"sdr_{self.name}")
@@ -219,6 +292,52 @@ class _LoopKernel:
         self.launches += 1
 
 
+_PSS_STATE = (torch.float32, torch.float32, torch.bool, torch.int32,
+              torch.int32)
+
+
+class PssAdaptKernel(_LoopKernel):
+    """__call__(F, locked, weights, state, subblock, hold, alpha, decay) as
+    pss_adapt_plain; a cluster of 8 blocks a row."""
+
+    name = "pss_adapt"
+    argtypes = [_P, _P, _LL, _LL] + [_P] * 12 + [_I, _I, _I] + [_F] * 5 \
+        + [_I]
+
+    def __call__(self, F, locked, weights, state, subblock: int, hold: int,
+                 alpha: float, decay: float):
+        lead, T = F.shape[:-1], F.shape[-1]
+        if (F.dtype != torch.complex64 or locked.dtype != torch.bool
+                or locked.shape != F.shape or weights.dtype != torch.float32
+                or weights.shape != (subblock,)):
+            raise TypeError("pss_adapt: F [..., T] complex64, locked [..., "
+                            "T] bool and weights [subblock] float32")
+        if T < subblock or T % subblock:
+            raise ValueError(f"pss_adapt: {T} samples are not whole "
+                             f"sub-blocks of {subblock}")
+        dev = F.device
+        if not self._on_card(dev):
+            return pss_adapt_plain(F, locked, weights, state, subblock, hold,
+                                   alpha, decay)
+        R, n = math.prod(lead), T // subblock
+        if subblock not in PSS_SUBBLOCKS or R > 65535:
+            raise ValueError(f"pss_adapt: {R} rows of {n} sub-blocks of "
+                             f"{subblock} (the kernel takes {PSS_SUBBLOCKS})")
+        F2 = _aligned(F.reshape(R, T))
+        lk, lk_r, lk_c = _rows(locked, R, T)
+        w = _aligned(weights)
+        ins = [_vec(v, lead, dt) for v, dt in zip(state, _PSS_STATE)]
+        off = torch.empty(R, T, dtype=torch.float32, device=dev)
+        outs = [torch.empty(R, dtype=v.dtype, device=dev) for v in ins]
+        self._launch(dev, F2.data_ptr(), lk.data_ptr(), lk_r, lk_c,
+                     w.data_ptr(), *(v.data_ptr() for v in ins),
+                     off.data_ptr(), *(v.data_ptr() for v in outs), R, n,
+                     int(subblock), float(alpha), float(decay),
+                     float(C.PSS_ERROR_BOOST), float(C.PSS_CLAMP),
+                     float(C.PSS_LOCK_THRESHOLD), int(hold))
+        return off.reshape(lead + (T,)), tuple(v.reshape(lead) for v in outs)
+
+
 class PssScanKernel(_LoopKernel):
     """__call__(S_k, W_k, sub_locked, state, subblock, hold, alpha, decay)
     as pss_scan_plain; one thread a row."""
@@ -243,9 +362,7 @@ class PssScanKernel(_LoopKernel):
         S2 = S_k.reshape(R, n).contiguous()
         W2 = W_k.reshape(R, n).contiguous()
         lk, lk_r, lk_c = _rows(sub_locked, R, n)
-        ins = [_vec(v, lead, dt) for v, dt in zip(
-            state, (torch.float32, torch.float32, torch.bool, torch.int32,
-                    torch.int32))]
+        ins = [_vec(v, lead, dt) for v, dt in zip(state, _PSS_STATE)]
         accs = torch.empty(R, n, dtype=torch.float32, device=dev)
         outs = [torch.empty(R, dtype=v.dtype, device=dev) for v in ins]
         self._launch(dev, S2.data_ptr(), W2.data_ptr(), lk.data_ptr(), lk_r,
@@ -289,6 +406,44 @@ class PsiUnwrapKernel(_LoopKernel):
         self._launch(dev, raw2.data_ptr(), p0.data_ptr(), y2.data_ptr(),
                      yr.data_ptr(), last.data_ptr(), R, T, nsub, inv_pi,
                      float(np.float32(math.pi)))
+        return yr.reshape(lead + (T,)), last.reshape(lead)
+
+
+class PsiRecoverKernel(_LoopKernel):
+    """__call__(y, psi0, phase_sub) as psi_recover_plain; a cluster of 8
+    blocks a row."""
+
+    name = "psi_recover"
+    argtypes = [_P] * 4 + [_I] * 3 + [_F] * 3
+
+    def __call__(self, y, psi0, phase_sub: int):
+        lead, T = y.shape[:-1], y.shape[-1]
+        if y.dtype != torch.complex64 or psi0.dtype != torch.float32:
+            raise TypeError("psi_recover: y [..., T] complex64, psi0 [...] "
+                            "float32")
+        if T < phase_sub or T % phase_sub:
+            raise ValueError(f"psi_recover: {T} samples are not whole "
+                             f"sub-blocks of {phase_sub}")
+        dev = y.device
+        if not self._on_card(dev):
+            return psi_recover_plain(y, psi0, phase_sub)
+        R = math.prod(lead)
+        if not (PSI_MINSUB <= phase_sub <= PSI_SPAN and phase_sub % 2 == 0
+                and R <= 65535):
+            raise ValueError(f"psi_recover: {R} rows, sub-blocks of "
+                             f"{phase_sub} samples (the kernel takes an even "
+                             f"{PSI_MINSUB} .. {PSI_SPAN})")
+        y2 = _aligned(y.reshape(R, T))
+        p0 = _vec(psi0, lead, torch.float32)
+        yr = torch.empty_like(y2)
+        last = torch.empty(R, dtype=torch.float32, device=dev)
+        # torch's mean scales its sum by fl(1 / n); on the card torch
+        # divides by a scalar as a multiply by its f32 reciprocal
+        f32 = np.float32
+        self._launch(dev, y2.data_ptr(), p0.data_ptr(), yr.data_ptr(),
+                     last.data_ptr(), R, T, int(phase_sub),
+                     float(f32(1.0) / f32(phase_sub)),
+                     float(f32(1.0) / f32(math.pi)), float(f32(math.pi)))
         return yr.reshape(lead + (T,)), last.reshape(lead)
 
 
@@ -350,7 +505,9 @@ class SquelchDecideKernel(_LoopKernel):
         return sups.reshape(lead + (n,)), last.reshape(lead)
 
 
+pss_adapt = PssAdaptKernel()
 pss_scan = PssScanKernel()
+psi_recover = PsiRecoverKernel()
 psi_unwrap = PsiUnwrapKernel()
 runlength = RunlengthKernel()
 squelch_decide = SquelchDecideKernel()

@@ -5,13 +5,16 @@ The offset `acc` is held constant over a sub-block; with
 F = lowpass(e^{j base} * demod) computed once for the whole block, the
 Costas error under the rotation e^{-j acc} is Im(e^{-2j acc} F^2)/2, so the
 per-sub-block sums of F^2 are formed in one vectorised pass and only a
-scalar recurrence over the sub-blocks remains.  JAX runs that recurrence as
-a `lax.scan`; here it is `kernels.loops.pss_scan` (32 steps per
-131072-sample block): one launch of a hand kernel on the card, its plain
-version (a Python loop over 0-dim device tensors) on the CPU.  It never
-synchronises with the host.  A block may carry leading station rows ([...,
-T], states [...]): the recurrence then runs one row a station, in the same
-launch.
+scalar recurrence over the sub-blocks remains.  JAX forms the sums as XLA
+reductions, runs the recurrence as a `lax.scan` and repeats each offset
+over its sub-block; here the three are `kernels.loops.pss_adapt` (32 steps
+per 131072-sample block): one launch of a hand kernel on the card that
+reads F once and writes every sample's offset, its plain version (torch
+sums, a Python loop over 0-dim device tensors, the expand) on the CPU.
+The time-sharded path gathers the sums across ranks before the recurrence,
+so it forms them in torch and runs `kernels.loops.pss_scan`.  Neither
+synchronises with the host.  A block may carry leading station rows
+([..., T], states [...]): every row then runs in the same launch.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import torch
 
 from .. import constants as C
 from . import design
-from ..kernels.loops import pss_scan
+from ..kernels import loops as L
 from .blockops import fir_apply
 
 Tensor = torch.Tensor
@@ -92,27 +95,24 @@ def pss_adapt(demod: Tensor, base_phase: Tensor, locked: Tensor,
     sub-blocks' offsets; the returned tail is this rank's candidate."""
     if not active:
         return torch.zeros_like(demod), state
-    T = demod.shape[-1]
-    lead = demod.shape[:-1]
     S = cfg.subblock
-    assert T % S == 0
-    nsub = T // S
+    assert demod.shape[-1] % S == 0
     alpha = float(np.float32(C.PSS_ALPHA))
     decay = float(np.float32(cfg.ema_decay))
     hold = int(C.PSS_LOCK_STABLE_S * cfg.rate)
 
     u = torch.complex(torch.cos(base_phase), torch.sin(base_phase)) \
         * demod.to(torch.float32)
+    scan_state = (state.acc, state.mean_error, state.minimized,
+                  state.lock_run, state.unlock_run)
     if axis is None:
         F, tail = fir_apply(u, cfg.kernel, state.tail)
+        offsets, scanned = L.pss_adapt(F, locked, cfg.ema_weights,
+                                       scan_state, S, hold, alpha, decay)
     else:
         from ..parallel.distributed import dist_fir
         F, tail = dist_fir(u, cfg.kernel, state.tail, axis)
-    G = (F * F).reshape(lead + (nsub, S))
-    S_k = G.sum(dim=-1)
-    W_k = (G * cfg.ema_weights).sum(dim=-1)
-    sub_locked = locked.reshape(lead + (nsub, S))[..., 0]
-    if axis is not None:
+        S_k, W_k, sub_locked = L.pss_sums(F, locked, cfg.ema_weights, S)
         # one packed gather (f32, lossless); the scan below then sees the
         # whole block's sub-block sums, in rank order
         g = axis.all_gather(torch.stack([S_k.real, S_k.imag, W_k.real,
@@ -120,17 +120,14 @@ def pss_adapt(demod: Tensor, base_phase: Tensor, locked: Tensor,
                                          sub_locked.to(torch.float32)]))
         g = g.movedim(0, -2)                      # [5, ..., P, nsub]
         Sr, Si, Wr, Wi, lk = g.reshape(g.shape[:-2] + (-1,))
-        S_k, W_k = torch.complex(Sr, Si), torch.complex(Wr, Wi)
-        sub_locked = lk > 0.5
-
-    accs, (acc, me, minimized, lock_run, unlock_run) = pss_scan(
-        S_k, W_k, sub_locked, (state.acc, state.mean_error, state.minimized,
-                               state.lock_run, state.unlock_run),
-        S, hold, alpha, decay)
+        accs, scanned = L.pss_scan(torch.complex(Sr, Si),
+                                   torch.complex(Wr, Wi), lk > 0.5,
+                                   scan_state, S, hold, alpha, decay)
+        nsub = F.shape[-1] // S                   # this rank's
+        offsets = L.pss_offsets(
+            accs[..., axis.index * nsub:(axis.index + 1) * nsub], S)
+    acc, me, minimized, lock_run, unlock_run = scanned
     new_state = PSSState(acc=acc, tail=tail, mean_error=me,
                          minimized=minimized, lock_run=lock_run,
                          unlock_run=unlock_run)
-    if axis is not None:
-        accs = accs[..., axis.index * nsub:(axis.index + 1) * nsub]
-    offsets = accs[..., None].expand(lead + (nsub, S)).reshape(lead + (T,))
     return offsets, new_state

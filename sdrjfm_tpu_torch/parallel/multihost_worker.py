@@ -116,7 +116,8 @@ def counters() -> dict:
     return {"frontend": frontend, "linrec": linrec, "pole_bank": pole_bank,
             "rds_scan1": SD.decoder1_scan, "rds_scan2": SD.decoder2_scan,
             "rds_scan3": SD.decoder3_scan, "pss_scan": L.pss_scan,
-            "runlength": L.runlength, "psi_unwrap": L.psi_unwrap,
+            "pss_adapt": L.pss_adapt, "runlength": L.runlength,
+            "psi_unwrap": L.psi_unwrap, "psi_recover": L.psi_recover,
             "squelch_decide": L.squelch_decide}
 
 

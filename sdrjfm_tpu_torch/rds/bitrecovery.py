@@ -4,8 +4,9 @@ sdrjfm_tpu.rds.bitrecovery).
   matched filter : decoder-2's complex RRC, 45 taps, as a batched conv
   carrier phase  : per-sub-block squared-BPSK estimate psi = angle(mean(y^2))/2
                    with a continuity unwrap against the carried estimate,
-                   fused with the derotation (kernels.loops.psi_unwrap: one
-                   launch on the card, a loop over the sub-blocks on the CPU)
+                   fused with the derotation (kernels.loops.psi_recover: one
+                   launch on the card that reads y once, torch reductions and
+                   a loop over the sub-blocks on the CPU)
   bit timing     : the bit clock is exactly 384/19 samples at 24 kHz; a
                    per-block energy maximisation over 64 fractional offsets,
                    the bit grid sampled by linear-interpolation gather
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 from .. import constants as C
-from ..kernels.loops import psi_unwrap
+from ..kernels.loops import psi_recover
 from ..ops import design
 from ..ops.blockops import fir_apply
 
@@ -117,10 +118,7 @@ def recover_bits(z: Tensor, cfg: BitRecoveryConfig,
     y, mf_carry = fir_apply(z, cfg.mf_taps, state.mf_carry)
 
     # --- carrier phase: squared-BPSK estimate per sub-block, unwrapped ----
-    nsub = T // phase_sub
-    y2 = (y * y).reshape(lead + (nsub, phase_sub))
-    raw = 0.5 * torch.angle(y2.mean(dim=-1))              # psi mod pi
-    yr, psi_last = psi_unwrap(raw, state.psi, y)
+    yr, psi_last = psi_recover(y, state.psi, phase_sub)
 
     # --- bit timing: energy over candidate fractional offsets ---------------
     nbits_probe = int(T // SPS) - 1

@@ -53,6 +53,7 @@ buffers.  A `StepGraph` keeps one `ScanGraph`, the latest asked for.
 from __future__ import annotations
 
 import contextlib
+import gc
 import time
 from typing import Dict, List, Optional
 
@@ -258,8 +259,21 @@ class StepGraph:
         torch.cuda.synchronize(dev)
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph):
-            ret = body()
+        # A graph freed during a capture invalidates the capture: a dead
+        # cycle that holds an earlier receiver's graph (a Receiver and its
+        # StepGraph refer to each other) is freed by whichever collector pass
+        # the capture's own allocations trigger, and torch no longer collects
+        # before capturing.  So collect first, and hold the collector off
+        # until the capture ends.
+        gc.collect()
+        was_enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                ret = body()
+        finally:
+            if was_enabled:
+                gc.enable()
         torch.cuda.synchronize(dev)
         return graph, ret, time.perf_counter() - t0
 

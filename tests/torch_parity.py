@@ -279,3 +279,41 @@ class ScriptChannel:
 
     def respond(self, obj):
         self.responses.append(obj)
+
+
+def sharded_pss_job(axis, inputs: str, out_dir: str) -> None:
+    """A rank of the time-sharded PSS case of tests/test_torch_fused_loops.py:
+    ops.pss.pss_adapt(axis=) on this rank's slice of each block of
+    `inputs` (demod, base, locked [blocks, T] and an entry state), with the
+    fused wrapper made to raise and the unfused scan's calls counted; the
+    next block's tail is the last rank's.  Saves the offsets, the state
+    and the count to <out_dir>/rank<r>.npz."""
+    from pathlib import Path
+    from sdrjfm_tpu_torch.kernels import loops as L
+    from sdrjfm_tpu_torch.ops import pss as TP
+    z = np.load(inputs)
+    calls = []
+    scan = L.pss_scan
+
+    def counted(*args):
+        calls.append(1)
+        return scan(*args)
+
+    def refused(*args):
+        raise AssertionError("the time-sharded path called pss_adapt")
+
+    L.pss_scan, L.pss_adapt = counted, refused
+    cfg = TP.make_pss_config(JC.FM_RATE, int(z["sub"]), device="cpu")
+    state = TP.PSSState(*(torch.from_numpy(z[f]) for f in TP.PSSState._fields))
+    n = z["demod"].shape[1] // axis.size
+    sl = slice(axis.index * n, (axis.index + 1) * n)
+    offs = []
+    for b in range(z["demod"].shape[0]):
+        o, state = TP.pss_adapt(
+            *(torch.from_numpy(np.ascontiguousarray(z[k][b, sl]))
+              for k in ("demod", "base", "locked")), cfg, state, axis=axis)
+        offs.append(o.numpy())
+        state = state._replace(tail=axis.all_gather(state.tail)[-1])
+    np.savez(Path(out_dir) / f"rank{axis.index}.npz", offsets=np.stack(offs),
+             calls=len(calls),
+             **{f: getattr(state, f).numpy() for f in TP.PSSState._fields})
