@@ -8,8 +8,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. device  — the card's name and power limit (nvidia-smi), torch's CUDA
              version, nvcc's version.  No CUDA: exit 1.
 2. build   — builds every kernel of the main path from the sources in this
-             checkout (one nvcc per CUDA source, all in parallel), prints
-             the build seconds and each kernel's -Xptxas -v lines.
+             checkout (one nvcc per CUDA source, and the stamped build of
+             csrc/loops.cu, all in parallel), prints the build seconds and
+             each kernel's -Xptxas -v lines.
 3. kernels — each kernel against its plain torch version on the card, at the
              main path's shapes, with the tolerance stated: the front end
              and the real scan; the complex pole bank (kernel A) also
@@ -34,14 +35,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
              at 36 sub-blocks, sub-blocks of 1024 and 2048, and phase
              sub-blocks of 512 to 4096 and of 1000 and 1536 samples), run
              lengths, squelch decisions and every integer and bool state
-             exactly.  Kernel A: 20 launches of one call (B = 2 and the
-             4-station fold, B = 8) bit-identical.
+             exactly; the squelch gate (both modes, R = 1, 4, 19, 1 to 36
+             hold periods, squelch levels 0/30/60/100) with its decisions,
+             last decision and gated output exactly and its band averages
+             within SQ_GATE_RTOL of the plain version's and float64's,
+             each case's margin to a decision boundary printed.  Kernel A:
+             20 launches of one call (B = 2 and the 4-station fold, B = 8)
+             bit-identical.
 3b. graph  — the look-back kernels under CUDA-graph replay: two real-scan
              calls (R=2, R=1), one pole-bank call at the squelch's shapes,
-             a 4-row front-end launch and the six loop kernels at the
-             single-station path's shapes captured in one graph, replayed
-             three times on new inputs, each replay against the plain
-             versions.
+             a 4-row front-end launch and the loop kernels (the squelch
+             gate in both modes) at the single-station path's shapes
+             captured in one graph, replayed three times on new inputs,
+             each replay against the plain versions.
 4. main    — synthesises an 8 s stereo+RDS capture and drives it through
              `python -m sdrjfm_tpu_torch.app rx` (in process) on cuda at
              block_fm=131072 with the int16 wire: PI/PS/RT back at BER 0,
@@ -91,8 +97,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
              PI/PS at BER 0, pilot locked; scan=False against scan=True;
              the wrappers' counts over the run and, under the graph
              (profiler), one front-end and two scan launches a block for
-             all the stations; the nsq config (one pole-bank launch a
-             block) and the input filter (the split front end's rows) at
+             all the stations; the nsq config (one pole-bank, two real-scan
+             and one squelch-gate launch a block, no squelch_decide) and
+             the input filter (the split front end's rows) at
              n = 4 against their single-station runs the same way; the
              same capture with the station axis on a mesh (every card, or
              one card named twice) against the unsharded run; then for n
@@ -149,7 +156,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
              RDS
              bit counts equal, the bits equal from the second block on,
              PI/PS(/RT) at BER 0, at most 5 gathers and 8 halos a step on
-             the main config, every rank's device kernels of a step by
+             the main config, the heavy config's ranks one squelch_decide
+             and no squelch_gate a step, every rank's device kernels of a
+             step by
              name from a profiler trace; NCCL where there are as many
              cards as ranks, else a line saying why not; then
              multihost_worker, two processes against one of two ranks.
@@ -175,12 +184,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
              time of the route each replaced: the torch sums, the unfused
              kernel and the expand as one sequence; torch.cummax as
              runlength's yardstick; the latency floors of the sequential
-             ones).
+             ones; the squelch gate at R = 1, 4, 19 in both modes beside
+             the route it replaced: the abs, the EMAs' real-scan launch,
+             the period ends, squelch_decide and the gate as one
+             sequence).
+6b. stages — where the time goes inside one launch of squelch_gate (nsq),
+             pss_adapt and psi_recover: the stamped build of loops.cu
+             (clock64 at each stage boundary, thread 0 of every block),
+             each stage's median cycles and us (loads and reduction, the
+             cluster barriers, block 0's serial chain, the stores' issue),
+             its outputs equal to the default build's.
 7. profile — torch.profiler over 5 steady steps: the device's busy share
              of the wall time, device ops per step, the top ops by device
              time, the loop kernels' launches a step by name (one
-             pss_adapt and one psi_recover, no pss_scan or psi_unwrap),
-             and no cummax; for the main path, for the heaviest
+             pss_adapt and one psi_recover, no pss_scan or psi_unwrap, one
+             squelch_gate under a squelch and never squelch_decide), and
+             no cummax; for the main path, for the heaviest
              option config and for the main path with RDS decoder 3 (each
              after its step time).
 8. scanned — for the same three configs, run_offline_scanned over the
@@ -222,6 +241,8 @@ FP32_FLOP_PER_S = 67e12
 
 BLOCK_FM = 131072
 SOURCES = ("frontend.cu", "linrec.cu", "rds_scan.cu", "loops.cu")  # every kernel
+STAMPED = "loops.cu"               # also built with clock64 stamps (phase
+                                   # stages; no wrapper loads it)
 FE_ATOL, FE_RTOL = 2e-5, 1e-5      # f32 FIR of 307 taps summed in another
                                    # order + sincosf vs torch sin/cos ulps
 SCAN_RTOL = 1e-5                   # of max|y|: two f32 scans over 131072
@@ -403,9 +424,16 @@ def phase_build():
         build.build(src)
         return time.perf_counter() - t0
 
+    def timed_stamped():
+        t0 = time.perf_counter()
+        build.build(STAMPED, stamped=True)
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as ex:
+    with ThreadPoolExecutor(len(SOURCES) + 1) as ex:
+        stamped = ex.submit(timed_stamped)
         secs = dict(zip(SOURCES, ex.map(timed, SOURCES)))
+        secs[f"{STAMPED} (stamped)"] = stamped.result()
     wall = time.perf_counter() - t0
     for src in SOURCES:
         for ln in build.ptxas_report(src).splitlines():
@@ -712,8 +740,25 @@ PSI_RECOVER_ATOL = 2e-6            # psi_recover's yr and psi against its
                                    # its own ulp (4.8e-7 at |psi| < 8), and
                                    # yr moves by |y| (<= ~1.5 here) times
                                    # that; the bits of the path equal
+SQ_GATE_RTOL = 1e-5                # of each average's magnitude:
+                                   # squelch_gate's band averages against
+                                   # its plain version's and float64's on
+                                   # the card.  The kernel sums each
+                                   # period's ~8192 decaying positive terms
+                                   # as a tree (a thread's 16, a warp
+                                   # butterfly, the 16 warps in turn) and
+                                   # carries 16 period ends; linrec_plain
+                                   # sums 128-term chunks by a matmul and
+                                   # carries the chunk ends; both sit ~1e-6
+                                   # of the average off float64.  The
+                                   # decisions, sup_last and the gated
+                                   # output (x 1 or x 0) must be exact: the
+                                   # cases sit away from every decision
+                                   # boundary (the margins are printed)
 PSS_SUB = 4096                     # the PSS sub-block (ops/pss.SUBBLOCK)
 PSI_SUB = 2048                     # the RDS carrier-phase sub-block
+SQ_HOLD = 8192                     # the squelch's hold period
+SQ_LEVELS = (0.0, 30.0, 60.0, 100.0)
 
 
 def _pss_args(rng, lead, n, dev):
@@ -848,6 +893,106 @@ def _squelch_args(rng, mode, R, n, dev, H=8192):
         dev).reshape(R, n, H)[..., -1]
     return (mode, full(a), full(b), torch.from_numpy(thr).to(dev),
             torch.from_numpy(rng.random(R) < 0.5).to(dev))
+
+
+def _gate_args(rng, mode, lead, nper, level, dev):
+    """squelch_gate's arguments for rows `lead` of nper hold periods at a
+    squelch `level`: the demod x; for nsq the two bands as the pole bank
+    hands them (views of one [..., 2, T] tensor), random signs, |b| ~ 0.8
+    and |a| ~ |b| thr + c HYSTERESIS_NSQ with c each period's draw of -4
+    (opens), -0.5 and 0.5 (hold) or 4 (closes), each magnitude 1 % noisy,
+    entry averages at the placement; for level the carrier around thr
+    (+-50 %), one period end on thr exactly and one NaN."""
+    from sdrjfm_tpu_torch import constants as C
+    from sdrjfm_tpu_torch.kernels.loops import HYSTERESIS_NSQ
+    R = int(np.prod(lead)) if lead else 1
+    T = nper * SQ_HOLD
+    lv = torch.tensor(level, dtype=torch.float32)
+    thr_t = (1.0 - lv / 100.0 if mode == "nsq"
+             else torch.pow(10.0, (lv - 80.0) / 30.0))
+    thr = float(thr_t)
+    t = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a)).to(dev)
+    x = t(rng.standard_normal((R, T)).astype(np.float32)).reshape(lead + (T,))
+    sup0 = t(rng.random(R) < 0.5).reshape(lead)
+    if mode == "nsq":
+        c = np.repeat(rng.choice([-4.0, -0.5, 0.5, 4.0], (R, nper)), SQ_HOLD,
+                      axis=1)
+        mb = 0.8 * (1.0 + 0.01 * rng.random((R, T)))
+        ma = (np.abs(0.8 * thr + c * HYSTERESIS_NSQ)
+              * (1.0 + 0.01 * rng.random((R, T))))
+        sign = lambda: rng.choice([-1.0, 1.0], (R, T))  # noqa: E731
+        ab = t(np.stack([sign() * ma, sign() * mb], axis=1).astype(
+            np.float32)).reshape(lead + (2, T))
+        a, b = ab[..., 0, :], ab[..., 1, :]
+        avg0 = (t(np.full(R, 0.8 * thr, np.float32)).reshape(lead),
+                t(np.full(R, 0.8, np.float32)).reshape(lead))
+    else:
+        lvl = thr * (1.0 + rng.choice([-0.5, 0.5], (R, nper)))
+        lvl[-1, 0] = thr
+        if nper > 2:
+            lvl[0, 1] = np.nan
+        car = (np.repeat(lvl, SQ_HOLD, axis=1)
+               * (1.0 + 0.01 * rng.standard_normal((R, T))))
+        car.reshape(R, nper, SQ_HOLD)[..., -1] = lvl
+        a, b, avg0 = t(car.astype(np.float32)).reshape(lead + (T,)), None, None
+    # thr a row, as the n-station step hands it; the decayingAverage
+    # weight of ops/squelch.noise_squelch
+    return (mode, a, b, x, thr_t.expand(lead).contiguous().to(dev), avg0,
+            sup0, SQ_HOLD, 1.0 / (C.FM_RATE / 100.0))
+
+
+def _gate_f64(args):
+    """The float64 band averages' period ends [R, nper, 2] of an nsq case
+    (its drive alpha |v| in f32, as torch forms it) and each case's
+    smallest margin to a decision boundary, of the average (nsq) or of thr
+    (level); inf where every decision is forced (thr < HYSTERESIS_NSQ)."""
+    from scipy.signal import lfilter
+    from sdrjfm_tpu_torch.kernels.loops import HYSTERESIS_NSQ
+    mode, a, b, x, thr, avg0, sup0, H, alpha = args
+    T = x.shape[-1]
+    R = x.numel() // T
+    th = np.broadcast_to(thr.cpu().numpy().astype(np.float64), (R,))
+    if mode == "level":
+        c = a.reshape(R, T // H, H)[..., -1].cpu().numpy().astype(np.float64)
+        m = np.abs(c - th[:, None]) / th[:, None]
+        return None, float(np.nanmin(m))
+    g = float(np.float32(1.0 - alpha))
+    ends = []
+    for v, y0 in ((a, avg0[0]), (b, avg0[1])):
+        d = (np.float32(alpha) * np.abs(v.reshape(R, T).cpu().numpy())
+             ).astype(np.float64)
+        y = lfilter([1.0], [1.0, -g], d, axis=1,
+                    zi=g * y0.reshape(R, 1).cpu().numpy().astype(np.float64))[0]
+        ends.append(y.reshape(R, T // H, H)[..., -1])
+    ends = np.stack(ends, axis=-1)
+    ah, al = ends[..., 0], ends[..., 1]
+    m = np.minimum(np.abs(ah - (al * th[:, None] - HYSTERESIS_NSQ)),
+                   np.abs(ah - (al * th[:, None] + HYSTERESIS_NSQ))) / ah
+    m[th < HYSTERESIS_NSQ] = np.inf
+    return ends, (float(m.min()) if np.isfinite(m).any() else None)
+
+
+def _gate_check(got, want, f64=None):
+    """(exact: the gated output, the decisions and sup_last equal; the
+    largest error of the averages, of their magnitude, against the plain
+    version's and float64's last period end; the largest absolute error
+    of the averages)."""
+    y, sups, last, carry = got
+    yp, sups_p, last_p, carry_p = want
+    exact = bool(torch.equal(y, yp) and torch.equal(sups, sups_p)
+                 and torch.equal(last, last_p))
+    rel = absd = 0.0
+    if carry is not None:
+        for i, (c, cp) in enumerate(zip(carry, carry_p)):
+            d = (c - cp).abs()
+            absd = max(absd, float(d.max()))
+            rel = max(rel, float((d / cp.abs()).max()))
+            if f64 is not None:
+                ref = f64[..., -1, i].reshape(-1)
+                cc = c.reshape(-1).cpu().numpy().astype(np.float64)
+                rel = max(rel, float(np.max(np.abs(cc - ref) / ref)))
+    return exact, rel, absd
 
 
 def _tensors(tree) -> list:
@@ -1015,6 +1160,42 @@ def phase_loop_kernels(dev="cuda"):
     errs["squelch_decide"] = 0.0
     emit({"phase": "kernels", "kernel": "squelch_decide", "exact": True,
           "max_abs_err": 0.0, "cases": rows})
+    # the squelch gate: one row (the single-station path's 0-dim rows), 4
+    # and 19 stations, 1, 4 and 16 periods (a 131072-sample block) and more
+    # than a cluster step (18: airspy's 147456-sample block; 36), at each
+    # level; the decisions, sup_last and the gated output exactly, the
+    # averages within SQ_GATE_RTOL of the plain version's and float64's
+    rows = []
+    for mode in ("nsq", "level"):
+        for lead, nper in (((), 1), ((), 4), ((), 16), ((4,), 16),
+                           ((19,), 16), ((19,), 4), ((2,), 18), ((3,), 36)):
+            for level in SQ_LEVELS:
+                args = _gate_args(rng, mode, lead, nper, level, dev)
+                got = L.squelch_gate(*args)
+                want = L.squelch_gate_plain(*args)
+                torch.cuda.synchronize()
+                f64, margin = _gate_f64(args)
+                exact, rel, absd = _gate_check(got, want, f64)
+                sups = want[1].reshape(-1, nper)
+                rows.append({"mode": mode, "rows": list(lead),
+                             "periods": nper, "level": level,
+                             "exact": exact, "avg_err_of_avg": rel,
+                             "avg_max_abs_err": absd,
+                             "min_margin_of_boundary": margin,
+                             "closed_periods": int(sups.sum()),
+                             "decision_flips": int((sups[:, 1:]
+                                                    != sups[:, :-1]).sum())})
+                need(exact and rel <= SQ_GATE_RTOL,
+                     f"squelch_gate: {rows[-1]}")
+    errs["squelch_gate"] = max(r["avg_max_abs_err"] for r in rows)
+    emit({"phase": "kernels", "kernel": "squelch_gate", "exact_outputs": True,
+          "avg_rtol": SQ_GATE_RTOL, "max_abs_err": errs["squelch_gate"],
+          "max_avg_err_of_avg": max(r["avg_err_of_avg"] for r in rows),
+          # level decides on its inputs as they are (a tie is a case)
+          "min_margin_of_boundary_nsq": min(
+              r["min_margin_of_boundary"] for r in rows
+              if r["mode"] == "nsq" and r["min_margin_of_boundary"]
+              is not None), "cases": rows})
     return errs
 
 
@@ -1069,9 +1250,9 @@ def phase_main():
          f"warm-up steps and the capture)")
     runs = blocks + WARMUP_STEPS
     need({k: device[k] for k in MAIN_PER_STEP} == _main_launches(runs)
-         and not any(device[k] for k in UNFUSED),
+         and not any(device[k] for k in UNFUSED + SQUELCH),
          f"device launches {device}, want {_main_launches(runs)} (the "
-         f"warm-up steps and one replay a block) and no {UNFUSED}")
+         f"warm-up steps and one replay a block) and no {UNFUSED + SQUELCH}")
     need(rds["pi_code"] == "0x10F0" and rds["station_label"].strip() == "TPU FM"
          and rds["radio_text"] == "VERIFY RUN", "RDS PI/PS/RT")
     need(rds["bit_error_rate"] == 0.0, "RDS BER")
@@ -1253,7 +1434,7 @@ def phase_times(rx, wav, fe_err, sc_err, launches, card):
 HAND_KERNELS = ("frontend", "linrec", "pole_", "costas_", "fir_kernel",
                 "poles_emit", "mm_core", "clock_kernel", "pss_scan",
                 "pss_adapt", "psi_unwrap", "psi_recover", "runlength",
-                "squelch_decide")
+                "squelch_decide", "squelch_gate")
 
 
 def phase_profile(rx, wav, card, what: str = "main path"):
@@ -1285,7 +1466,7 @@ def phase_profile(rx, wav, card, what: str = "main path"):
     # the run length is a hand kernel now: no cummax on the device
     cummax = sum(r[2] for r in rows if "cummax" in r[1].lower())
     loops = _loop_kernels_per_step([(k, c) for _, k, c in rows], nstep)
-    want = _fused_per_step(rx.cfg.rds == "block")
+    want = _fused_per_step(rx.cfg.rds == "block", rx.cfg.squelch != "off")
     emit({"phase": "profile", "what": what, "steps": nstep, "card": card,
           "cummax_events_per_step": cummax / nstep,
           "loop_kernels_per_step": loops,
@@ -1316,11 +1497,13 @@ def _loop_kernels_per_step(events, nstep) -> dict:
             / nstep for k in LOOP_NAMES}
 
 
-def _fused_per_step(rds_block: bool) -> dict:
+def _fused_per_step(rds_block: bool, squelch: bool) -> dict:
     """What an unsharded step launches of them: one PSS adaptation, one
-    RDS carrier phase under the block decoder, no unfused entry."""
+    RDS carrier phase under the block decoder, one squelch gate under a
+    squelch, no unfused entry and no squelch_decide."""
     return {"pss_adapt": 1.0, "psi_recover": 1.0 if rds_block else 0.0,
-            "pss_scan": 0.0, "psi_unwrap": 0.0}
+            "pss_scan": 0.0, "psi_unwrap": 0.0,
+            "squelch_gate": 1.0 if squelch else 0.0, "squelch_decide": 0.0}
 
 
 
@@ -1615,7 +1798,8 @@ def _counters():
             "rds_scan3": SD.decoder3_scan, "pss_scan": L.pss_scan,
             "pss_adapt": L.pss_adapt, "runlength": L.runlength,
             "psi_unwrap": L.psi_unwrap, "psi_recover": L.psi_recover,
-            "squelch_decide": L.squelch_decide}
+            "squelch_decide": L.squelch_decide,
+            "squelch_gate": L.squelch_gate}
 
 
 def _reset(keys) -> dict:
@@ -1638,9 +1822,9 @@ OPTION_RUNS = [
      {"frontend": 1, "linrec": 2, "rds_scan3": 1}, "rds"),
     ("nsq_station", "station", ["--rds", "--squelch", "nsq",
                                 "--squelch-level", "80"],
-     {"frontend": 1, "linrec": 3, "pole_bank": 1}, "open"),
+     {"frontend": 1, "linrec": 2, "pole_bank": 1}, "open"),
     ("nsq_noise", "noise", ["--squelch", "nsq", "--squelch-level", "80"],
-     {"frontend": 1, "linrec": 3, "pole_bank": 1}, "closed"),
+     {"frontend": 1, "linrec": 2, "pole_bank": 1}, "closed"),
     ("lsq_station", "station", ["--squelch", "lsq", "--squelch-level", "50"],
      {"frontend": 1, "linrec": 2}, "open"),
     ("lsq_noise", "noise", ["--squelch", "lsq", "--squelch-level", "50"],
@@ -2125,10 +2309,12 @@ def phase_option_times(a_err, b_err, launches, card):
 # microkernel measures.  PSS: -2 acc (mul), sincosf, c Si (mul), + s Sr
 # (add), 0.5 x (mul), x boost (mul), alpha x (mul), acc + (add), the clamp
 # (2), the unlock select (1).  psi: psi - r (add), x 1/pi (mul), rint (1),
-# x pi (mul), r + (add).  A squelch decision: its two selects.
+# x pi (mul), r + (add).  A squelch decision: its two selects; the squelch
+# gate's period: the averages' carry g^H Y + P (mul, add) and the decision.
 LOOP_CHAINS = {"pss_scan": {"sincosf": 1, "mul": 5, "add": 5},
                "psi_unwrap": {"mul": 2, "add": 3},
-               "squelch_decide": {"add": 2}}
+               "squelch_decide": {"add": 2},
+               "squelch_gate": {"mul": 1, "add": 3}}
 # the fused kernels run the same chains between their loads and stores
 LOOP_CHAINS.update(pss_adapt=LOOP_CHAINS["pss_scan"],
                    psi_recover=LOOP_CHAINS["psi_unwrap"])
@@ -2258,7 +2444,7 @@ def phase_loop_times(errs, launches, opt_launches, sharded_launches, card,
           library=lambda: torch.cummax(lib_in, dim=-1),
           shape=f"bool [1, {M}] -> int32 [1, {M}] (the pilot lock counter)",
           by_rows=rows, nlaunch=launches["runlength"])
-    nper = M // 8192
+    nper = M // SQ_HOLD
     args = _squelch_args(rng, "nsq", 1, nper, dev)
     lvl = _squelch_args(rng, "level", 1, nper, dev)
     entry("squelch_decide", "sdrjfm_tpu/ops/squelch.py:120",
@@ -2268,9 +2454,152 @@ def phase_loop_times(errs, launches, opt_launches, sharded_launches, card,
           shape=f"{nper} hold periods of 8192 a block, one row; the level "
                 f"lattice (squelch.py:208) "
                 f"{device_ms(lambda: L.squelch_decide(*lvl), 'lsq')[0]:.5f} "
-                f"ms",
+                f"ms; the time-sharded path's only",
           nlaunch=opt_launches.get("squelch_decide", {}).get("nsq_station",
-                                                             0))
+                                                             0),
+          extra={"sharded_launches": sharded_launches.get("squelch_decide",
+                                                          0)})
+
+    def gate_route(mode, a, b, x, thr, avg0, sup0, H, alpha):
+        """The route squelch_gate replaced: the abs, the two EMAs as one
+        real-scan launch, the period ends, squelch_decide and the gate."""
+        from sdrjfm_tpu_torch.ops.blockops import ema_apply_rows
+        per = x.shape[:-1] + (x.shape[-1] // H, H)
+        carry = None
+        if mode == "nsq":
+            (ah, ah_last), (al, al_last) = ema_apply_rows(
+                [torch.abs(a), torch.abs(b)], [alpha, alpha], list(avg0))
+            sups, sup = L.squelch_decide("nsq", ah.reshape(per)[..., -1],
+                                         al.reshape(per)[..., -1], thr, sup0)
+            carry = (ah_last, al_last)
+        else:
+            sups, sup = L.squelch_decide("level", a.reshape(per)[..., -1],
+                                         None, thr, sup0)
+        return L.gate_periods(x, sups, H), sups, sup, carry
+
+    def gate_size(mode, R):
+        """(bytes, flops): nsq reads both bands and x and writes x, 8 f32
+        operations a band and sample (abs, alpha x, the power, the sum) and
+        the gate's multiply; level reads x and the period ends, writes x."""
+        if mode == "nsq":
+            return R * (M * 16 + nper + 4 * 4 + 3), R * M * 9
+        return R * (M * 8 + nper * 4 + nper + 6), R * M
+
+    ins = {(mode, R): _gate_args(rng, mode, (R,) if R > 1 else (), nper,
+                                 30.0, dev)
+           for mode in ("nsq", "level") for R in (1, 4, 19)}
+    rows, route_ms, bounds = {}, {}, {}
+    for (mode, R), a in ins.items():
+        rows[f"{mode} R={R}"] = device_ms(lambda: L.squelch_gate(*a),
+                                          f"squelch_gate {mode} R={R}")[0]
+        route_ms[f"{mode} R={R}"] = device_ms(
+            lambda: gate_route(*a), f"squelch_gate route {mode} R={R}")[0]
+        bounds[f"{mode} R={R}"] = _bound_ms(*gate_size(mode, R))[0]
+    lvl_floor = (nper * _chain_cycles(LOOP_CHAINS["squelch_decide"], cycles)
+                 / clock * 1e3)
+    entry("squelch_gate", "sdrjfm_tpu/ops/squelch.py:94-95,104-105,120,124",
+          lambda: L.squelch_gate(*ins["nsq", 1]),
+          lambda: L.squelch_gate_plain(*ins["nsq", 1]),
+          *gate_size("nsq", 1), steps=nper,
+          shape=f"nsq: float32 bands and demod [1, {M}] -> gated demod, "
+                f"{nper} hold periods of {SQ_HOLD} (a station a row); level "
+                f"(squelch.py:199-200,208,212): carrier and demod [1, {M}]",
+          by_rows=rows, nlaunch=opt_launches.get("squelch_gate", {}).get(
+              "nsq_station", 0),
+          extra={"bound_ms_by_rows": bounds,
+                 "replaced_route_ms_by_rows": route_ms,
+                 "replaced_route": "abs, ema_apply_rows (stack, one linrec "
+                                   "launch of 2R rows), the period ends, "
+                                   "squelch_decide, the gate (nsq); the "
+                                   "period ends, squelch_decide, the gate "
+                                   "(level)",
+                 "level_plain_ms": paced_ms(
+                     lambda: L.squelch_gate_plain(*ins["level", 1]), reps=3,
+                     iters=5),
+                 "level_latency_floor_ms": lvl_floor,
+                 "lsq_launches": opt_launches.get("squelch_gate", {}).get(
+                     "lsq_station", 0)})
+    return out
+
+
+STAGE_REPS = 21                    # stamped launches a kernel (the first
+                                   # a warm-up)
+
+
+def phase_stages(card, clock):
+    """Where the time goes inside one launch of the cluster kernels
+    squelch_gate (nsq), pss_adapt and psi_recover at the single-station
+    path's shapes: the stamped build of csrc/loops.cu (clock64 at each
+    stage boundary, thread 0 of every block; kernels/build.py
+    stamped=True), launched through probe wrappers that no path uses, its
+    outputs against the default build's.  Each stage's median cycles over
+    the blocks and STAGE_REPS - 1 launches, and its us at the SM clock the
+    latency phase measured: the loads and the reduction, the first
+    cluster barrier, block 0's serial chain, the second barrier (block 0's
+    own, and the other blocks' wait, which holds the chain), the issue of
+    the stores."""
+    import ctypes
+    from sdrjfm_tpu_torch.kernels import build
+    from sdrjfm_tpu_torch.kernels import loops as L
+    lib = build.load(L.SOURCE, stamped=True)
+    lib.sdr_stamp_buffer.argtypes = [ctypes.c_void_p]
+    lib.sdr_stamp_buffer.restype = ctypes.c_int
+    nslot = lib.sdr_stamp_slots()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(44)
+    M = BLOCK_FM
+
+    def probe(cls):
+        k = cls()
+        fn = getattr(lib, f"sdr_{k.name}")
+        fn.argtypes = k.argtypes + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        k._fn = fn
+        return k
+
+    out = {}
+    for name, cls, args, default in (
+            ("squelch_gate", L.SquelchGateKernel,
+             _gate_args(rng, "nsq", (), M // SQ_HOLD, 30.0, dev),
+             L.squelch_gate),
+            ("pss_adapt", L.PssAdaptKernel,
+             _pss_adapt_args(rng, (), M // PSS_SUB, dev), L.pss_adapt),
+            ("psi_recover", L.PsiRecoverKernel,
+             _psi_recover_args(rng, 1, M // 8, PSI_SUB, dev),
+             L.psi_recover)):
+        k = probe(cls)
+        nblk = 8                          # one cluster of 8 blocks, one row
+        buf = torch.zeros(nblk * nslot, dtype=torch.int64, device=dev)
+        need(lib.sdr_stamp_buffer(buf.data_ptr()) == 0,
+             f"stages {name}: stamp buffer")
+        stamps = []
+        for _ in range(STAGE_REPS):
+            buf.zero_()
+            got = k(*args)
+            torch.cuda.synchronize()
+            stamps.append(buf.view(nblk, nslot).cpu().numpy().copy())
+        need(lib.sdr_stamp_buffer(None) == 0, f"stages {name}: unset")
+        want = default(*args)
+        same = all(torch.equal(a, b) for a, b in
+                   zip(_tensors(got), _tensors(want)))
+        st = np.stack(stamps[1:]).astype(np.float64)  # [reps, blocks, slots]
+        need(bool((st > 0).all()), f"stages {name}: missing stamps")
+        d = np.diff(st, axis=-1)
+        cyc = {"load_reduce": float(np.median(d[..., 0])),
+               "barrier1": float(np.median(d[..., 1])),
+               "chain_block0": float(np.median(d[:, 0, 2])),
+               "barrier2_block0": float(np.median(d[:, 0, 3])),
+               "barrier2_wait_others": float(np.median(d[:, 1:, 2:4].sum(-1))),
+               "stores_issue": float(np.median(d[..., 4])),
+               "block_total": float(np.median(st[..., 5] - st[..., 0]))}
+        row = {"phase": "stages", "kernel": name, "reps": STAGE_REPS - 1,
+               "blocks": nblk, "cycles": cyc,
+               "us": {k2: v / clock * 1e6 for k2, v in cyc.items()},
+               "sm_clock_mhz": clock / 1e6,
+               "outputs_equal_default_build": same, "card": card}
+        emit(row)
+        need(same, f"stages {name}: the stamped build's outputs differ")
+        out[name] = row
     return out
 
 
@@ -2347,6 +2676,8 @@ def phase_graph(card, rx):
     sq_in = _squelch_args(rng, "nsq", 1, M // 8192, dev)
     pa_in = _pss_adapt_args(rng, (), M // PSS_SUB, dev)
     pr_in = _psi_recover_args(rng, 1, M // 8, PSI_SUB, dev)
+    gn_in = _gate_args(rng, "nsq", (), M // SQ_HOLD, 30.0, dev)
+    gl_in = _gate_args(rng, "level", (), M // SQ_HOLD, 60.0, dev)
 
     def loop_tensors():
         """The loops' static inputs, and fresh values of the same shapes."""
@@ -2358,9 +2689,11 @@ def phase_graph(card, rx):
                       np.int32)).to(dev)),
                  _squelch_args(rng, "nsq", 1, M // 8192, dev),
                  _pss_adapt_args(rng, (), M // PSS_SUB, dev),
-                 _psi_recover_args(rng, 1, M // 8, PSI_SUB, dev))
-        return (_tensors((pss_in, psi_in, rl_in, sq_in, pa_in, pr_in)),
-                _tensors(fresh))
+                 _psi_recover_args(rng, 1, M // 8, PSI_SUB, dev),
+                 _gate_args(rng, "nsq", (), M // SQ_HOLD, 30.0, dev),
+                 _gate_args(rng, "level", (), M // SQ_HOLD, 60.0, dev))
+        return (_tensors((pss_in, psi_in, rl_in, sq_in, pa_in, pr_in, gn_in,
+                          gl_in)), _tensors(fresh))
 
     def rand(*shape, scale=1.0, cplx=False):
         v = scale * rng.standard_normal(shape)
@@ -2390,7 +2723,8 @@ def phase_graph(card, rx):
                               *fe_p[1:], True),
                 L.pss_scan(*pss_in), L.psi_unwrap(*psi_in),
                 L.runlength(*rl_in), L.squelch_decide(*sq_in),
-                L.pss_adapt(*pa_in), L.psi_recover(*pr_in))
+                L.pss_adapt(*pa_in), L.psi_recover(*pr_in),
+                L.squelch_gate(*gn_in), L.squelch_gate(*gl_in))
 
     new_inputs()
     side = torch.cuda.Stream()
@@ -2460,12 +2794,19 @@ def phase_graph(card, rx):
                                    "pss_adapt": PSS_ADAPT_ATOL,
                                    "psi_recover": PSI_RECOVER_ATOL}.get(
                                        name, 0.0)
+        for name, got, args in (("squelch_gate_nsq", outs[10], gn_in),
+                                ("squelch_gate_level", outs[11], gl_in)):
+            exact, rel, _ = _gate_check(got, L.squelch_gate_plain(*args))
+            row[f"{name}_exact"] = exact
+            row[f"{name}_avg_err_of_avg"] = rel
+            ok &= exact and rel <= SQ_GATE_RTOL
     emit({"phase": "graph", "what": "2 real scans (R=2, R=1), 1 pole bank, "
-          "a 4-row front end and the six loop kernels (pss_scan, "
-          "psi_unwrap, runlength, squelch_decide, pss_adapt, psi_recover) "
-          "in one CUDA graph, 3 replays on new inputs", "ok": bool(ok),
+          "a 4-row front end and the seven loop kernels (pss_scan, "
+          "psi_unwrap, runlength, squelch_decide, pss_adapt, psi_recover, "
+          "squelch_gate nsq and level) in one CUDA graph, 3 replays on new "
+          "inputs", "ok": bool(ok),
           "loop_atol": LOOP_ATOL, "pss_adapt_atol": PSS_ADAPT_ATOL,
-          "psi_recover_atol": PSI_RECOVER_ATOL,
+          "psi_recover_atol": PSI_RECOVER_ATOL, "sq_gate_rtol": SQ_GATE_RTOL,
           "scan_rtol_of_max": SCAN_RTOL, "pole_rtol_of_scale": POLE_RTOL,
           "fe_atol": FE_ATOL, "fe_rtol": FE_RTOL,
           "replays": rows, "card": card})
@@ -2508,7 +2849,8 @@ DEVICE_KERNELS = {"frontend": "frontend_kernel", "linrec": "linrec_kernel",
                   "runlength": "runlength_kernel",
                   "psi_unwrap": "psi_unwrap_kernel",
                   "psi_recover": "psi_recover_kernel",
-                  "squelch_decide": "squelch_decide_kernel"}
+                  "squelch_decide": "squelch_decide_kernel",
+                  "squelch_gate": "squelch_gate_kernel"}
 # the main path's launches a step (for one station or all of them): the
 # front end, the real scan twice (the demod pair, the pilot metric), the
 # PSS adaptation, the pilot's run length and the RDS carrier phase
@@ -2517,7 +2859,10 @@ MAIN_PER_STEP = {"frontend": 1, "linrec": 2, "pss_adapt": 1, "runlength": 1,
 # the unfused entries: the time-sharded path's PSS scan, and the psi unwrap
 # that no path launches any more
 UNFUSED = ("pss_scan", "psi_unwrap")
-LOOP_NAMES = ("pss_adapt", "psi_recover") + UNFUSED
+# the squelch's kernels: squelch_gate under either squelch, squelch_decide
+# on the time-sharded path only; the main path launches neither
+SQUELCH = ("squelch_gate", "squelch_decide")
+LOOP_NAMES = ("pss_adapt", "psi_recover") + UNFUSED + SQUELCH
 # a time-sharded rank's kernels a step: the PSS sums are gathered across
 # ranks, so the scan runs unfused
 SHARDED_KERNELS = ("frontend", "linrec", "pss_scan", "runlength",
@@ -2531,13 +2876,13 @@ def _main_launches(steps: int) -> dict:
 def _loop_launches(flags) -> dict:
     """The loop kernels an `rx` run with these flags launches a step: the
     PSS adaptation and the pilot's run length on every stereo config, the
-    RDS carrier phase under the block decoder, one decision launch under
-    either squelch."""
+    RDS carrier phase under the block decoder, one squelch gate (and no
+    squelch_decide) under either squelch."""
     out = {"pss_adapt": 1, "runlength": 1}
     if "--rds" in flags and "--rds-decoder" not in flags:
         out["psi_recover"] = 1
     if "--squelch" in flags:
-        out["squelch_decide"] = 1
+        out["squelch_gate"] = 1
     return out
 
 
@@ -2947,8 +3292,9 @@ def _ms_times(rx, iq, offsets, card, passes: int = 7):
            "capture_and_instantiate_s": sc.capture_s,
            "first_call_s": first_s, "card": card}
     emit(row)
-    need(loops == _fused_per_step(True), f"multistation n = {n}: loop "
-         f"kernels a step {loops}, want {_fused_per_step(True)}")
+    want = _fused_per_step(True, False)
+    need(loops == want, f"multistation n = {n}: loop kernels a step "
+         f"{loops}, want {want}")
     return row
 
 
@@ -3070,10 +3416,10 @@ def phase_multistation(card):
 # level: 100 closes the noise squelch, the others leave it open on these
 # stations, whose high/low band ratio is ~0.018)
 MS_CONFIGS = (("nsq", dict(squelch="nsq"),
-               dict(MAIN_PER_STEP, linrec=3, pole_bank=1, squelch_decide=1),
-               (0.0, 30.0, 60.0, 100.0)),
+               dict(MAIN_PER_STEP, linrec=2, pole_bank=1, squelch_gate=1,
+                    squelch_decide=0), (0.0, 30.0, 60.0, 100.0)),
               ("input filter", dict(input_filter=True),
-               dict(MAIN_PER_STEP, frontend=0, pole_bank=0,
+               dict(MAIN_PER_STEP, frontend=0, pole_bank=0, squelch_gate=0,
                     squelch_decide=0), None))
 SQ_STATE_RTOL = 1e-4    # of each squelch state leaf's largest magnitude:
                         # the station's squelch state in the n-station step
@@ -4302,6 +4648,14 @@ def phase_sharded(card, wav, ms_wav, dev="cuda"):
     full("FullyShardedReceiver, input filter + nsq + scan2", two["heavy"],
          heavy, NSQ_ATOL, ("linrec", "pole_bank", "mm_core", "pss_scan",
                            "runlength", "squelch_decide"), budget=False)
+    # the time-sharded squelch keeps its lattice apart from the gate: one
+    # squelch_decide a step on each rank, never the fused squelch_gate
+    gate = [(_rank_kernels(z)["squelch_decide"], _rank_kernels(z)[
+        "squelch_gate"], z["info"]["launches"]["squelch_gate"])
+            for z in two["heavy"]]
+    need(all(g[2] == 0 and (dev == "cpu" or g[:2] == (1, 0)) for g in gate),
+         f"sharded heavy: (squelch_decide, squelch_gate) a step and the "
+         f"squelch_gate wrapper's launches per rank {gate}, want (1, 0), 0")
 
     # StationTimeShardedReceiver 2 x 2 against MultiStationReceiver
     n_st = len(st_offsets)
@@ -4362,7 +4716,11 @@ def phase_sharded(card, wav, ms_wav, dev="cuda"):
     shutil.rmtree(work)
     secs = time.perf_counter() - t_phase
     emit({"phase": "sharded", "what": "phase", "s": secs, "card": card})
-    return two["fsr"][0]["info"]["launches"]
+    # the wrappers' counts of the main config's rank 0, and the heavy
+    # config's for the time-sharded squelch lattice
+    heavy0 = two["heavy"][0]["info"]["launches"]
+    return dict(two["fsr"][0]["info"]["launches"],
+                squelch_decide=heavy0["squelch_decide"])
 
 
 def _kernel_sum_ms(fn) -> float:
@@ -4411,6 +4769,7 @@ def main() -> int:
     kernels.append(rows_kernel_entry(rx, rows_err, ms_launches, card))
     kernels += phase_loop_times(loop_errs, launches, opt_launches,
                                 sharded_launches, card, cycles, clock)
+    phase_stages(card, clock)
     phase_profile(rx, wav, card)
     phase_scanned(rx, wav, card, "main path", step_ms)
     for what, options in OPTION_CONFIGS:

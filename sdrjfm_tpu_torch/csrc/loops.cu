@@ -74,20 +74,68 @@
 //    only, so it equals torch.cummax's route bit for bit.  (One block a
 //    row took 0.030-0.040 ms on an H100, a row's 512 KB of stores and 128
 //    KB of loads all through one SM; PERF.md.)
-// 4. squelch_decide_kernel -- the hysteresis lattices of the noise squelch
-//    (JAX sdrjfm_tpu/ops/squelch.py:120, mode 0: open below
-//    a_low thr - HYS, close at or above a_low thr + HYS, held in between,
-//    forced shut when thr < HYS) and of the level squelch (:208, mode 1:
-//    closed below thr, open at or above it, held on NaN).  What bounds it:
-//    16 dependent selects a block, nanoseconds.  Design: one thread a row,
-//    its inputs staged in shared memory as the PSS scan's.
-// Measured: PERF.md (chip_smoke.py phases kernels, times and latency).
+// 4. squelch_gate_kernel -- the noise squelch after its band filters, JAX
+//    sdrjfm_tpu/ops/squelch.py:94-95 (the two decaying averages of |band|),
+//    :104-105 (their period ends), :120 (lax.scan of the hysteresis lattice:
+//    open below a_low thr - HYS, close at or above a_low thr + HYS, held in
+//    between, forced shut when thr < HYS) and :124 (the jnp.repeat gate);
+//    mode 1 the level squelch, :208 (closed below thr, open at or above it,
+//    held on NaN) and :212.  What bounds it: bytes, the two bands and the
+//    demod read once and the gated demod written once (R x T x 16 B, 2 MB
+//    a 131072-sample row, ~0.63 us at 3.35 TB/s; level 1 MB), then a chain
+//    of 16 carry steps and decisions a block, nanoseconds.  The averages at
+//    full rate are never formed: a period's end is Y_k = g^H Y_(k-1) + P_k,
+//    P_k = sum_j g^(H-1-j) alpha |v_j| over its H samples, g = 1 - alpha.
+//    Design, mode 0: a row is one cluster of 8 blocks of 512 threads, each
+//    block 16384 samples of a 131072-sample step (two 8192-sample
+//    periods); a block loads its share of both bands with 16-byte loads all
+//    in flight and sums each period's P_k for both in a fixed order (each
+//    thread's terms, a warp butterfly, the warps in turn), the powers of g
+//    from a table formed in float64 and rounded once (kernels/loops.py);
+//    then it loads its demod samples, in flight across the barriers, and
+//    pushes its P_k into block 0's shared memory (distributed shared
+//    memory); after a cluster barrier one thread of block 0 runs the carry
+//    and the lattice, its warp pushes each decision into the block that
+//    holds the period, and after a second barrier each block writes x keep
+//    with 16-byte stores.  No block reads another's memory after the second
+//    barrier, so no third holds a block back from exiting.  More periods
+//    than a step holds loop over steps, the state carried by that thread.
+//    Mode 1 needs no cluster: grid (chunks of 16384 samples, rows), each
+//    block stages the row's period-end carrier values up to its chunk, runs
+//    the level lattice on one thread (every block alike) and gates its
+//    chunk.  squelch_decide_kernel is the lattices alone on period ends
+//    formed outside, which the time-sharded path gathers across ranks: one
+//    thread a row, its inputs staged in shared memory as the PSS scan's.
+// Measured: PERF.md (chip_smoke.py phases kernels, times, latency and
+// stages).  Built with -DSDR_STAMP (kernels/build.py, stamped=True), thread
+// 0 of each block of the cluster kernels records clock64 at its stage
+// boundaries; the default build compiles none of it.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace cg = cooperative_groups;
+
+#ifdef SDR_STAMP
+// the stamped build: g_stamp[block][slot], block = blockIdx.y gridDim.x +
+// blockIdx.x, slot 0 the start of a cluster step, 1 before its first
+// cluster barrier, 2 after it, 3 before the second (block 0: after the
+// serial chain), 4 after it, 5 after the stores were issued; a row of
+// several steps keeps its last step's
+constexpr int SDR_NSTAMP = 6;
+__device__ long long* g_stamp = nullptr;
+#define SDR_STAMP_AT(slot)                                                  \
+  do {                                                                      \
+    if (threadIdx.x == 0 && g_stamp != nullptr)                             \
+      g_stamp[((long long)blockIdx.y * gridDim.x + blockIdx.x) * SDR_NSTAMP \
+              + (slot)] = clock64();                                        \
+  } while (0)
+#else
+#define SDR_STAMP_AT(slot) \
+  do {                     \
+  } while (0)
+#endif
 
 namespace {
 
@@ -292,6 +340,7 @@ pss_adapt_kernel(const float4* __restrict__ F,
   PssState st{};
   if (leader) st = pss_load(acc0, me0, min0, lock0, unlock0, row);
   for (int s0 = 0; s0 < n; s0 += SPAN) {
+    SDR_STAMP_AT(0);
     const int kb = s0 + rank * SUBS;
     const int nsb = max(0, min(SUBS, n - kb));        // this block's
     const float4* fb = f + (long long)kb * (S / 2);
@@ -329,7 +378,9 @@ pss_adapt_kernel(const float4* __restrict__ F,
       *cluster.map_shared_rank(&s_all[rank * SUBS + tid], 0) = a;
       *cluster.map_shared_rank(&s_alk[rank * SUBS + tid], 0) = s_lk[tid];
     }
+    SDR_STAMP_AT(1);
     cluster.sync();                      // every block's sums in block 0
+    SDR_STAMP_AT(2);
     if (rank == 0 && warp == 0) {
       const int cnt = min(SPAN, n - s0);
       if (lane == 0)
@@ -343,7 +394,9 @@ pss_adapt_kernel(const float4* __restrict__ F,
       for (int i = lane; i < cnt; i += 32)
         *cluster.map_shared_rank(&s_mine[i % SUBS], i / SUBS) = s_acc[i];
     }
+    SDR_STAMP_AT(3);
     cluster.sync();                      // every block's offsets in place
+    SDR_STAMP_AT(4);
     // the block's sub-blocks' offsets, consecutive threads on consecutive
     // 16 bytes
     float4* ob = o + (long long)kb * (S / 4);
@@ -355,6 +408,7 @@ pss_adapt_kernel(const float4* __restrict__ F,
         ob[i4] = make_float4(a, a, a, a);
       }
     }
+    SDR_STAMP_AT(5);
   }
   if (leader) pss_store(st, acc1, me1, min1, lock1, unlock1, row);
 }
@@ -457,6 +511,7 @@ psi_recover_kernel(const float4* __restrict__ y,
   float4* out = yr + (long long)row * (T / 2);
   float psi = leader ? psi0[row] : 0.0f;
   for (int c0 = 0; c0 < T; c0 += L) {
+    SDR_STAMP_AT(0);
     const int len = min(L, T - c0);                   // whole sub-blocks
     const int t0 = c0 + rank * PR_TILE;               // the block's first
     const int blen = max(0, min(PR_TILE, len - rank * PR_TILE));
@@ -511,7 +566,9 @@ psi_recover_kernel(const float4* __restrict__ y,
       }
       s_sum[tid] = a;
     }
+    SDR_STAMP_AT(1);
     cluster.sync();                      // every block's parts published
+    SDR_STAMP_AT(2);
     const int k0 = c0 / P, g = len / P;
     if (rank == 0 && warp == 0) {
       if (lane < g) {
@@ -552,7 +609,9 @@ psi_recover_kernel(const float4* __restrict__ y,
         s_rot[lane] = make_float2(c, -sn);
       }
     }
+    SDR_STAMP_AT(3);
     cluster.sync();                      // the step's rotations published
+    SDR_STAMP_AT(4);
     if (blen > 0 && tid < PR_SLOTS && kf + tid <= (t0 + blen - 1) / P)
       s_mine[tid] = *cluster.map_shared_rank(&s_rot[kf + tid - k0], 0);
     // done with block 0's memory: its next step, and its exit, wait for
@@ -568,6 +627,7 @@ psi_recover_kernel(const float4* __restrict__ y,
         const float2 b = derotate(make_float2(x.z, x.w), e);
         out[t0 / 2 + q * PR_THREADS + tid] = make_float4(a.x, a.y, b.x, b.y);
       }
+    SDR_STAMP_AT(5);
     cluster_wait();
   }
   if (leader) psi_last[row] = psi;
@@ -715,8 +775,242 @@ runlength_kernel(const unsigned char* __restrict__ flags,
 }
 
 // ---------------------------------------------------------------------------
-// 4. squelch decisions
+// 4. squelch gate and decisions
 // ---------------------------------------------------------------------------
+
+// the noise lattice's step on the period ends a (high band) and b (low
+// band): open below b t - hys, close at or above b t + hys, held in
+// between, forced shut when t < hys
+__device__ __forceinline__ bool nsq_decide(bool sup, float a, float b,
+                                           float t, float hys) {
+  const bool open = a < b * t - hys;
+  const bool close = a >= b * t + hys;
+  return t < hys ? true : (open ? false : (close ? true : sup));
+}
+
+// the level lattice's step on the carrier c: closed below t, open at or
+// above it, held on NaN
+__device__ __forceinline__ bool level_decide(bool sup, float c, float t) {
+  return c < t ? true : (c >= t ? false : sup);
+}
+
+// v * keep component by component, as torch's x * gate
+__device__ __forceinline__ float4 gate4(float4 v, float keep) {
+  return make_float4(v.x * keep, v.y * keep, v.z * keep, v.w * keep);
+}
+
+constexpr int SG_THREADS = 512;
+constexpr int SG_WARPS = SG_THREADS / 32;
+constexpr int SG_PER = 8;                             // float4 a thread
+constexpr int SG_TILE = SG_THREADS * SG_PER * 4;      // samples a block
+constexpr int SG_CLUSTER = 8;                         // blocks a row (nsq)
+constexpr int SG_SPAN = SG_TILE * SG_CLUSTER;         // a cluster's step
+constexpr int SG_QUANT = SG_THREADS * 4;              // samples a float4 row
+constexpr int SG_MAXQPH = SG_PER;                     // nsq: H <= SG_TILE
+constexpr int SG_GROUP = 16;                          // lattice steps whose
+                                                      // inputs load at once
+
+// Mode 0 (nsq), launched as clusters of SG_CLUSTER blocks over grid
+// (SG_CLUSTER, R): a, b the high and low bands' filter outputs, row r at a
+// + r a_r (16-byte aligned, a_r % 4 == 0); x the demod likewise; y [R, T]
+// the gated demod; wt [H / 4] float4, g^(H-1-j) at sample j of a period;
+// thr, avg0h, avg0l, sup0 [R]; sups [R, nper]; sup_last, avgh, avgl [R].
+// A period is QPH float4 rows of SG_THREADS (H = QPH SG_QUANT); block
+// `rank` holds periods s0 + rank SUBS .. + SUBS - 1 of each step s0.
+// Mode 1 (level), grid (T / SG_TILE rounded up, R), no cluster: a the
+// carrier, read at the period ends only (any a_r); b, wt, avg* unused.
+template <int MODE, int QPH>
+__global__ void __launch_bounds__(SG_THREADS)
+squelch_gate_kernel(const float* __restrict__ a, long long a_r,
+                    const float* __restrict__ b, long long b_r,
+                    const float* __restrict__ x, long long x_r,
+                    float* __restrict__ y, const float4* __restrict__ wt,
+                    const float* __restrict__ thr,
+                    const float* __restrict__ avg0h,
+                    const float* __restrict__ avg0l,
+                    const unsigned char* __restrict__ sup0,
+                    unsigned char* __restrict__ sups,
+                    unsigned char* __restrict__ sup_last,
+                    float* __restrict__ avgh, float* __restrict__ avgl,
+                    int T, int H, float alpha, float gH, float hys) {
+  const int tid = threadIdx.x, row = blockIdx.y;
+  const int nper = T / H;
+  const float4* xr = reinterpret_cast<const float4*>(x + row * x_r);
+  float4* yr = reinterpret_cast<float4*>(y + (long long)row * T);
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if constexpr (MODE == 0) {
+    constexpr int SUBS = SG_PER / QPH;                // periods a block
+    constexpr int STEP = SUBS * SG_CLUSTER;           // periods a step
+    constexpr int H4 = QPH * SG_THREADS;              // float4 a period
+    __shared__ float2 s_part[SUBS][SG_WARPS];
+    __shared__ float2 s_all[STEP];       // block 0: the step's (P_h, P_l)
+    __shared__ unsigned char s_dec[STEP];  // block 0: the step's decisions
+    __shared__ unsigned char s_mine[SUBS];  // this block's decisions
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = (int)cluster.block_rank();
+    const int lane = tid & 31, warp = tid >> 5;
+    const bool leader = rank == 0 && tid == 0;
+    const float4* ar = reinterpret_cast<const float4*>(a + row * a_r);
+    const float4* br = reinterpret_cast<const float4*>(b + row * b_r);
+    // this thread's powers of g, the same in every period: float4 q of a
+    // period holds its samples 4 ((q % QPH) SG_THREADS + tid) .. + 3
+    float4 wq[QPH];
+#pragma unroll
+    for (int qq = 0; qq < QPH; ++qq) wq[qq] = __ldg(wt + qq * SG_THREADS + tid);
+    float yh = 0.0f, yl = 0.0f, t = 0.0f;
+    bool sup = false;
+    if (leader) {
+      yh = avg0h[row];
+      yl = avg0l[row];
+      t = thr[row];
+      sup = sup0[row] != 0;
+    }
+    for (int s0 = 0; s0 < nper; s0 += STEP) {
+      SDR_STAMP_AT(0);
+      const int kb = s0 + rank * SUBS;
+      const int nsb = max(0, min(SUBS, nper - kb));   // this block's
+      const long long f0 = (long long)kb * H4;        // its first float4
+      float4 va[SG_PER], vb[SG_PER];
+#pragma unroll
+      for (int q = 0; q < SG_PER; ++q) {
+        const bool in = q / QPH < nsb;
+        va[q] = in ? __ldg(ar + f0 + q * SG_THREADS + tid) : zero;
+        vb[q] = in ? __ldg(br + f0 + q * SG_THREADS + tid) : zero;
+      }
+#pragma unroll
+      for (int j = 0; j < SUBS; ++j) {
+        // the EMA drive alpha |v| rounded as torch forms it, times g^(H-1-j)
+        float ph = 0.0f, pl = 0.0f;
+#pragma unroll
+        for (int qq = 0; qq < QPH; ++qq) {
+          const float4 u = va[j * QPH + qq], v = vb[j * QPH + qq];
+          const float4 w = wq[qq];
+          ph += w.x * (alpha * fabsf(u.x));
+          ph += w.y * (alpha * fabsf(u.y));
+          ph += w.z * (alpha * fabsf(u.z));
+          ph += w.w * (alpha * fabsf(u.w));
+          pl += w.x * (alpha * fabsf(v.x));
+          pl += w.y * (alpha * fabsf(v.y));
+          pl += w.z * (alpha * fabsf(v.z));
+          pl += w.w * (alpha * fabsf(v.w));
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          ph += __shfl_xor_sync(FULL, ph, o);
+          pl += __shfl_xor_sync(FULL, pl, o);
+        }
+        if (lane == 0) s_part[j][warp] = make_float2(ph, pl);
+      }
+      // the demod's samples, in flight across the barriers
+      float4 vx[SG_PER];
+#pragma unroll
+      for (int q = 0; q < SG_PER; ++q)
+        vx[q] = q / QPH < nsb ? __ldg(xr + f0 + q * SG_THREADS + tid) : zero;
+      __syncthreads();
+      // each period's parts pushed into block 0 (remote stores: no block
+      // reads another's memory after the second barrier)
+      if (tid < nsb) {
+        float2 p = s_part[tid][0];
+#pragma unroll
+        for (int q = 1; q < SG_WARPS; ++q) {
+          p.x += s_part[tid][q].x;
+          p.y += s_part[tid][q].y;
+        }
+        *cluster.map_shared_rank(&s_all[rank * SUBS + tid], 0) = p;
+      }
+      SDR_STAMP_AT(1);
+      cluster.sync();                    // every block's parts in block 0
+      SDR_STAMP_AT(2);
+      if (rank == 0 && warp == 0) {
+        const int cnt = min(STEP, nper - s0);
+        if (lane == 0)
+          // SG_GROUP periods' parts read at once, then their chain
+          for (int i0 = 0; i0 < cnt; i0 += SG_GROUP) {
+            float2 p[SG_GROUP];
+#pragma unroll
+            for (int i = 0; i < SG_GROUP; ++i)
+              if (i0 + i < cnt) p[i] = s_all[i0 + i];
+#pragma unroll
+            for (int i = 0; i < SG_GROUP; ++i)
+              if (i0 + i < cnt) {
+                yh = gH * yh + p[i].x;
+                yl = gH * yl + p[i].y;
+                sup = nsq_decide(sup, yh, yl, t, hys);
+                s_dec[i0 + i] = sup ? 1 : 0;
+              }
+          }
+        __syncwarp();
+        // the decisions pushed into the blocks that hold their periods
+        for (int i = lane; i < cnt; i += 32) {
+          *cluster.map_shared_rank(&s_mine[i % SUBS], i / SUBS) = s_dec[i];
+          sups[(long long)row * nper + s0 + i] = s_dec[i];
+        }
+      }
+      SDR_STAMP_AT(3);
+      cluster.sync();                    // every block's decisions in place
+      SDR_STAMP_AT(4);
+#pragma unroll
+      for (int q = 0; q < SG_PER; ++q)
+        if (q / QPH < nsb)
+          yr[f0 + q * SG_THREADS + tid] =
+              gate4(vx[q], s_mine[q / QPH] ? 0.0f : 1.0f);
+      SDR_STAMP_AT(5);
+    }
+    if (leader) {
+      sup_last[row] = sup ? 1 : 0;
+      avgh[row] = yh;
+      avgl[row] = yl;
+    }
+  } else {
+    __shared__ float s_c[SG_THREADS];    // a round of period-end values
+    __shared__ unsigned char s_dec[SG_TILE / SG_QUANT + 1];  // this chunk's
+    const int c0 = blockIdx.x * SG_TILE;
+    const int k0 = c0 / H;                            // the chunk's periods
+    const int kmax = (min(c0 + SG_TILE, T) - 1) / H;  // k0 .. kmax
+    float4 vx[SG_PER];
+#pragma unroll
+    for (int q = 0; q < SG_PER; ++q) {
+      const int i4 = c0 / 4 + q * SG_THREADS + tid;
+      vx[q] = 4 * i4 < T ? __ldg(xr + i4) : zero;
+    }
+    const float t = thr[row];
+    bool sup = sup0[row] != 0;
+    for (int r0 = 0; r0 <= kmax; r0 += SG_THREADS) {
+      __syncthreads();                   // the last round read
+      const int k = r0 + tid;
+      if (k <= kmax) s_c[tid] = a[row * a_r + (long long)(k + 1) * H - 1];
+      __syncthreads();
+      if (tid == 0) {
+        const int cnt = min(SG_THREADS, kmax + 1 - r0);
+        for (int i0 = 0; i0 < cnt; i0 += SG_GROUP) {
+          float c[SG_GROUP];
+#pragma unroll
+          for (int i = 0; i < SG_GROUP; ++i)
+            if (i0 + i < cnt) c[i] = s_c[i0 + i];
+#pragma unroll
+          for (int i = 0; i < SG_GROUP; ++i)
+            if (i0 + i < cnt) {
+              sup = level_decide(sup, c[i], t);
+              const int kk = r0 + i0 + i;
+              if (kk >= k0) s_dec[kk - k0] = sup ? 1 : 0;
+            }
+        }
+      }
+    }
+    __syncthreads();
+    // the decisions of the periods that start in this chunk, and the last
+    const int k = k0 + tid;
+    if (k <= kmax && (long long)k * H >= c0)
+      sups[(long long)row * nper + k] = s_dec[tid];
+    if (tid == 0 && blockIdx.x == gridDim.x - 1) sup_last[row] = sup ? 1 : 0;
+#pragma unroll
+    for (int q = 0; q < SG_PER; ++q) {
+      const int i4 = c0 / 4 + q * SG_THREADS + tid;
+      if (4 * i4 < T)
+        yr[i4] = gate4(vx[q], s_dec[4 * i4 / H - k0] ? 0.0f : 1.0f);
+    }
+  }
+}
 
 constexpr int SQ_THREADS = 64;                        // rows a block
 
@@ -754,14 +1048,8 @@ squelch_decide_kernel(int mode, const float* __restrict__ a, long long a_r,
     __syncthreads();
     for (int i = 0; live && i < cnt; ++i) {
       const float av = s_a[tid][i];
-      if (mode == 0) {
-        const float bv = s_b[tid][i];
-        const bool open = av < bv * t - hys;
-        const bool close = av >= bv * t + hys;
-        sup = t < hys ? true : (open ? false : (close ? true : sup));
-      } else {
-        sup = av < t ? true : (av >= t ? false : sup);
-      }
+      sup = mode == 0 ? nsq_decide(sup, av, s_b[tid][i], t, hys)
+                      : level_decide(sup, av, t);
       s_sup[tid][i] = sup ? 1 : 0;
     }
     __syncthreads();
@@ -910,6 +1198,75 @@ int sdr_squelch_decide(int mode, const void* a, long long a_r, long long a_c,
   return (int)cudaGetLastError();
 }
 
+int sdr_squelch_gate(int mode, const void* a, long long a_r, const void* b,
+                     long long b_r, const void* x, long long x_r, void* y,
+                     const void* wt, const void* thr, const void* avg0h,
+                     const void* avg0l, const void* sup0, void* sups,
+                     void* sup_last, void* avgh, void* avgl, int R, int T,
+                     int H, float alpha, float gH, float hys, void* stream) {
+  if (R < 1 || R > 65535 || H < SG_QUANT || H % SG_QUANT != 0 || T < H
+      || T % H != 0 || T > 0x7fffffff - SG_SPAN || (uintptr_t)x % 16 != 0
+      || x_r % 4 != 0 || (uintptr_t)y % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (mode == 1) {
+    const dim3 grid((unsigned)((T + SG_TILE - 1) / SG_TILE), (unsigned)R);
+    squelch_gate_kernel<1, 1><<<grid, SG_THREADS, 0, st>>>(
+        (const float*)a, a_r, (const float*)b, b_r, (const float*)x, x_r,
+        (float*)y, (const float4*)wt, (const float*)thr, (const float*)avg0h,
+        (const float*)avg0l, (const unsigned char*)sup0, (unsigned char*)sups,
+        (unsigned char*)sup_last, (float*)avgh, (float*)avgl, T, H, alpha, gH,
+        hys);
+    return (int)cudaGetLastError();
+  }
+  if (mode != 0 || H / SG_QUANT > SG_MAXQPH || (uintptr_t)a % 16 != 0
+      || (uintptr_t)b % 16 != 0 || a_r % 4 != 0 || b_r % 4 != 0
+      || (uintptr_t)wt % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  // a cluster of SG_CLUSTER blocks a row, set at launch (mode 1 of the
+  // same template runs without one)
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = SG_CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(SG_CLUSTER, (unsigned)R);
+  cfg.blockDim = dim3(SG_THREADS);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaErrorInvalidValue;
+#define SDR_SQUELCH_GATE(QPH)                                               \
+  e = cudaLaunchKernelEx(                                                  \
+      &cfg, squelch_gate_kernel<0, QPH>, (const float*)a, a_r,             \
+      (const float*)b, b_r, (const float*)x, x_r, (float*)y,               \
+      (const float4*)wt, (const float*)thr, (const float*)avg0h,           \
+      (const float*)avg0l, (const unsigned char*)sup0,                     \
+      (unsigned char*)sups, (unsigned char*)sup_last, (float*)avgh,        \
+      (float*)avgl, T, H, alpha, gH, hys)
+  switch (H / SG_QUANT) {
+    case 1: SDR_SQUELCH_GATE(1); break;
+    case 2: SDR_SQUELCH_GATE(2); break;
+    case 4: SDR_SQUELCH_GATE(4); break;
+    case 8: SDR_SQUELCH_GATE(8); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SDR_SQUELCH_GATE
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+#ifdef SDR_STAMP
+int sdr_stamp_buffer(void* p) {
+  return (int)cudaMemcpyToSymbol(g_stamp, &p, sizeof(p));
+}
+int sdr_stamp_slots() { return SDR_NSTAMP; }
+#endif
+
+int sdr_squelch_quant() { return SG_QUANT; }
+int sdr_squelch_span() { return SG_SPAN; }
 int sdr_psi_maxsub() { return PSI_MAXSUB; }
 int sdr_psi_span() { return PR_SPAN; }
 int sdr_rl_span() { return RL_SPAN; }

@@ -32,6 +32,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # their plain versions (an FMA contraction moves the Costas phase and the
 # bit clock from there on)
 EXTRA_FLAGS = {"rds_scan.cu": ["-fmad=false"], "loops.cu": ["-fmad=false"]}
+# the stamped build: the same source with clock64 stamps at the cluster
+# kernels' stage boundaries (csrc/loops.cu SDR_STAMP), into a library of its
+# own that only a measurement loads (chip_smoke.py phase stages); the
+# kernel wrappers load the default build
+STAMP_FLAGS = ["-DSDR_STAMP"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -48,24 +53,31 @@ def nvcc_path() -> str:
                        "machine with the card (CUDA toolkit required)")
 
 
-def library_path(source: str) -> Path:
-    """Where `source` (a file name under csrc/) builds to."""
+def _flags(source: str, stamped: bool) -> list:
+    return (NVCC_FLAGS + EXTRA_FLAGS.get(source, [])
+            + (STAMP_FLAGS if stamped else []))
+
+
+def library_path(source: str, stamped: bool = False) -> Path:
+    """Where `source` (a file name under csrc/) builds to; `stamped`: its
+    build with STAMP_FLAGS."""
     h = hashlib.sha256()
     h.update((CSRC / source).read_bytes())
-    h.update(" ".join(NVCC_FLAGS + EXTRA_FLAGS.get(source, [])).encode())
-    return BUILD_DIR / f"lib{Path(source).stem}_{h.hexdigest()[:16]}.so"
+    h.update(" ".join(_flags(source, stamped)).encode())
+    stem = Path(source).stem + ("_stamped" if stamped else "")
+    return BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
 
 
-def build(source: str) -> Path:
+def build(source: str, stamped: bool = False) -> Path:
     """Compile `source` unless its library is already built; returns the
     library path.  Raises with nvcc's output if the build fails."""
-    out = library_path(source)
+    out = library_path(source, stamped)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, *EXTRA_FLAGS.get(source, []), "-o",
-           str(tmp), str(CSRC / source)]
+    cmd = [nvcc_path(), *_flags(source, stamped), "-o", str(tmp),
+           str(CSRC / source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {source} "
@@ -75,18 +87,20 @@ def build(source: str) -> Path:
     return out
 
 
-def load(source: str) -> ctypes.CDLL:
-    """The loaded library of `source`, built first if needed."""
+def load(source: str, stamped: bool = False) -> ctypes.CDLL:
+    """The loaded library of `source` (its stamped build with `stamped`),
+    built first if needed."""
     with _LOCK:
-        lib = _LIBS.get(source)
+        key = (source, stamped)
+        lib = _LIBS.get(key)
         if lib is None:
-            lib = ctypes.CDLL(str(build(source)))
-            _LIBS[source] = lib
+            lib = ctypes.CDLL(str(build(source, stamped)))
+            _LIBS[key] = lib
         return lib
 
 
-def ptxas_report(source: str) -> str:
+def ptxas_report(source: str, stamped: bool = False) -> str:
     """nvcc's -Xptxas -v output (registers, shared memory, spills) from the
     build of `source`, or '' if it was not built in this checkout."""
-    p = BUILD_DIR / f"{library_path(source).stem}.ptxas.txt"
+    p = BUILD_DIR / f"{library_path(source, stamped).stem}.ptxas.txt"
     return p.read_text() if p.exists() else ""

@@ -21,8 +21,15 @@ and the run length as `torch.cummax`:
 - `runlength`: the consecutive-true run length (JAX
   sdrjfm_tpu/ops/blockops.py:391-405 `runlength_true`), the pilot lock
   counter; called by ops/blockops.py `runlength_true`.
-- `squelch_decide`: the noise and level squelch decision lattices (JAX
-  sdrjfm_tpu/ops/squelch.py:120 and :208); called by ops/squelch.py.
+- `squelch_gate`: the noise squelch after its band filters, the two
+  decaying averages of |band| (JAX sdrjfm_tpu/ops/squelch.py:94-95), their
+  period ends (:104-105), the decision lattice (:120) and the gate (:124),
+  the full-rate averages never formed; or the level squelch's lattice
+  (:208) and gate (:212); called by ops/squelch.py `noise_squelch` and
+  `level_squelch`.
+- `squelch_decide`: the noise and level squelch decision lattices alone, on
+  period ends formed outside; called by ops/squelch.py on the time-sharded
+  path, which gathers the period ends across ranks before the lattice.
 
 Each takes R independent rows: leading dims [...] of its inputs, one row
 for one station, S for the n-station step.  A wrapper runs its plain
@@ -48,6 +55,7 @@ import torch
 
 from .. import constants as C
 from . import build
+from .linrec import linrec_plain
 
 Tensor = torch.Tensor
 
@@ -58,6 +66,9 @@ PSI_MINSUB = 512           # samples a sub-block of psi_recover (csrc
 PSI_SPAN = 16384           # PR_MINSUB .. PR_SPAN)
 RL_SPAN = 131072           # samples a runlength cluster step (csrc RL_SPAN)
 HYSTERESIS_NSQ = 0.001     # the noise squelch's decision band
+SQ_QUANT = 2048            # squelch_gate's hold periods are multiples of
+                           # this, for nsq at most 8 of it (csrc SG_QUANT)
+SQ_SPAN = 131072           # samples a squelch_gate cluster step (SG_SPAN)
 
 
 # ---------------------------------------------------------------------------
@@ -220,6 +231,61 @@ def squelch_decide_plain(mode: str, a: Tensor, b: Optional[Tensor],
     return torch.stack(sups, dim=-1), sup
 
 
+def gate_periods(x: Tensor, sups: Tensor, H: int) -> Tensor:
+    """x [..., T] with each hold period of H samples zeroed where its
+    decision (sups [..., T / H] bool) suppresses."""
+    keep = (~sups).to(x.dtype)                              # [..., nper]
+    return (x.reshape(x.shape[:-1] + (sups.shape[-1], H))
+            * keep[..., None]).reshape(x.shape)
+
+
+def squelch_gate_plain(mode: str, a: Tensor, b: Optional[Tensor], x: Tensor,
+                       thr: Tensor, avg0, sup0: Tensor, hold: int,
+                       alpha: float):
+    """The squelch of a demod block x [..., T] (T a multiple of hold).
+    mode "nsq": a, b the high and low bands' filter outputs [..., T], avg0
+    = (avg_high, avg_low) [...]: the decaying averages of |a| and |b| with
+    weight alpha (one scan of both, linrec_plain), their values at each
+    period's end, and the noise lattice on them (squelch_decide_plain);
+    mode "level": a the tracked carrier [..., T], read at the period ends,
+    b and avg0 None.  thr [...]: the threshold; sup0 [...] the latched
+    decision.  Returns (x gated per period (gate_periods), the decisions
+    [..., T / hold] bool, the last [...], the averages at the block's end
+    (avg_high, avg_low), None in level mode)."""
+    lead, T = x.shape[:-1], x.shape[-1]
+    per = lead + (T // hold, hold)
+    if mode == "nsq":
+        drive = torch.stack([alpha * torch.abs(v).to(torch.float32)
+                             for v in (a, b)])
+        y0 = torch.stack([v.to(torch.float32) for v in avg0])
+        n = drive[0].numel() // T
+        y, last = linrec_plain(drive.reshape(-1, T), [1.0 - alpha] * (2 * n),
+                               y0.reshape(-1))
+        ah, al = y.view(drive.shape)
+        carry = tuple(last.view(y0.shape))
+        sups, sup = squelch_decide_plain("nsq", ah.reshape(per)[..., -1],
+                                         al.reshape(per)[..., -1], thr, sup0)
+    elif mode == "level":
+        carry = None
+        sups, sup = squelch_decide_plain(
+            "level", a.reshape(a.shape[:-1] + per[-2:])[..., -1], None, thr,
+            sup0)
+    else:
+        raise ValueError(f"squelch_gate: mode {mode!r}")
+    return gate_periods(x, sups, hold), sups, sup, carry
+
+
+def squelch_gate_table(alpha: float, hold: int) -> Tuple[np.ndarray, float]:
+    """squelch_gate's powers of g = f32(1 - alpha) (the plain version's
+    decay, rounded as linrec_plain rounds it): g^(hold-1-j) at sample j of
+    a period, [hold] float32, and g^hold, each computed in float64 and
+    rounded once."""
+    g = float(np.float32(1.0 - alpha))
+    with np.errstate(under="ignore"):
+        w = g ** np.arange(hold - 1, -1, -1, dtype=np.float64)
+        return w.astype(np.float32), float(np.float32(g ** hold))
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -239,6 +305,15 @@ def _aligned(x: Tensor) -> Tensor:
     """x contiguous with a 16-byte aligned start (a copy where it is not)."""
     x = x.contiguous()
     return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _aligned_rows(x: Tensor, R: int, T: int):
+    """x [..., T] as an [R, T] view whose rows start 16-byte aligned (a
+    copy where the view does not), and its row stride in elements."""
+    x2 = x.reshape(R, T)
+    if x2.stride(1) != 1 or x2.stride(0) % 4 or x2.data_ptr() % 16:
+        x2 = _aligned(x2)
+    return x2, x2.stride(0)
 
 
 def _vec(x: Tensor, lead, dtype) -> Tensor:
@@ -263,8 +338,9 @@ class _LoopKernel:
         if self._fn is None:
             lib = build.load(SOURCE)
             geom = (lib.sdr_psi_maxsub(), lib.sdr_psi_span(),
-                    lib.sdr_rl_span())
-            if geom != (PSI_MAXSUB, PSI_SPAN, RL_SPAN):
+                    lib.sdr_rl_span(), lib.sdr_squelch_quant(),
+                    lib.sdr_squelch_span())
+            if geom != (PSI_MAXSUB, PSI_SPAN, RL_SPAN, SQ_QUANT, SQ_SPAN):
                 raise RuntimeError(f"{SOURCE}: csrc geometry {geom} != the "
                                    f"wrapper's")
             fn = getattr(lib, f"sdr_{self.name}")
@@ -505,9 +581,93 @@ class SquelchDecideKernel(_LoopKernel):
         return sups.reshape(lead + (n,)), last.reshape(lead)
 
 
+class SquelchGateKernel(_LoopKernel):
+    """__call__(mode, a, b, x, thr, avg0, sup0, hold, alpha) as
+    squelch_gate_plain; nsq: a cluster of 8 blocks a row, level: grid
+    (chunks of 16384 samples, rows).  The powers of g live on the device,
+    built once per (alpha, hold, device)."""
+
+    name = "squelch_gate"
+    argtypes = [_I, _P, _LL, _P, _LL, _P, _LL] + [_P] * 10 + [_I] * 3 \
+        + [_F] * 3
+
+    def __init__(self):
+        super().__init__()
+        self._tables = {}
+
+    def _table(self, alpha: float, hold: int, dev):
+        """(the [hold] powers on `dev`, g^hold, f32(alpha)), cached: a fresh
+        copy per call would synchronise with the host."""
+        key = (alpha, hold, dev)
+        t = self._tables.get(key)
+        if t is None:
+            w, gH = squelch_gate_table(alpha, hold)
+            t = (torch.from_numpy(w).to(dev), gH, float(np.float32(alpha)))
+            self._tables[key] = t
+        return t
+
+    def __call__(self, mode: str, a, b, x, thr, avg0, sup0, hold: int,
+                 alpha: float):
+        if mode not in ("nsq", "level"):
+            raise ValueError(f"squelch_gate: mode {mode!r}")
+        nsq = mode == "nsq"
+        lead, T = x.shape[:-1], x.shape[-1]
+        ins = (a, b) if nsq else (a,)
+        if (x.dtype != torch.float32
+                or any(v is None or v.dtype != torch.float32
+                       or v.shape != x.shape for v in ins)
+                or (nsq and (avg0 is None or len(avg0) != 2))):
+            raise TypeError("squelch_gate: a (and b for nsq), x [..., T] "
+                            "float32, and avg0 = (avg_high, avg_low) for nsq")
+        if T < hold or T % hold:
+            raise ValueError(f"squelch_gate: {T} samples are not whole hold "
+                             f"periods of {hold}")
+        dev = x.device
+        if not self._on_card(dev):
+            return squelch_gate_plain(mode, a, b, x, thr, avg0, sup0, hold,
+                                      alpha)
+        R, nper = math.prod(lead), T // hold
+        if (hold % SQ_QUANT or (nsq and hold > 8 * SQ_QUANT) or R > 65535
+                or T > 2 ** 31 - 1 - SQ_SPAN):
+            raise ValueError(f"squelch_gate: {R} rows of {nper} hold periods "
+                             f"of {hold} (the kernel takes multiples of "
+                             f"{SQ_QUANT}, for nsq up to {8 * SQ_QUANT})")
+        if any(v.device != dev for v in ins):
+            raise ValueError("squelch_gate: a, b and x on different devices")
+        x2, x_r = _aligned_rows(x, R, T)
+        if nsq:
+            a2, a_r = _aligned_rows(a, R, T)
+            b2, b_r = _aligned_rows(b, R, T)
+            wt, gH, alpha32 = self._table(alpha, hold, dev)
+            h0, l0 = (_vec(v, lead, torch.float32) for v in avg0)
+        else:
+            # the carrier, read at the period ends only; b, the table and
+            # the averages are not read in level mode
+            a2 = a.reshape(R, T)
+            a2 = a2 if a2.stride(1) == 1 else a2.contiguous()
+            a_r = a2.stride(0)
+            b2, b_r, wt, gH, alpha32, h0, l0 = a2, a_r, x2, 0.0, 0.0, x2, x2
+        t = _vec(thr, lead, torch.float32)
+        s0 = _vec(sup0, lead, torch.bool)
+        y = torch.empty(R, T, dtype=torch.float32, device=dev)
+        sups = torch.empty(R, nper, dtype=torch.bool, device=dev)
+        last = torch.empty(R, dtype=torch.bool, device=dev)
+        carry = torch.empty(2, R, dtype=torch.float32, device=dev)
+        self._launch(dev, 0 if nsq else 1, a2.data_ptr(), a_r, b2.data_ptr(),
+                     b_r, x2.data_ptr(), x_r, y.data_ptr(), wt.data_ptr(),
+                     t.data_ptr(), h0.data_ptr(), l0.data_ptr(),
+                     s0.data_ptr(), sups.data_ptr(), last.data_ptr(),
+                     carry[0].data_ptr(), carry[1].data_ptr(), R, T, hold,
+                     alpha32, gH, HYSTERESIS_NSQ)
+        return (y.reshape(lead + (T,)), sups.reshape(lead + (nper,)),
+                last.reshape(lead),
+                tuple(v.reshape(lead) for v in carry) if nsq else None)
+
+
 pss_adapt = PssAdaptKernel()
 pss_scan = PssScanKernel()
 psi_recover = PsiRecoverKernel()
 psi_unwrap = PsiUnwrapKernel()
 runlength = RunlengthKernel()
 squelch_decide = SquelchDecideKernel()
+squelch_gate = SquelchGateKernel()

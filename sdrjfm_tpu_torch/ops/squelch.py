@@ -7,13 +7,18 @@ Level squelch gates on the demodulator's tracked carrier amplitude against
 10^((n-80)/30).
 
 Block shape: both band filters run in ONE call of the pole-bank kernel
-(`iir_apply_many`), both decaying averages in ONE two-row launch of the
-real scan, and the ~23 Hz decision lattice is one launch of
-`kernels.loops.squelch_decide` (16 hold periods a block at
-block_fm=131072; its plain version, a loop over the periods, on the CPU):
-no host sync.  A block may carry leading station rows ([..., T], the level
-[...]): every row's filters share the pole-bank launch, its averages the
-scan launch, its decisions the decision launch.
+(`iir_apply_many`); the rest is ONE launch of `kernels.loops.squelch_gate`,
+which reads both bands' outputs and the demod once, forms the decaying
+averages' values at the period ends (never the full-rate averages), runs
+the ~23 Hz decision lattice (16 hold periods a block at block_fm=131072)
+and writes the gated demod; the level squelch is one launch of it too.  On
+the CPU its plain version runs (one two-row scan, the period ends, the
+lattice as a loop over the periods, the gate): no host sync.  A block may
+carry leading station rows ([..., T], the level [...]): every row's filters
+share the pole-bank launch, its squelch the gate launch.  The time-sharded
+path (`axis`) keeps the steps apart: the averages through dist_ema2, the
+period ends gathered across ranks, the lattice as
+`kernels.loops.squelch_decide`, and the gate.
 """
 
 from __future__ import annotations
@@ -24,10 +29,9 @@ import numpy as np
 import torch
 
 from .. import constants as C
-from ..kernels.loops import HYSTERESIS_NSQ, squelch_decide
+from ..kernels import loops as L
 from . import design
-from .blockops import (IIRBank, IIRSpec, ema_apply_rows, iir_apply_many,
-                       iir_bank)
+from .blockops import IIRBank, IIRSpec, iir_apply_many, iir_bank
 
 Tensor = torch.Tensor
 
@@ -77,14 +81,6 @@ def _periods(T: int, H: int) -> int:
     return T // H
 
 
-def _gate(x: Tensor, sups: Tensor, H: int) -> Tensor:
-    """x with each hold period zeroed where its decision (sups [...,
-    nper]) suppresses."""
-    keep = (~sups).to(x.dtype)                              # [..., nper]
-    return (x.reshape(x.shape[:-1] + (sups.shape[-1], H))
-            * keep[..., None]).reshape(x.shape)
-
-
 def squelch_bank(cfg: SquelchConfig, device) -> IIRBank:
     """The band filters' constants on `device`, for noise_squelch."""
     return iir_bank([cfg.hp, cfg.lp], device)
@@ -93,16 +89,13 @@ def squelch_bank(cfg: SquelchConfig, device) -> IIRBank:
 def _gathered_periods(axis, *xs: Tensor):
     """The period-end values [..., nper] of every rank (one gather), in
     rank order along the last axis."""
-    if axis is None:
-        return xs
     g = axis.all_gather(torch.stack(xs))          # [P, len(xs), ..., nper]
     g = g.movedim(0, -2)                          # [len(xs), ..., P, nper]
     return tuple(g.reshape(g.shape[:-2] + (-1,)))
 
 
 def _own(sups: Tensor, nper: int, axis) -> Tensor:
-    return sups if axis is None else \
-        sups[..., axis.index * nper:(axis.index + 1) * nper]
+    return sups[..., axis.index * nper:(axis.index + 1) * nper]
 
 
 def noise_squelch(x: Tensor, level: Tensor, cfg: SquelchConfig,
@@ -114,16 +107,17 @@ def noise_squelch(x: Tensor, level: Tensor, cfg: SquelchConfig,
     built once by a block loop; without it the filters are copied to the
     device on this call.
 
-    With `axis` (a TimeAxis, x this rank's slice) the band filters run
-    through parallel.distributed.dist_iir_many (both cascades' pole banks
-    in one kernel call, one ring halo, one gather), the decaying averages
-    through dist_ema2 (one gather); the decision lattice runs over every
-    rank's period-end averages (one gather) on every rank alike, and each
-    rank gates its own periods.  Requires T_local % hold_period == 0."""
+    Without `axis` the squelch after the filters is one squelch_gate
+    launch.  With `axis` (a TimeAxis, x this rank's slice) the band filters
+    run through parallel.distributed.dist_iir_many (both cascades' pole
+    banks in one kernel call, one ring halo, one gather), the decaying
+    averages through dist_ema2 (one gather); the decision lattice
+    (squelch_decide) runs over every rank's period-end averages (one
+    gather) on every rank alike, and each rank gates its own periods.
+    Requires T_local % hold_period == 0."""
     T = x.shape[-1]
     H = cfg.hold_period
     nper = _periods(T, H)
-    per = x.shape[:-1] + (nper, H)
     thr = 1.0 - level.to(torch.float32) / 100.0
     w = 1.0 / (cfg.rate / 100.0)        # decayingAverage weight
     if bank is None:
@@ -131,9 +125,9 @@ def noise_squelch(x: Tensor, level: Tensor, cfg: SquelchConfig,
     if axis is None:
         (v1, hp_state), (v2, lp_state) = iir_apply_many(
             [x, x], bank, [state.hp_state, state.lp_state])
-        (ah, ah_last), (al, al_last) = ema_apply_rows(
-            [torch.abs(v1), torch.abs(v2)], [w, w],
-            [state.avg_high, state.avg_low])
+        y, _, sup, (ah_last, al_last) = L.squelch_gate(
+            "nsq", v1, v2, x, thr, (state.avg_high, state.avg_low),
+            state.suppress, H, w)
     else:
         from ..parallel import distributed as DD
         (v1, hp_state), (v2, lp_state) = DD.dist_iir_many(
@@ -141,29 +135,36 @@ def noise_squelch(x: Tensor, level: Tensor, cfg: SquelchConfig,
         (ah, ah_last), (al, al_last) = DD.dist_ema2(
             torch.abs(v1), w, state.avg_high, torch.abs(v2), w,
             state.avg_low, axis)
-    ah_p, al_p = _gathered_periods(axis, ah.reshape(per)[..., -1],
-                                   al.reshape(per)[..., -1])
-    sups, sup = squelch_decide("nsq", ah_p, al_p, thr, state.suppress)
+        per = x.shape[:-1] + (nper, H)
+        ah_p, al_p = _gathered_periods(axis, ah.reshape(per)[..., -1],
+                                       al.reshape(per)[..., -1])
+        sups, sup = L.squelch_decide("nsq", ah_p, al_p, thr, state.suppress)
+        y = L.gate_periods(x, _own(sups, nper, axis), H)
     new = SquelchState(hp_state=hp_state, lp_state=lp_state, avg_high=ah_last,
                        avg_low=al_last, suppress=sup, phase=state.phase)
-    return _gate(x, _own(sups, nper, axis), H), new
+    return y, new
 
 
 def level_squelch(x: Tensor, carrier: Tensor, level: Tensor,
                   cfg: SquelchConfig, state: SquelchState, axis=None
                   ) -> Tuple[Tensor, SquelchState]:
-    """Level squelch on the tracked carrier amplitude [T].  With `axis`
-    the period-end carrier values of every rank arrive in one gather, the
-    decisions run on every rank alike and each rank gates its own
-    periods."""
+    """Level squelch on the tracked carrier amplitude [..., T]: one
+    squelch_gate launch.  With `axis` the period-end carrier values of
+    every rank arrive in one gather, the decisions (squelch_decide) run on
+    every rank alike and each rank gates its own periods."""
     T = x.shape[-1]
     H = cfg.hold_period
     nper = _periods(T, H)
     thr = torch.pow(10.0, (level.to(torch.float32) - 80.0) / 30.0)
+    if axis is None:
+        y, _, sup, _ = L.squelch_gate("level", carrier, None, x, thr, None,
+                                      state.suppress, H, 0.0)
+        return y, state._replace(suppress=sup)
     c_p, = _gathered_periods(
         axis, carrier.reshape(carrier.shape[:-1] + (nper, H))[..., -1])
-    sups, sup = squelch_decide("level", c_p, None, thr, state.suppress)
-    return _gate(x, _own(sups, nper, axis), H), state._replace(suppress=sup)
+    sups, sup = L.squelch_decide("level", c_p, None, thr, state.suppress)
+    return (L.gate_periods(x, _own(sups, nper, axis), H),
+            state._replace(suppress=sup))
 
 
 # --------------------------------------------------------------------------

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .distributed import TimeAxis, init_time_axis
+from .distributed import TimeAxis, init_time_axis, rank_device
 
 BLOCK_FM = 16384
 PROFILED_STEPS = 2             # steps a profiled job traces on each rank
@@ -67,7 +67,7 @@ def _rank_entry(local: int, first: int, world: int, rendezvous: str, device,
                 target, args) -> None:
     """Process entry of rank first + local: join the group, run
     target(axis, *args), leave the group."""
-    if torch.device(device).type == "cpu":
+    if device is not None and torch.device(device).type == "cpu":
         torch.set_num_threads(1)
     axis = init_time_axis(first + local, world,
                           _rendezvous(rendezvous, world), device)
@@ -77,14 +77,18 @@ def _rank_entry(local: int, first: int, world: int, rendezvous: str, device,
         dist.destroy_process_group()
 
 
-def spawn(target, world: int, args=(), device="cpu",
+def spawn(target, world: int, args=(), device=None,
           timeout: float = 600.0) -> None:
     """Run `target(axis, *args)` on the `world` ranks of a new group, each
     a new process (the spawn start method), joined through a FileStore in
-    a temporary directory.  `target` must be a module-level function (it
-    is pickled by name).  Raises the first rank's exception, or
-    TimeoutError (after terminating the ranks) when they have not all
-    finished within `timeout` seconds."""
+    a temporary directory.  Each rank runs on rank_device(rank, device):
+    by default the cards (rank % their count; raises here, before any
+    rank starts, when there is none); device="cpu" runs the ranks on the
+    CPU.  `target` must be a module-level function (it is pickled by
+    name).  Raises the first rank's exception, or TimeoutError (after
+    terminating the ranks) when they have not all finished within
+    `timeout` seconds."""
+    rank_device(0, device)
     with tempfile.TemporaryDirectory(prefix="sdrjfm_ranks_") as tmp:
         ctx = torch.multiprocessing.start_processes(
             _rank_entry, args=(0, world, str(Path(tmp) / "store"), device,
@@ -118,7 +122,8 @@ def counters() -> dict:
             "rds_scan3": SD.decoder3_scan, "pss_scan": L.pss_scan,
             "pss_adapt": L.pss_adapt, "runlength": L.runlength,
             "psi_unwrap": L.psi_unwrap, "psi_recover": L.psi_recover,
-            "squelch_decide": L.squelch_decide}
+            "squelch_decide": L.squelch_decide,
+            "squelch_gate": L.squelch_gate}
 
 
 def _controls(rx, values: dict):

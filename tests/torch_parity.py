@@ -317,3 +317,56 @@ def sharded_pss_job(axis, inputs: str, out_dir: str) -> None:
     np.savez(Path(out_dir) / f"rank{axis.index}.npz", offsets=np.stack(offs),
              calls=len(calls),
              **{f: getattr(state, f).numpy() for f in TP.PSSState._fields})
+
+
+def sharded_squelch_job(axis, inputs: str, out_dir: str) -> None:
+    """A rank of the time-sharded squelch case of
+    tests/test_torch_squelch_gate.py: ops.squelch.noise_squelch and
+    level_squelch with `axis` on this rank's slice of each block of
+    `inputs` (x, carrier [blocks, T], the level), with the fused
+    squelch_gate made to raise and the decision lattice's calls counted.
+    Saves each kind's gated slices, its state and the count to
+    <out_dir>/rank<r>.npz."""
+    from pathlib import Path
+    from sdrjfm_tpu_torch.kernels import loops as L
+    from sdrjfm_tpu_torch.ops import squelch as TS
+    z = np.load(inputs)
+    calls = []
+    decide = L.squelch_decide
+
+    def counted(*args):
+        calls.append(1)
+        return decide(*args)
+
+    def refused(*args):
+        raise AssertionError("the time-sharded path called squelch_gate")
+
+    L.squelch_decide, L.squelch_gate = counted, refused
+    cfg = TS.make_squelch_config()
+    bank = TS.squelch_bank(cfg, "cpu")
+    level = torch.tensor(float(z["level"]))
+    n = z["x"].shape[1] // axis.size
+    sl = slice(axis.index * n, (axis.index + 1) * n)
+    out = {}
+    for kind in ("nsq", "lsq"):
+        st = TS.squelch_zero_state(cfg)
+        ys = []
+        for b in range(z["x"].shape[0]):
+            x = torch.from_numpy(np.ascontiguousarray(z["x"][b, sl]))
+            c = torch.from_numpy(np.ascontiguousarray(z["carrier"][b, sl]))
+            if kind == "nsq":
+                y, st = TS.noise_squelch(x, level, cfg, st, bank, axis=axis)
+            else:
+                y, st = TS.level_squelch(x, c, level, cfg, st, axis=axis)
+            ys.append(y.numpy())
+        out.update({f"{kind}_y": np.stack(ys),
+                    f"{kind}_suppress": st.suppress.numpy(),
+                    f"{kind}_avg": np.stack([st.avg_high.numpy(),
+                                             st.avg_low.numpy()])})
+    np.savez(Path(out_dir) / f"rank{axis.index}.npz", calls=len(calls), **out)
+
+
+def rank_file_job(axis, out_dir: str) -> None:
+    """Writes <out_dir>/rank<r>.txt with the rank's device."""
+    from pathlib import Path
+    (Path(out_dir) / f"rank{axis.index}.txt").write_text(str(axis.device))
