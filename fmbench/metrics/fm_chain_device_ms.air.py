@@ -1,0 +1,10 @@
+"""fm chain: the kernel milliseconds a block that `Receiver.fm_chain`
+launches, from the eager attribution pass (each kernel to the harness
+range that queued it)."""
+
+
+def read(view):
+    a = view.attribution
+    if not a or not a.get("fm_chain") or not view.attribution_blocks:
+        return None
+    return a["fm_chain"] * 1e-3 / view.attribution_blocks
