@@ -3169,7 +3169,7 @@ def phase_scanned(rx, wav, card, what: str, eager_step_ms: float,
           "loop_fm_stereo_rds_realtime_x": block_s / (
               statistics.median(loop_walls) / 1e3),
           "one_run_parts_ms": parts,
-          "capture_and_instantiate_s": sc.capture_s,
+          "warm_up_and_capture_s": sc.capture_s,
           "first_run_s": first_s,
           "eager_step_ms": eager_step_ms,
           "eager_fm_stereo_rds_realtime_x": block_s / (eager_step_ms / 1e3),
@@ -3289,7 +3289,7 @@ def _ms_times(rx, iq, offsets, card, passes: int = 7):
            "loop_kernels_per_step": loops,
            "top_device_ops": top,
            "host_us_per_replay": host_us,
-           "capture_and_instantiate_s": sc.capture_s,
+           "warm_up_and_capture_s": sc.capture_s,
            "first_call_s": first_s, "card": card}
     emit(row)
     want = _fused_per_step(True, False)

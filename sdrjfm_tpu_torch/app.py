@@ -17,11 +17,12 @@ report key of the JAX CLI: the receiver options, the runners (`--runner
 loop|scan`, `--pcm-out`, `--follow`), the device settings, the control
 channel (`--control`, `--stations`), checkpoints (`--save-state`,
 `--load-state`, `--ckpt-dir`), `--meter`, `--config` and `--profile` (a
-torch.profiler trace).  `scan` finds the stations of a capture (every
-channel of the window as a row of one front-end call) or sweeps a device
-across the band, and with `--identify` demodulates all of a window's hits
-at once (`models.multistation`).  Both run on the card unless `--device
-cpu` is given.  The one refusal is `--ckpt-backend orbax` (no torch
+torch.profiler trace and the program's record of its spans).  `scan`
+finds the stations of a capture (every channel of the window as a row of
+one front-end call) or sweeps a device across the band, and with
+`--identify` demodulates all of a window's hits at once
+(`models.multistation`).  Both run on the card unless `--device cpu` is
+given.  The one refusal is `--ckpt-backend orbax` (no torch
 counterpart; ROADMAP.md, queue 3).
 """
 
@@ -189,7 +190,11 @@ def _build_rx_parser(sub):
                         "many seconds of signal (default: stop at EOF)")
     p.add_argument("--profile", help="write a torch.profiler trace of the "
                                      "run (CPU and CUDA activity, Chrome "
-                                     "trace JSON) into this directory")
+                                     "trace JSON, with the program's spans "
+                                     "as ranges) and the program's own "
+                                     "record of its spans and counters "
+                                     "(spans_<pid>.json; CLOCK_MONOTONIC "
+                                     "ns) into this directory")
     p.add_argument("--control",
                    help="runtime control channel: '-' reads commands from "
                         "stdin, a FIFO path reads lines written to it, any "
@@ -500,7 +505,10 @@ def _rtlsdr_index(spec: str) -> int:
 class _ProfileTrace:
     """--profile: a torch.profiler trace of the run, with CPU activity and,
     on the card, CUDA activity, exported into the directory as Chrome trace
-    JSON (the JAX CLI's jax.profiler.trace into the same flag)."""
+    JSON (the JAX CLI's jax.profiler.trace into the same flag); the
+    program's spans are ranges in it.  Beside it, the in-memory record of
+    the spans and the counters (`runtime.spans`), set-up included, as
+    spans_<pid>.json."""
 
     def __init__(self, directory: str, device):
         import torch
@@ -517,11 +525,15 @@ class _ProfileTrace:
 
     def __exit__(self, *exc):
         import os
+
+        from .runtime import spans
         self.prof.__exit__(*exc)
         os.makedirs(self.directory, exist_ok=True)
         self.path = os.path.join(self.directory,
                                  f"trace_{os.getpid()}_{time.time_ns()}.json")
         self.prof.export_chrome_trace(self.path)
+        spans.write_json(os.path.join(self.directory,
+                                      f"spans_{os.getpid()}.json"))
 
 
 def _meter(cfg, ctl_proc, live_rds):
@@ -1037,7 +1049,12 @@ def _rx(args, kind, iq, rate, iq_fmt, is_wav, airspy_src) -> int:
                 "block": round(1e3 * cfg.block_fm / cfg.fm_rate, 1),
                 "p50": round(q(0.50), 1), "p95": round(q(0.95), 1),
                 "max": round(lats[-1], 1)}
-            print(f"end-to-end latency (ready->audio): p50 "
+            n_arr = res.arrival_timed
+            since = ("ring arrival->audio" if n_arr == len(res.meta)
+                     else "read->audio" if n_arr == 0 else
+                     f"ring arrival->audio, read->audio for "
+                     f"{len(res.meta) - n_arr} blocks")
+            print(f"end-to-end latency ({since}): p50 "
                   f"{report['latency_ms']['p50']} ms, p95 "
                   f"{report['latency_ms']['p95']} ms "
                   f"(+{report['latency_ms']['block']} ms block accumulation)",

@@ -19,6 +19,8 @@ import threading
 from pathlib import Path
 from typing import Dict
 
+from ..runtime import spans
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
@@ -78,6 +80,7 @@ def build(source: str, stamped: bool = False) -> Path:
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *_flags(source, stamped), "-o", str(tmp),
            str(CSRC / source)]
+    spans.count("kernel.builds")
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {source} "
@@ -89,12 +92,14 @@ def build(source: str, stamped: bool = False) -> Path:
 
 def load(source: str, stamped: bool = False) -> ctypes.CDLL:
     """The loaded library of `source` (its stamped build with `stamped`),
-    built first if needed."""
+    built first if needed: the first load a span `setup.kernel_load`, an
+    nvcc run a count in `kernel.builds` (`runtime.spans`)."""
     with _LOCK:
         key = (source, stamped)
         lib = _LIBS.get(key)
         if lib is None:
-            lib = ctypes.CDLL(str(build(source, stamped)))
+            with spans.span("setup.kernel_load"):
+                lib = ctypes.CDLL(str(build(source, stamped)))
             _LIBS[key] = lib
         return lib
 

@@ -57,6 +57,7 @@ from ..ops.pss import PSSState, make_pss_config, pss_adapt, pss_zero_state
 from ..ops.squelch import (SquelchState, level_squelch, make_squelch_config,
                            noise_squelch, squelch_bank, squelch_zero_state)
 from ..rds import scan_decoders as SD
+from ..runtime import spans
 from ..rds.bitrecovery import (PHASE_SUB, BitBlock, BitRecoveryState,
                                bitrecovery_zero_state,
                                make_bitrecovery_config, recover_bits)
@@ -249,8 +250,10 @@ def quantize_i16(audio: Tensor) -> Tensor:
 class Receiver:
     """Builds the frozen design constants on `device` and exposes
     init_state/step.  `device=None` means CUDA; without CUDA that raises —
-    pass device='cpu' to run the plain versions on the CPU."""
+    pass device='cpu' to run the plain versions on the CPU.  Construction
+    is the span `setup.receiver` (`runtime.spans`)."""
 
+    @spans.traced("setup.receiver")
     def __init__(self, cfg: ReceiverConfig, device=None):
         if cfg.decoder not in DECODERS:
             raise ValueError(f"unknown decoder {cfg.decoder!r}")

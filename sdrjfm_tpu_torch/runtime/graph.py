@@ -54,13 +54,13 @@ from __future__ import annotations
 
 import contextlib
 import gc
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..kernels.frontend import WIRE_FORMATS
+from . import spans
 
 Tensor = torch.Tensor
 
@@ -251,31 +251,33 @@ class StepGraph:
             buf.copy_(s)
 
     def capture(self, body, warm_reset=None):
-        """Warm `body` up (`warm_up`), then capture it.  Returns (graph,
-        what the captured body returned, seconds to capture and
-        instantiate)."""
+        """Warm `body` up (`warm_up`), then capture it: the span
+        `setup.capture`, counted in `graph.captures` (`runtime.spans`).
+        Returns (graph, what the captured body returned, the span's
+        seconds: warm-up, capture and instantiation)."""
         dev = self.device
-        self.warm_up(body, warm_reset)
-        torch.cuda.synchronize(dev)
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        # A graph freed during a capture invalidates the capture: a dead
-        # cycle that holds an earlier receiver's graph (a Receiver and its
-        # StepGraph refer to each other) is freed by whichever collector pass
-        # the capture's own allocations trigger, and torch no longer collects
-        # before capturing.  So collect first, and hold the collector off
-        # until the capture ends.
-        gc.collect()
-        was_enabled = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph):
-                ret = body()
-        finally:
-            if was_enabled:
-                gc.enable()
-        torch.cuda.synchronize(dev)
-        return graph, ret, time.perf_counter() - t0
+        with spans.span("setup.capture") as sp:
+            self.warm_up(body, warm_reset)
+            torch.cuda.synchronize(dev)
+            graph = torch.cuda.CUDAGraph()
+            # A graph freed during a capture invalidates the capture: a dead
+            # cycle that holds an earlier receiver's graph (a Receiver and
+            # its StepGraph refer to each other) is freed by whichever
+            # collector pass the capture's own allocations trigger, and
+            # torch no longer collects before capturing.  So collect first,
+            # and hold the collector off until the capture ends.
+            gc.collect()
+            was_enabled = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph):
+                    ret = body()
+            finally:
+                if was_enabled:
+                    gc.enable()
+            torch.cuda.synchronize(dev)
+        spans.count("graph.captures")
+        return graph, ret, sp.seconds
 
     def prepare(self) -> None:
         """Capture the per-block graph now (on CUDA; nothing on the CPU),
@@ -372,21 +374,23 @@ class ScanGraph:
 
     def load_blocks(self, blocks: np.ndarray) -> None:
         """Stage k <= K wire blocks ([k, ...] host array) as the chunk and
-        set the slot to 0: from pinned host memory on CUDA."""
+        set the slot to 0: from pinned host memory on CUDA (span
+        `scan.stage`, count k)."""
         k = blocks.shape[0]
         if not 1 <= k <= self.K or blocks.shape[1:] != self.inp.shape[1:]:
             raise ValueError(f"scan graph: chunk of shape {blocks.shape}, "
                              f"want at most {tuple(self.inp.shape)}")
-        if self.sg.captures:
-            if self._staging is None:
-                self._staging = torch.empty(self.inp.shape,
-                                            dtype=self.inp.dtype,
-                                            pin_memory=True)
-            self._staging[:k].numpy()[...] = blocks
-            self.inp[:k].copy_(self._staging[:k], non_blocking=True)
-        else:
-            self.inp[:k].numpy()[...] = blocks
-        self.slot.zero_()
+        with spans.span("scan.stage", count=k):
+            if self.sg.captures:
+                if self._staging is None:
+                    self._staging = torch.empty(self.inp.shape,
+                                                dtype=self.inp.dtype,
+                                                pin_memory=True)
+                self._staging[:k].numpy()[...] = blocks
+                self.inp[:k].copy_(self._staging[:k], non_blocking=True)
+            else:
+                self.inp[:k].numpy()[...] = blocks
+            self.slot.zero_()
 
     def prepare(self) -> None:
         """Capture the chunk graph (on CUDA; on the CPU the first step
@@ -404,6 +408,13 @@ class ScanGraph:
             self._body()
 
     def fetch(self, k: int) -> Dict[str, np.ndarray]:
-        """The first k blocks of every chunk output, one transfer each."""
-        return {name: v[:k].cpu().numpy().copy()
-                for name, v in self.outs.items()}
+        """The first k blocks of every chunk output, one transfer each:
+        the wait for the chunk's replays (span `scan.fetch_wait`), then the
+        copies down (span `scan.fetch_copy`, count the bytes)."""
+        with spans.span("scan.fetch_wait"):
+            if self.sg.captures:
+                torch.cuda.current_stream(self.sg.device).synchronize()
+        with spans.span("scan.fetch_copy",
+                        count=sum(v[:k].nbytes for v in self.outs.values())):
+            return {name: v[:k].cpu().numpy().copy()
+                    for name, v in self.outs.items()}

@@ -107,6 +107,10 @@ struct SdrSource {
 
 extern "C" {
 
+// steady_clock now in ns: the arrival stamps' clock (CLOCK_MONOTONIC on
+// Linux, Python's time.monotonic_ns()).
+int64_t sdr_steady_now_ns() { return SpscRing<float>::steady_ns(); }
+
 // Opens a wav IQ source. pace=1 emulates a live SDR front-end (real-time
 // emission in 10 ms slices); pace=0 streams as fast as the ring drains.
 // Returns nullptr on failure.
@@ -252,6 +256,10 @@ size_t sdr_source_available(SdrSource* s) {
   return s->ring.readAvailable() / 2;
 }
 
+// When the ring received the last frame read (steady_clock ns), or -1.
+int64_t sdr_source_last_arrival_ns(SdrSource* s) {
+  return s->ring.last_read_arrival_ns();
+}
 uint64_t sdr_source_dropped(SdrSource* s) { return s->dropped.load(); }
 int sdr_source_eof(SdrSource* s) {
   return s->eof.load() && s->ring.readAvailable() < 2;
@@ -516,6 +524,10 @@ size_t sdr_raw_available(SdrRawSource* s) {
   return s->ring.readAvailable() / (size_t)s->frame_bytes;
 }
 
+// When the ring received the last frame read (steady_clock ns), or -1.
+int64_t sdr_raw_last_arrival_ns(SdrRawSource* s) {
+  return s->ring.last_read_arrival_ns();
+}
 uint64_t sdr_raw_dropped(SdrRawSource* s) { return s->dropped.load(); }
 int sdr_raw_eof(SdrRawSource* s) {
   return s->eof.load() &&
@@ -804,6 +816,10 @@ size_t sdr_rtltcp_available(SdrTcpSource* s) {
   return s->ring.readAvailable() / 2;
 }
 
+// When the ring received the last frame read (steady_clock ns), or -1.
+int64_t sdr_rtltcp_last_arrival_ns(SdrTcpSource* s) {
+  return s->ring.last_read_arrival_ns();
+}
 uint64_t sdr_rtltcp_dropped(SdrTcpSource* s) { return s->dropped.load(); }
 
 int sdr_rtltcp_eof(SdrTcpSource* s) {
@@ -1057,6 +1073,10 @@ size_t sdr_rtlsdr_read_blocking(SdrRtlUsbSource* s, uint8_t* dst,
 
 size_t sdr_rtlsdr_available(SdrRtlUsbSource* s) {
   return s->ring.readAvailable() / 2;
+}
+// When the ring received the last frame read (steady_clock ns), or -1.
+int64_t sdr_rtlsdr_last_arrival_ns(SdrRtlUsbSource* s) {
+  return s->ring.last_read_arrival_ns();
 }
 uint64_t sdr_rtlsdr_dropped(SdrRtlUsbSource* s) { return s->dropped.load(); }
 int sdr_rtlsdr_eof(SdrRtlUsbSource* s) {
@@ -1346,6 +1366,10 @@ size_t sdr_airspy_read_blocking(SdrAirspySource* s, uint8_t* dst,
 size_t sdr_airspy_available(SdrAirspySource* s) {
   return s->ring.readAvailable() / 4;
 }
+// When the ring received the last frame read (steady_clock ns), or -1.
+int64_t sdr_airspy_last_arrival_ns(SdrAirspySource* s) {
+  return s->ring.last_read_arrival_ns();
+}
 uint64_t sdr_airspy_dropped(SdrAirspySource* s) { return s->dropped.load(); }
 int sdr_airspy_eof(SdrAirspySource* s) {
   return s->eof.load() && s->ring.readAvailable() < 4;
@@ -1586,6 +1610,10 @@ size_t sdr_hackrf_read_blocking(SdrHackrfSource* s, uint8_t* dst,
 
 size_t sdr_hackrf_available(SdrHackrfSource* s) {
   return s->ring.readAvailable() / 2;
+}
+// When the ring received the last frame read (steady_clock ns), or -1.
+int64_t sdr_hackrf_last_arrival_ns(SdrHackrfSource* s) {
+  return s->ring.last_read_arrival_ns();
 }
 uint64_t sdr_hackrf_dropped(SdrHackrfSource* s) { return s->dropped.load(); }
 int sdr_hackrf_eof(SdrHackrfSource* s) {
@@ -1935,6 +1963,10 @@ size_t sdr_sdrplay_read_blocking(SdrSdrplaySource* s, uint8_t* dst,
 
 size_t sdr_sdrplay_available(SdrSdrplaySource* s) {
   return s->ring.readAvailable() / 4;
+}
+// When the ring received the last frame read (steady_clock ns), or -1.
+int64_t sdr_sdrplay_last_arrival_ns(SdrSdrplaySource* s) {
+  return s->ring.last_read_arrival_ns();
 }
 uint64_t sdr_sdrplay_dropped(SdrSdrplaySource* s) {
   return s->dropped.load();

@@ -21,7 +21,10 @@ $SDRJFM_LIBSDRPLAY / $SDRJFM_LIBHACKRF, else by its usual name; its absence
 raises IOError (the CLI's "loading device failed").  Every source has the
 same consumer surface (rate, start, pause, stop, available, dropped, eof,
 read_block, close), so the runners and the control channel take any of
-them.
+them.  Each `read_block` is a span `source.read` (`runtime.spans`) and
+sets `last_arrival_ns`: when the ring received the block's last frame, by
+the producer's log of its puts (`native/ringbuffer.h`), on the clock of
+`time.monotonic_ns()`.
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ from pathlib import Path
 
 import numpy as np
 
+from . import spans
+
 NATIVE_DIR = Path(__file__).resolve().parent / "native"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "kernels" / "_build"
 SOURCES = ("ingest.cc", "ringbuffer.h", "sdrplay_abi.h")
@@ -47,10 +52,14 @@ class NativeUnavailable(RuntimeError):
 
 _lib = None
 _LOCK = threading.Lock()
-_P, _SZ, _I, _U32 = (ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int,
-                     ctypes.c_uint32)
+_P, _SZ, _I, _U32, _I64 = (ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int,
+                           ctypes.c_uint32, ctypes.c_int64)
 # (name, restype, argtypes) of every entry point bound here
 _ENTRIES = (
+    ("sdr_steady_now_ns", _I64, []),
+    *((f"sdr_{d}_last_arrival_ns", _I64, [_P])
+      for d in ("source", "raw", "rtltcp", "rtlsdr", "airspy", "hackrf",
+                "sdrplay")),
     ("sdr_wav_source_open", _P, [ctypes.c_char_p, _SZ, _I, _I]),
     ("sdr_source_rate", _U32, [_P]),
     ("sdr_source_start", None, [_P]),
@@ -140,35 +149,52 @@ def library_path() -> Path:
 
 
 def load_library(build: bool = True):
-    """The loaded ingest library, compiled first if it is not built."""
+    """The loaded ingest library, compiled first if it is not built (span
+    `setup.kernel_load`; a g++ run counts in `kernel.builds`)."""
     global _lib
     with _LOCK:
         if _lib is not None:
             return _lib
-        path = library_path()
-        if not path.exists():
-            if not build:
-                raise NativeUnavailable(f"{path.name} is not built")
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", str(tmp),
-                   str(NATIVE_DIR / "ingest.cc"), "-ldl"]
-            try:
-                proc = subprocess.run(cmd, capture_output=True, text=True)
-            except OSError as e:
-                raise NativeUnavailable(f"cannot build native ingest: {e}")
-            if proc.returncode != 0:
-                raise NativeUnavailable(f"cannot build native ingest "
-                                        f"(exit {proc.returncode}):\n"
-                                        f"{proc.stderr[-2000:]}")
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(str(path))
-        for name, res, args in _ENTRIES:
-            fn = getattr(lib, name)
-            fn.restype = res
-            fn.argtypes = args
-        _lib = lib
-        return lib
+        with spans.span("setup.kernel_load"):
+            _lib = _build_and_load(build)
+        return _lib
+
+
+def _build_and_load(build: bool):
+    path = library_path()
+    if not path.exists():
+        if not build:
+            raise NativeUnavailable(f"{path.name} is not built")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", str(tmp),
+               str(NATIVE_DIR / "ingest.cc"), "-ldl"]
+        spans.count("kernel.builds")
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+        except OSError as e:
+            raise NativeUnavailable(f"cannot build native ingest: {e}")
+        if proc.returncode != 0:
+            raise NativeUnavailable(f"cannot build native ingest "
+                                    f"(exit {proc.returncode}):\n"
+                                    f"{proc.stderr[-2000:]}")
+        os.replace(tmp, path)
+    lib = ctypes.CDLL(str(path))
+    for name, res, args in _ENTRIES:
+        fn = getattr(lib, name)
+        fn.restype = res
+        fn.argtypes = args
+    return lib
+
+
+def _arrived(arrival_ns, h, got: int, want: int) -> int:
+    """The ring's arrival time of a full block's last frame (ns,
+    CLOCK_MONOTONIC), stamped `source.arrival` under `source.read`; -1
+    for a short read or where the ring's log has moved past it."""
+    t = int(arrival_ns(h)) if got == want else -1
+    if t >= 0:
+        spans.stamp("source.arrival", t)
+    return t
 
 
 class NativeWavSource:
@@ -178,6 +204,8 @@ class NativeWavSource:
     drops on overrun — the live-SDR failure mode); pace=False streams at
     full speed for offline runs.  loop=True restarts at EOF.
     """
+
+    last_arrival_ns = -1
 
     def __init__(self, path: str, ring_frames: int = 1 << 22,
                  pace: bool = False, loop: bool = False):
@@ -214,11 +242,15 @@ class NativeWavSource:
         return bool(self._lib.sdr_source_eof(self._h))
 
     def read_block(self, n_frames: int, timeout_ms: int = 10_000):
-        """Blocking read of one block; returns complex64 [got]."""
+        """Blocking read of one block; returns complex64 [got].  Sets
+        `last_arrival_ns` (see `_arrived`)."""
         buf = np.empty(2 * n_frames, dtype=np.float32)
-        got = self._lib.sdr_source_read_blocking(
-            self._h, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-            n_frames, timeout_ms)
+        with spans.span("source.read") as sp:
+            got = sp.count = self._lib.sdr_source_read_blocking(
+                self._h, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                n_frames, timeout_ms)
+            self.last_arrival_ns = _arrived(
+                self._lib.sdr_source_last_arrival_ns, self._h, got, n_frames)
         iq = buf[: 2 * got].reshape(-1, 2)
         return (iq[:, 0] + 1j * iq[:, 1]).astype(np.complex64)
 
@@ -240,6 +272,7 @@ class _RawRing:
     object kind): integer [n, 2] frames in the wire format."""
 
     fmt: str
+    last_arrival_ns = -1
 
     def _open(self, handle, fmt: str, what: str, path) -> None:
         if not handle:
@@ -287,13 +320,16 @@ class _RawRing:
 
     def read_block(self, n_frames: int, timeout_ms: int = 10_000):
         """Blocking read; returns [got, 2] u8/i8/i16 (the iq_format
-        layout)."""
+        layout).  Sets `last_arrival_ns` (see `_arrived`)."""
         self._require_open()
         fb = int(self._lib.sdr_raw_frame_bytes(self._h))
         buf = np.empty(n_frames * fb, dtype=np.uint8)
-        got = self._lib.sdr_raw_read_blocking(
-            self._h, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-            n_frames, timeout_ms)
+        with spans.span("source.read") as sp:
+            got = sp.count = self._lib.sdr_raw_read_blocking(
+                self._h, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                n_frames, timeout_ms)
+            self.last_arrival_ns = _arrived(
+                self._lib.sdr_raw_last_arrival_ns, self._h, got, n_frames)
         return buf[: got * fb].view(self._dtype).reshape(-1, 2)
 
     def close(self):
@@ -367,6 +403,7 @@ class _DeviceRing:
 
     fmt: str
     _kind: str
+    last_arrival_ns = -1
     _dtype = {"u8": np.uint8, "i8": np.int8, "i16": np.int16}
 
     def _fn(self, name: str):
@@ -413,11 +450,15 @@ class _DeviceRing:
         return bool(self._fn("eof")(self._h))
 
     def read_block(self, n_frames: int, timeout_ms: int = 10_000):
-        """Blocking read; returns [got, 2] frames in the wire format."""
+        """Blocking read; returns [got, 2] frames in the wire format.  Sets
+        `last_arrival_ns` (see `_arrived`)."""
         buf = np.empty(n_frames * 2, dtype=self._dtype[self.fmt])
-        got = self._fn("read_blocking")(
-            self._h, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-            n_frames, timeout_ms)
+        with spans.span("source.read") as sp:
+            got = sp.count = self._fn("read_blocking")(
+                self._h, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                n_frames, timeout_ms)
+            self.last_arrival_ns = _arrived(self._fn("last_arrival_ns"),
+                                            self._h, got, n_frames)
         return buf[: got * 2].reshape(-1, 2)
 
     def close(self):

@@ -24,6 +24,7 @@ step's eager body.
 
 from __future__ import annotations
 
+import itertools
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -33,6 +34,7 @@ import torch
 
 from ..models.receiver import (BitBlock, Controls, Meta, Output, Receiver,
                                meta_dict_from_vec)
+from . import spans
 from .graph import tree_clone, wire_dtype, wire_shape
 
 _WIRE_DTYPES = {"c64": np.complex64, "i16": np.int16, "i8": np.int8,
@@ -68,6 +70,8 @@ class StreamResult:
     taps: dict = field(default_factory=dict)
     final_state: object = None
     dropped_total: int = 0            # ingest overrun drops (live sources)
+    arrival_timed: int = 0            # live blocks whose latency_ms starts
+                                      # at the ring's arrival stamp
 
 
 # ---------------------------------------------------------------------------
@@ -196,27 +200,34 @@ def _result(audio_acc, metas, bits_acc, biq_acc, state, taps=None
 # Scan runners
 # ---------------------------------------------------------------------------
 
+_passes = itertools.count()       # the id of each scan runner's pass
+
+
 def _scan_chunks(rx: Receiver, iq: np.ndarray, controls, init_state,
                  chunk_blocks: Optional[int], taps: bool):
     """The capture through the chunk graph: yields (first block, {output:
     [k, ...] host array}) per chunk of k <= chunk_blocks blocks (all blocks
     in one chunk when chunk_blocks is None).  The state threads from chunk
     to chunk in the step's buffers; rx.jit_step().state holds the final one
-    when the generator ends."""
+    when the generator ends.  Spans: `scan.load` (the chunk graph and the
+    initial state), then a chunk's `scan.stage` and `scan.fetch_*`
+    (`ScanGraph`) around `scan.replays` (count k)."""
     cfg = rx.cfg
-    nblocks = _nblocks(iq, cfg)
-    K = nblocks if chunk_blocks is None else int(chunk_blocks)
-    wire = _wire_blocks(iq, cfg, nblocks)
-    sg = rx.jit_step()
-    sc = sg.scan(min(K, nblocks), taps)
-    sc.prepare()
-    sg.load(init_state if init_state is not None else rx.init_state(),
-            controls if controls is not None else rx.initial_controls())
+    with spans.span("scan.load"):
+        nblocks = _nblocks(iq, cfg)
+        K = nblocks if chunk_blocks is None else int(chunk_blocks)
+        wire = _wire_blocks(iq, cfg, nblocks)
+        sg = rx.jit_step()
+        sc = sg.scan(min(K, nblocks), taps)
+        sc.prepare()
+        sg.load(init_state if init_state is not None else rx.init_state(),
+                controls if controls is not None else rx.initial_controls())
     for lo in range(0, nblocks, sc.K):
         k = min(sc.K, nblocks - lo)
         sc.load_blocks(wire[lo:lo + k])
-        for _ in range(k):
-            sc.step()
+        with spans.span("scan.replays", count=k):
+            for _ in range(k):
+                sc.step()
         yield lo, sc.fetch(k)
 
 
@@ -228,25 +239,32 @@ def run_offline_scan(rx: Receiver, iq: np.ndarray,
     replay a block, one fetch of each output.  Returns (final_state, the
     stacked Output): every field with a leading block axis, as CPU
     tensors fetched once (Meta from the meta_vec columns; the taps when
-    cfg.emit_taps)."""
-    (_, got), = _scan_chunks(rx, iq, controls, init_state, None,
-                             rx.cfg.emit_taps)
-    final = tree_clone(rx.jit_step().state)
-    t = {k: torch.from_numpy(v) for k, v in got.items()}
-    mv = t["meta_vec"]
-    meta = Meta(*(mv[:, i].to(torch.bool)
-                  if name in ("pilot_locked", "pss_established")
-                  else mv[:, i] for i, name in enumerate(Meta._fields)))
-    rds = None
-    if "rds_bits" in t:
-        cap = t["rds_bits"].shape[1]
-        rds = BitBlock(bits=t["rds_bits"],
-                       valid=torch.arange(cap)[None, :]
-                       < t["rds_count"][:, None],
-                       count=t["rds_count"], iq=t["rds_iq"])
-    taps = {k[4:]: v for k, v in t.items() if k.startswith("tap:")} or None
-    return final, Output(audio=t["audio"], meta=meta, rds=rds, taps=taps,
-                         meta_vec=mv, audio_i16=t.get("audio_i16"))
+    cfg.emit_taps).  The pass is a span `scan.pass`, its host outputs'
+    assembly `scan.assemble`."""
+    with spans.span("scan.pass", id=next(_passes),
+                    count=len(iq) // rx.cfg.wire_len):
+        (_, got), = _scan_chunks(rx, iq, controls, init_state, None,
+                                 rx.cfg.emit_taps)
+        with spans.span("scan.assemble"):
+            final = tree_clone(rx.jit_step().state)
+            t = {k: torch.from_numpy(v) for k, v in got.items()}
+            mv = t["meta_vec"]
+            meta = Meta(*(mv[:, i].to(torch.bool)
+                          if name in ("pilot_locked", "pss_established")
+                          else mv[:, i]
+                          for i, name in enumerate(Meta._fields)))
+            rds = None
+            if "rds_bits" in t:
+                cap = t["rds_bits"].shape[1]
+                rds = BitBlock(bits=t["rds_bits"],
+                               valid=torch.arange(cap)[None, :]
+                               < t["rds_count"][:, None],
+                               count=t["rds_count"], iq=t["rds_iq"])
+            taps = {k[4:]: v for k, v in t.items()
+                    if k.startswith("tap:")} or None
+            return final, Output(audio=t["audio"], meta=meta, rds=rds,
+                                 taps=taps, meta_vec=mv,
+                                 audio_i16=t.get("audio_i16"))
 
 
 def run_offline_scanned(rx: Receiver, iq: np.ndarray,
@@ -266,25 +284,34 @@ def run_offline_scanned(rx: Receiver, iq: np.ndarray,
     look-back scan's last bits may vary from run to run).  None: one chunk.
     No host feedback runs inside a chunk (decoder 3's resync, AFC and
     control take the per-block runners), as in JAX.
+
+    The pass is a span `scan.pass` (`runtime.spans`; id the pass, count
+    the blocks) around `_scan_chunks`'s spans and `scan.assemble`: the
+    result's host assembly once every chunk has arrived.
     """
-    audio, mvs, bits, biq, tap_acc = [], [], [], [], {}
-    for lo, got in _scan_chunks(rx, iq, controls, init_state, chunk_blocks,
-                                collect_taps):
-        for j in range(got["audio"].shape[0]):
-            if lo + j < drop_blocks:
-                continue
-            audio.append(got["audio"][j])
-            mvs.append(got["meta_vec"][j])
-            if "rds_bits" in got:
-                n = int(got["rds_count"][j])
-                bits.append(got["rds_bits"][j, :n])
-                biq.append(got["rds_iq"][j, :n])
-            for k, v in got.items():
-                if k.startswith("tap:"):
-                    tap_acc.setdefault(k[4:], []).append(v[j].reshape(-1))
-    metas = [meta_dict_from_vec(mv)[0] for mv in mvs]
-    return _result(audio, metas, bits, biq, tree_clone(rx.jit_step().state),
-                   tap_acc)
+    with spans.span("scan.pass", id=next(_passes),
+                    count=len(iq) // rx.cfg.wire_len):
+        chunks = list(_scan_chunks(rx, iq, controls, init_state,
+                                   chunk_blocks, collect_taps))
+        with spans.span("scan.assemble"):
+            audio, mvs, bits, biq, tap_acc = [], [], [], [], {}
+            for lo, got in chunks:
+                for j in range(got["audio"].shape[0]):
+                    if lo + j < drop_blocks:
+                        continue
+                    audio.append(got["audio"][j])
+                    mvs.append(got["meta_vec"][j])
+                    if "rds_bits" in got:
+                        n = int(got["rds_count"][j])
+                        bits.append(got["rds_bits"][j, :n])
+                        biq.append(got["rds_iq"][j, :n])
+                    for k, v in got.items():
+                        if k.startswith("tap:"):
+                            tap_acc.setdefault(k[4:], []).append(
+                                v[j].reshape(-1))
+            metas = [meta_dict_from_vec(mv)[0] for mv in mvs]
+            return _result(audio, metas, bits, biq,
+                           tree_clone(rx.jit_step().state), tap_acc)
 
 
 # ---------------------------------------------------------------------------
@@ -477,11 +504,20 @@ def run_live(rx: Receiver, source,
     NativeRawSource -> its fmt).
 
     meta gains 'ingest_dropped' (overrun drops since the last block) and
-    'latency_ms' (block ready -> audio delivered); the total drops are in
-    StreamResult.dropped_total.  on_taps(taps) gets each block's taps as
-    device tensors, views that the next block overwrites.  The hooks run
-    after the callbacks in run_offline's order; on_state sees the step's
-    state buffer view.
+    'latency_ms': from the block's last frame's arrival in the source's
+    ring (the source's `last_arrival_ns`, CLOCK_MONOTONIC) to the return
+    of its `on_audio`, or from `read_block`'s return where the source
+    reports no arrival (StreamResult.arrival_timed counts the blocks timed
+    from the arrival).  Both leave out the one-block accumulation.  The
+    total drops are in StreamResult.dropped_total.  on_taps(taps) gets
+    each block's taps as device tensors, views that the next block
+    overwrites.  The hooks run after the callbacks in run_offline's order;
+    on_state sees the step's state buffer view.
+
+    Each block is a span `live.block` (`runtime.spans`; id the block) of
+    `live.step` (the step's call, its output copies queued), the next
+    block's `source.read` and `live.upload`, `live.fetch_wait`,
+    `live.deliver` (on_audio) and `live.hooks` (the meta and the hooks).
     """
     cfg = rx.cfg
     controls = controls if controls is not None else rx.initial_controls()
@@ -491,60 +527,74 @@ def run_live(rx: Receiver, source,
     up, fetch = _Uploader(cfg, rx.device), _Fetch(rx.device)
     audio_acc, metas, bits_acc, biq_acc = [], [], [], []
     dropped_last = source.dropped
-    b = 0
+    b = timed = 0
     blk = source.read_block(T, timeout_ms)
-    # read_block returns when the block's last sample is available, so
-    # (audio delivered - block ready) is the processing and delivery
-    # latency on top of the one-block accumulation
-    t_ready = time.perf_counter()
+    t_ready = _ready_ns(source)
     tok = up.put(blk) if len(blk) == T else None
     while tok is not None and (max_blocks is None or b < max_blocks):
-        state, out = step(state, controls, up.take(tok))
-        up.release(tok)
-        fetch.start(_block_outputs(out, True, keep_outputs))
-        # the next block from the ring, uploaded while this one computes
-        blk = source.read_block(T, timeout_ms)
-        t_next_ready = time.perf_counter()
-        tok = up.put(blk) if len(blk) == T else None
-        host = fetch.wait()
-        frames = host["audio"]
-        drops_total = source.dropped
-        meta, n = meta_dict_from_vec(host["meta_vec"])
-        meta["ingest_dropped"] = int(drops_total - dropped_last)
-        dropped_last = drops_total
-        blk_bits = host["bits"][:n] if "bits" in host else None
-        if on_audio is not None:
-            on_audio(frames)
-        meta["latency_ms"] = (time.perf_counter() - t_ready) * 1e3
-        t_ready = t_next_ready
-        if on_taps is not None and out.taps:
-            on_taps(dict(out.taps))
-        if on_meta is not None:
-            on_meta(meta)
-        if blk_bits is not None:
-            if on_rds_bits is not None:
-                on_rds_bits(blk_bits)
-            if rds_feedback is not None and rds_feedback(blk_bits):
-                state = rx.request_rds_resync(state)
-        if controls_update is not None:
-            controls = controls_update(controls, meta) or controls
-        stop = False
-        if command_hook is not None:
-            state, controls, stop = command_hook(state, controls, meta)
-        if on_state is not None:
-            on_state(b + 1, state)
-        metas.append(meta)
-        if keep_outputs:
-            audio_acc.append(frames)
-            if blk_bits is not None:
-                bits_acc.append(blk_bits)
-                biq_acc.append(host["biq"][:n])
+        with spans.span("live.block", id=b):
+            with spans.span("live.step"):
+                state, out = step(state, controls, up.take(tok))
+                up.release(tok)
+                fetch.start(_block_outputs(out, True, keep_outputs))
+            # the next block from the ring, uploaded while this one computes
+            blk = source.read_block(T, timeout_ms)
+            t_next_ready = _ready_ns(source)
+            with spans.span("live.upload"):
+                tok = up.put(blk) if len(blk) == T else None
+            with spans.span("live.fetch_wait"):
+                host = fetch.wait()
+            frames = host["audio"]
+            with spans.span("live.deliver") as delivered:
+                if on_audio is not None:
+                    on_audio(frames)
+            with spans.span("live.hooks"):
+                drops_total = source.dropped
+                meta, n = meta_dict_from_vec(host["meta_vec"])
+                meta["ingest_dropped"] = int(drops_total - dropped_last)
+                dropped_last = drops_total
+                meta["latency_ms"] = (delivered.t1 - t_ready[0]) * 1e-6
+                timed += t_ready[1]
+                t_ready = t_next_ready
+                blk_bits = host["bits"][:n] if "bits" in host else None
+                if on_taps is not None and out.taps:
+                    on_taps(dict(out.taps))
+                if on_meta is not None:
+                    on_meta(meta)
+                if blk_bits is not None:
+                    if on_rds_bits is not None:
+                        on_rds_bits(blk_bits)
+                    if rds_feedback is not None and rds_feedback(blk_bits):
+                        state = rx.request_rds_resync(state)
+                if controls_update is not None:
+                    controls = controls_update(controls, meta) or controls
+                stop = False
+                if command_hook is not None:
+                    state, controls, stop = command_hook(state, controls,
+                                                         meta)
+                if on_state is not None:
+                    on_state(b + 1, state)
+                metas.append(meta)
+                if keep_outputs:
+                    audio_acc.append(frames)
+                    if blk_bits is not None:
+                        bits_acc.append(blk_bits)
+                        biq_acc.append(host["biq"][:n])
         b += 1
         if stop:
             break
     res = _result(audio_acc, metas, bits_acc, biq_acc, tree_clone(state))
     res.dropped_total = int(source.dropped)
+    res.arrival_timed = timed
     return res
+
+
+def _ready_ns(source):
+    """(ns, from the arrival): when the block just read became ready, on
+    CLOCK_MONOTONIC: the ring's arrival stamp (the source's
+    `last_arrival_ns`) where it has one, else now, the read's return."""
+    t = getattr(source, "last_arrival_ns", -1)
+    return (t, True) if t >= 0 else (time.monotonic_ns(), False)
 
 
 # ---------------------------------------------------------------------------

@@ -182,6 +182,12 @@ def test_profile_writes_a_trace(wav, tmp_path, capsys):
     names = {e.get("name") for e in events}
     assert len(events) > 100 and any("conv1d" in str(n) for n in names)
     assert "wrote profiler trace to" in res["port"][2]
+    # beside it, the program's own record of its spans and counters
+    rec, = (tmp_path / "prof_port").glob("spans_*.json")
+    doc = json.loads(rec.read_text())
+    assert doc["clock"] == "CLOCK_MONOTONIC"
+    assert "setup.receiver" in {s["name"] for s in doc["spans"]}
+    assert set(doc["counters"]) >= {"kernel.builds", "graph.captures"}
     shutil.rmtree(tmp_path / "prof_jax", ignore_errors=True)
 
 

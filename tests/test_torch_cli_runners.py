@@ -96,6 +96,32 @@ def test_follow_no_pace(capture):
     np.testing.assert_array_equal(x, x_loop)
 
 
+@pytest.mark.parametrize("flags, names", [
+    (["--runner", "scan"], {"scan.pass", "scan.stage", "scan.replays",
+                            "scan.fetch_wait", "scan.fetch_copy",
+                            "scan.assemble", "scan.load"}),
+    (["--follow", "--no-pace"], {"live.block", "live.step", "source.read",
+                                 "live.upload", "live.fetch_wait",
+                                 "live.deliver", "live.hooks"})],
+    ids=["scan", "follow"])
+def test_profile_holds_the_runners_spans(capture, flags, names):
+    """`--profile DIR`: the runner's spans as ranges of the Chrome trace
+    and in the program's record beside it."""
+    d, wav, (x_loop, _) = capture
+    prof = d / f"prof_{flags[-1]}"
+    x, rep = _rx(d, f"prof{flags[-1]}", wav, *flags, "--profile", str(prof))
+    _decoded(rep)
+    np.testing.assert_array_equal(x, x_loop)
+    trace, = prof.glob("trace_*.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert names <= {e["name"] for e in events
+                     if e.get("cat") == "user_annotation"}
+    rec, = prof.glob("spans_*.json")
+    # (the process's earlier runs are in the record too)
+    assert names <= {s["name"] for s in json.loads(rec.read_text())["spans"]
+                     if s["profiled"]}
+
+
 def test_follow_loop_seconds(capture):
     d, wav, _ = capture
     _, rep = _rx(d, "loop3", wav, "--follow", "--no-pace",
