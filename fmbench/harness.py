@@ -9,11 +9,20 @@ has `run(ctx) -> Run`: it makes its input from the seed, sets the program
 up, measures the window and, with tracing, profiles a steady stretch and
 the attribution pass.  A per-layer metric (`metrics/<name>.py`) has
 `read(view) -> float | None`.
+
+A configuration file may name its own plain reference, `"reference":
+"<module>"`: the file `reference/<module>.py`, which exposes a
+`PlainReceiver(receiver, device, tune_hz)` as `reference/receiver.py`
+does; without the key the harness takes `reference/receiver.py`.  A kind
+may also have `control_input(ctx, nblocks) -> (wire, [(station, tune_hz),
+...])`, the input and the receivers `calibrate.py` puts the control on;
+without it, the control takes the traffic's one station at 0 Hz.
 """
 
 from __future__ import annotations
 
 import gc
+import importlib
 import importlib.util
 import json
 import math
@@ -99,6 +108,14 @@ class Bench:
         return load_module(self.base / "metrics" / f"{metric}.py",
                            "fmbench_metric_" + metric.replace(".", "_"))
 
+    @staticmethod
+    def reference(config: dict):
+        """The plain reference module a configuration names (its
+        `"reference"` key: `reference/<module>.py`), `reference/receiver.py`
+        without one."""
+        name = config.get("reference", "receiver")
+        return importlib.import_module(f"fmbench.reference.{name}")
+
 
 # ---------------------------------------------------------------------------
 # what a traffic kind hands back
@@ -113,6 +130,7 @@ class Context:
     trace: bool
     device: object            # torch.device
     t_start: float            # time.monotonic() at process start
+    config: dict              # the configuration file
 
 
 @dataclass
@@ -120,8 +138,9 @@ class ProgramRun:
     """The timed path's output for blocks 0..nblocks-1 of its input, from
     the receiver's initial state: the audio and the RDS bits laid end to
     end, and what the program's own RDS decoder made of the bits; with
-    the receiver it ran, the station it was tuned to and its input, so
-    that the harness runs one reference for each receiver and input."""
+    the receiver it ran, the station it was tuned to, its input and the
+    receiver's offset from the input's centre (whole Hz), so that the
+    harness runs one reference for each receiver, tuning and input."""
     nblocks: int
     audio: np.ndarray
     bits: np.ndarray
@@ -130,6 +149,7 @@ class ProgramRun:
     receiver: dict            # ReceiverConfig keyword arguments
     station: object           # synth.StationParams: the truth it decodes
     wire_block: Callable[[int], np.ndarray]   # input block i (host)
+    tune_hz: int = 0
 
 
 @dataclass
@@ -169,11 +189,14 @@ def rds_report(dec) -> dict:
 # ---------------------------------------------------------------------------
 
 def reference_outputs(receiver: dict, wire_block, nblocks: int, device,
-                      mode: str = "f32") -> List[dict]:
-    """The plain reference over input blocks 0..nblocks-1."""
+                      mode: str = "f32", tune_hz: int = 0,
+                      module=None) -> List[dict]:
+    """The plain reference (`module`'s, `reference/receiver.py`'s without
+    one) tuned to `tune_hz` over input blocks 0..nblocks-1."""
     import torch
-    from .reference import PlainReceiver, precision
-    ref = PlainReceiver(receiver, device)
+    from . import reference
+    from .reference import precision
+    ref = (module or reference).PlainReceiver(receiver, device, tune_hz)
     s = ref.init_state()
     outs = []
     with torch.no_grad(), precision(mode):
@@ -185,7 +208,7 @@ def reference_outputs(receiver: dict, wire_block, nblocks: int, device,
 
 
 def reference_run(outs: List[dict], receiver: dict, station,
-                  wire_block) -> ProgramRun:
+                  wire_block, tune_hz: int = 0) -> ProgramRun:
     """The reference's outputs in a program run's form, its bits decoded
     by the reference's decoder (the control puts them in the program's
     place)."""
@@ -196,21 +219,23 @@ def reference_run(outs: List[dict], receiver: dict, station,
     return ProgramRun(len(outs), np.concatenate([o["audio"] for o in outs]),
                       bits, {"pi": d["pi"], "ps": d["ps"], "rt": d["rt"],
                              "crc_errors": d["crc_errors"]},
-                      receiver, station, wire_block)
+                      receiver, station, wire_block, tune_hz)
 
 
-def judge(runs: List[ProgramRun], device) -> Dict[str, float]:
-    """The numbers `correct` compares, with one run of the reference for
-    each distinct receiver and input, over the most blocks a run of it
-    covers."""
+def judge(runs: List[ProgramRun], device, module=None) -> Dict[str, float]:
+    """The numbers `correct` compares, with one run of the reference
+    (`module`'s) for each distinct receiver, tuning and input, over the
+    most blocks a run of it covers."""
     groups: Dict[tuple, List[ProgramRun]] = {}
     for r in runs:
-        key = (json.dumps(r.receiver, sort_keys=True), id(r.wire_block))
+        key = (json.dumps(r.receiver, sort_keys=True), r.tune_hz,
+               id(r.wire_block))
         groups.setdefault(key, []).append(r)
     judged = []
     for rs in groups.values():
         ref = reference_outputs(rs[0].receiver, rs[0].wire_block,
-                                max(r.nblocks for r in rs), device)
+                                max(r.nblocks for r in rs), device,
+                                tune_hz=rs[0].tune_hz, module=module)
         judged += [(r, ref) for r in rs]
     return numbers(judged)
 
@@ -233,7 +258,7 @@ def run_cell(bench: Bench, workload: str, seed: int, seconds: float,
     receiver = {**config["receiver"], **(receiver_overrides or {})}
     dev = torch.device(device)
     ctx = Context(receiver, traffic, int(seed), float(seconds), bool(trace),
-                  dev, t_start)
+                  dev, t_start, config)
     run = bench.kind(traffic["kind"]).run(ctx)
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else 0)
@@ -242,7 +267,7 @@ def run_cell(bench: Bench, workload: str, seed: int, seconds: float,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     t0 = time.monotonic()
-    got = judge(run.runs, dev)
+    got = judge(run.runs, dev, bench.reference(config))
     crc = [r.rds["crc_errors"] for r in run.runs if r.rds is not None]
     reference_s = time.monotonic() - t0
     limits = config["checks"]

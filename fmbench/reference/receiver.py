@@ -12,7 +12,10 @@ separation (PSS) adaptation; the stereo matrix; the 57 kHz RDS band, mixed
 down with the delayed pilot phase and taken to 24 kS/s; BPSK bit recovery
 with its matched filter, squared-BPSK carrier phase and energy bit timing;
 the 15 kHz audio lowpass with the deemphasis folded in; ÷4 to 48 kHz and
-the start-up ramp.  The FIR filters run as block Toeplitz matrix products
+the start-up ramp.  A receiver tuned `tune_hz` off the capture's centre
+mixes the DC-corrected wire by e^{-j 2 pi f n / 2,304,000}, n the sample's
+index from the start of the input, its phase formed exactly in integers.
+The FIR filters run as block Toeplitz matrix products
 and the one-pole trackers as chunked ones, so that the card's lower-precision (TF32)
 routes reach every stage when `precision="tf32"` asks for them.  (cuDNN
 runs these one-dimensional convolutions as direct kernels that never take
@@ -169,9 +172,10 @@ class PlainReceiver:
     int8) [T, 2] frames on `device`; out holds `audio` [T/48, 2] float32,
     `bits` int8 and `iq` complex64 (the RDS bits and their symbols, count
     long; with `rds="block"` only) and `locked` (the pilot lock at the
-    block's end)."""
+    block's end).  `tune_hz`: the station's offset from the capture's
+    centre, a whole number of Hz."""
 
-    def __init__(self, receiver: dict, device="cpu"):
+    def __init__(self, receiver: dict, device="cpu", tune_hz: int = 0):
         cfg = dict(receiver)
         for k, v in cfg.items():
             if k in _FIXED and v != _FIXED[k]:
@@ -190,6 +194,9 @@ class PlainReceiver:
             raise NotImplementedError("reference: audio_filter_hz > 0 only")
         self.device = torch.device(device)
         self.T = self.block_fm * 12
+        if int(tune_hz) != tune_hz:
+            raise NotImplementedError("reference: tune_hz a whole number")
+        self.tune = int(tune_hz) % D.INPUT_RATE
         f32 = lambda a: torch.as_tensor(  # noqa: E731
             np.asarray(a, np.float32), device=self.device)
         c64 = lambda a: torch.as_tensor(  # noqa: E731
@@ -242,7 +249,7 @@ class PlainReceiver:
         z = lambda dt=torch.float32: torch.zeros(  # noqa: E731
             (), dtype=dt, device=dev)
         z01 = torch.tensor(0.01 + 0.01j, dtype=torch.complex64, device=dev)
-        return dict(rf_dc=z(torch.complex64), fe=c(306),
+        return dict(n_mod=0, rf_dc=z(torch.complex64), fe=c(306),
                     prev=z01, afc=z(),
                     demod_tail=c(D.FM_FFT - D.FM_HOP), lock_metric=z(),
                     lock_run=z(torch.int64),
@@ -266,10 +273,17 @@ class PlainReceiver:
                              s["rf_dc"].imag.clamp(-lim, lim))
         sub = x[::64].mean()
         x = x - corr
-        # the LO sits at 0 Hz: the exact mix is the identity
+        q = D.INPUT_RATE
+        if self.tune:
+            # the phase of sample n is 2 pi ((f mod q)(n mod q) mod q) / q
+            n = (s["n_mod"] + torch.arange(self.T, dtype=torch.int64,
+                                           device=x.device)) % q
+            th = (self.tune * n % q).to(torch.float64) * (2.0 * math.pi / q)
+            x = x * torch.polar(torch.ones_like(th), -th).to(torch.complex64)
+        # (at 0 Hz the exact mix is the identity)
         v, fe = self.fe(x, s["fe"])
         rf_dc = self.g_dc * s["rf_dc"] + (1.0 - self.g_dc) * sub
-        return v, dict(rf_dc=rf_dc, fe=fe)
+        return v, dict(rf_dc=rf_dc, fe=fe, n_mod=(s["n_mod"] + self.T) % q)
 
     def _pss(self, s, demod, base, locked):
         S = self.pss_sub

@@ -12,6 +12,10 @@ the same form; and the tones, the pilot and the subcarriers are evaluated
 at the wire rate directly, with only the RDS baseband made at 192 kS/s and
 interpolated.  The seed draws the phases, the start of the RDS group
 rotation and the receiver noise; every seed gives the same amount of air.
+
+`StationsSynth` puts several stations into one capture, each at its own
+carrier offset: their float64 IQ is summed, one receiver noise is added
+and the sum is quantised once.  `StationSynth` is its one-station case.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ class StationParams:
     pty: int = 10
     ps: str = "TPU FM"
     rt: str = "VERIFY RUN"
+    carrier_hz: float = 0.0        # offset from the capture's centre
 
     @classmethod
     def from_dict(cls, d: dict) -> "StationParams":
@@ -87,25 +92,38 @@ def _rrc(alpha: float = 1.0) -> np.ndarray:
     return taps / np.abs(np.convolve(train, taps)).max()
 
 
-class StationSynth:
-    """The wire stream of one station, made in order: `next(n)` returns the
-    next n frames as an int16 [n, 2] tensor on `device`.
+SCAN_ROW = 4096                   # samples a row of the card's phase scan
 
-    `total_frames` bounds the stream (the RDS bits are drawn for it up
-    front).  The same seed, device and call sizes give the same bytes."""
 
-    def __init__(self, params: StationParams, seed: int, total_frames: int,
-                 device="cpu"):
-        self.p = params
-        self.device = torch.device(device)
-        self.total = int(total_frames)
-        rng = np.random.default_rng(seed)
+def _cumsum(x: torch.Tensor) -> torch.Tensor:
+    """The running sum of a float64 stream, the same on every call.  On
+    the card torch's one-dimensional scan sums in an order that varies
+    from call to call (and its deterministic route takes seconds), and a
+    last-bit difference in the FM phase can turn a rounded int16 sample;
+    so the card scans rows of SCAN_ROW samples, each in a fixed order, and
+    adds the rows' offsets summed on the host."""
+    if x.device.type != "cuda":
+        return torch.cumsum(x, dim=0)
+    n = x.shape[0]
+    rows = torch.nn.functional.pad(x, (0, -n % SCAN_ROW)).view(
+        -1, SCAN_ROW).cumsum(dim=1)
+    ends = rows[:-1, -1].cpu()
+    off = torch.cat([ends.new_zeros(1), torch.cumsum(ends, dim=0)])
+    return (rows + off.to(x.device)[:, None]).view(-1)[:n]
+
+
+class _Station:
+    """One station's float64 IQ at its carrier, made in order; its phases
+    and the start of its group rotation drawn from `rng`."""
+
+    def __init__(self, p: StationParams, rng, total_frames: int, device):
+        self.p, self.device = p, device
         self.pilot_phase = float(rng.uniform(0, 2 * math.pi))
         self.left_phase = float(rng.uniform(0, 2 * math.pi))
         self.right_phase = float(rng.uniform(0, 2 * math.pi))
-        data = group_rotation(params.pi, params.pty, params.ps, params.rt)
+        data = group_rotation(p.pi, p.pty, p.ps, p.rt)
         start = int(rng.integers(0, len(data)))
-        nsym = self.total // (WIRE_RATE // RDS_SYMBOL_RATE) + 64
+        nsym = total_frames // (WIRE_RATE // RDS_SYMBOL_RATE) + 64
         nbits = nsym // 2 + 2
         bits = np.resize(np.roll(data, -start), nbits)
         # differential encoding s[k] = b[k] xor s[k-1]; biphase halves +a, -a
@@ -113,11 +131,8 @@ class StationSynth:
         a = 2.0 * s - 1.0
         halves = np.empty(2 * nbits)
         halves[0::2], halves[1::2] = a, -a
-        self.halves = torch.as_tensor(halves, device=self.device)
-        self.rrc = torch.as_tensor(_rrc(), device=self.device)
-        self.noise = torch.Generator(device=self.device)
-        self.noise.manual_seed(int(seed) & 0xFFFF_FFFF_FFFF_FFFF)
-        self.n = 0                  # next wire frame
+        self.halves = torch.as_tensor(halves, device=device)
+        self.rrc = torch.as_tensor(_rrc(), device=device)
         self.fm_phase = 0.0
 
     def _rds_mpx(self, m0: int, m1: int) -> torch.Tensor:
@@ -136,9 +151,10 @@ class StationSynth:
         return torch.nn.functional.conv1d(
             train[None, None], self.rrc.flip(0)[None, None])[0, 0]
 
-    def _segment(self, N: int) -> torch.Tensor:
+    def iq(self, n0: int, N: int) -> torch.Tensor:
+        """Frames n0..n0+N-1 as float64 [N, 2] of full scale."""
         p, dev = self.p, self.device
-        n = torch.arange(self.n, self.n + N, dtype=torch.float64, device=dev)
+        n = torch.arange(n0, n0 + N, dtype=torch.float64, device=dev)
         w = 2.0 * math.pi / WIRE_RATE
         theta = (w * PILOT_HZ) * n + self.pilot_phase
         left = p.tone_amp * torch.sin((w * p.left_hz) * n + self.left_phase)
@@ -148,22 +164,55 @@ class StationSynth:
                                + torch.sin(2.0 * theta) * 0.5 * (left - right))
         mpx += p.pilot_level * torch.sin(theta)
         # RDS: the 192 kS/s baseband interpolated linearly to the wire rate
-        m0 = self.n // UP
-        bb = self._rds_mpx(m0, (self.n + N - 1) // UP + 1)
+        m0 = n0 // UP
+        bb = self._rds_mpx(m0, (n0 + N - 1) // UP + 1)
         k = (n - m0 * UP)
         i0 = torch.div(k, UP, rounding_mode="floor").to(torch.int64)
         frac = (k - i0 * UP) / UP
         rds = bb[i0] * (1.0 - frac) + bb[i0 + 1] * frac
         mpx += p.rds_level * rds * torch.cos(3.0 * theta)
-        phase = self.fm_phase + torch.cumsum(
-            (w * p.deviation_hz) * mpx, dim=0)
+        phase = self.fm_phase + _cumsum((w * p.deviation_hz) * mpx)
         self.fm_phase = float(phase[-1]) % (2.0 * math.pi)
-        iq = torch.stack([torch.cos(phase), torch.sin(phase)], dim=-1) \
+        if p.carrier_hz:
+            # the carrier's phase from (f n) mod rate, exact in float64 for
+            # a whole f and any n a run reaches
+            phase = phase + w * torch.remainder(n * p.carrier_hz, WIRE_RATE)
+        return torch.stack([torch.cos(phase), torch.sin(phase)], dim=-1) \
             * p.amplitude
-        if p.noise_std > 0:
-            iq += torch.randn(iq.shape, dtype=torch.float64, device=dev,
-                              generator=self.noise) \
-                * (p.noise_std / math.sqrt(2.0))
+
+
+class StationsSynth:
+    """The wire stream of several stations in one capture, made in order:
+    `next(n)` returns the next n frames as an int16 [n, 2] tensor on
+    `device`.  Each station sits at its `carrier_hz`; their IQ is summed,
+    complex Gaussian noise of `noise_std` of full scale is added once (the
+    stations' own `noise_std` is not used) and the sum is quantised.
+
+    `total_frames` bounds the stream (the RDS bits are drawn for it up
+    front).  The seed draws each station's phases and group start in turn,
+    then the noise.  The same seed, device and call sizes give the same
+    bytes."""
+
+    def __init__(self, stations, seed: int, total_frames: int,
+                 device="cpu", noise_std: float = 0.01):
+        self.device = torch.device(device)
+        self.total = int(total_frames)
+        self.noise_std = float(noise_std)
+        rng = np.random.default_rng(seed)
+        self.stations = [_Station(p, rng, self.total, self.device)
+                         for p in stations]
+        self.noise = torch.Generator(device=self.device)
+        self.noise.manual_seed(int(seed) & 0xFFFF_FFFF_FFFF_FFFF)
+        self.n = 0                  # next wire frame
+
+    def _segment(self, N: int) -> torch.Tensor:
+        iq = self.stations[0].iq(self.n, N)
+        for st in self.stations[1:]:
+            iq += st.iq(self.n, N)
+        if self.noise_std > 0:
+            iq += torch.randn(iq.shape, dtype=torch.float64,
+                              device=self.device, generator=self.noise) \
+                * (self.noise_std / math.sqrt(2.0))
         self.n += N
         return torch.round(iq * 32768.0).clamp_(-32768, 32767).to(
             torch.int16)
@@ -179,3 +228,13 @@ class StationSynth:
             parts.append(self._segment(N))
             left -= N
         return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+class StationSynth(StationsSynth):
+    """The wire stream of one station (at its `carrier_hz`, 0 Hz by
+    default) with its own `noise_std`."""
+
+    def __init__(self, params: StationParams, seed: int, total_frames: int,
+                 device="cpu"):
+        super().__init__([params], seed, total_frames, device,
+                         params.noise_std)

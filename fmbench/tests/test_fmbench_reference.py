@@ -71,25 +71,59 @@ def test_reference_agrees_with_the_program(capture, ref_out):
                      ref_out)])["audio_err"] == 0
 
 
+FORBIDDEN = {"jax", "jaxlib", "flax", "sdrjfm_tpu"}
+
+
 def _imports(path: Path):
+    """(top-level name, relative level) of each import in a file; a
+    relative import's name is its module's within the package ('' for
+    `from . import x`)."""
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for a in node.names:
-                yield a.name
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module
+                yield a.name.split(".")[0], 0
+        elif isinstance(node, ast.ImportFrom):
+            yield (node.module or "").split(".")[0], node.level
+
+
+def _bad_imports(path: Path, reference: bool):
+    """What a file under fmbench must not import: JAX or the JAX package;
+    and in a reference module, besides, the program, the rest of the
+    benchmark, or anything above `reference/` by a relative import."""
+    bad = set()
+    for top, level in _imports(path):
+        if level == 0 and top in FORBIDDEN:
+            bad.add(top)
+        if reference and (level > 1 or level == 0 and top in (
+                "sdrjfm_tpu_torch", "fmbench")):
+            bad.add("." * level + top)
+    return bad
 
 
 def test_import_guard():
-    """Nothing under fmbench imports JAX or the JAX package, and the
-    reference imports nothing of the program (top-level names compared
-    whole: sdrjfm_tpu_torch begins with sdrjfm_tpu)."""
+    """Nothing under fmbench imports JAX or the JAX package, and no file
+    under reference/, whatever a configuration names, imports anything of
+    the program or of the benchmark outside reference/ (top-level names
+    compared whole: sdrjfm_tpu_torch begins with sdrjfm_tpu)."""
+    refs = sorted((HERE / "reference").rglob("*.py"))
+    assert {p.name for p in refs} >= {"receiver.py", "rds.py", "design.py"}
     for path in HERE.rglob("*.py"):
-        tops = {m.split(".")[0] for m in _imports(path)}
-        assert not tops & {"jax", "jaxlib", "flax", "sdrjfm_tpu"}, path
-        if "reference" in path.relative_to(HERE).parts:
-            assert not tops & {"sdrjfm_tpu_torch", "fmbench"}, path
+        ref = path in refs
+        assert not _bad_imports(path, ref), (path, _bad_imports(path, ref))
+
+
+@pytest.mark.parametrize("line,bad", [
+    ("import sdrjfm_tpu_torch.ops.blockops", "sdrjfm_tpu_torch"),
+    ("from jax import numpy", "jax"),
+    ("import sdrjfm_tpu", "sdrjfm_tpu"),
+    ("from fmbench.synth import StationSynth", "fmbench"),
+    ("from ..harness import judge", "..harness"),
+    ("from . import design", None)])
+def test_import_guard_holds_a_new_reference_module(tmp_path, line, bad):
+    path = tmp_path / "tuned.py"
+    path.write_text(line + "\n")
+    assert _bad_imports(path, True) == ({bad} if bad else set())
 
 
 def test_forbidden_modules_compares_whole_names(monkeypatch):

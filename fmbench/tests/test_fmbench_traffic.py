@@ -114,3 +114,20 @@ def test_generator_schedule():
     # the writer keeps its schedule: the last chunk is not later than the
     # schedule plus the generator's own reported worst lateness and slack
     assert when[-1] - due[-1] < stats["late_ms_max"] / 1e3 + 0.05
+
+
+@pytest.mark.card
+def test_card_stream_reproducible():
+    """On the card one seed gives one stream, call after call: the FM
+    phase's scan sums in a fixed order (SHA-256 of this stream taken on an
+    NVIDIA H100 80GB HBM3)."""
+    import hashlib
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    params = StationParams.from_dict(Bench().traffic("live_1x")["station"])
+    n = 6 * 131072 * 12
+    xs = [StationSynth(params, 2 ** 31 + 2101, n, "cuda").next(n).cpu()
+          for _ in range(4)]
+    assert all(torch.equal(xs[0], x) for x in xs[1:])
+    assert hashlib.sha256(xs[0].numpy().tobytes()).hexdigest() == (
+        "542ce49ea2ddefa336651f782677fced3135c5ce4ddcde35b8c9ec7e8a242c5a")
