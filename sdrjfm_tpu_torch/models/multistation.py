@@ -22,18 +22,32 @@ The station axis across devices (`ShardedMultiStationReceiver`,
 split evenly) against its own copy of the wideband block, with its own
 captured graph, and every device's step is queued before any result is
 fetched.  A mesh may name one device more than once.
+
+Spans (`runtime.spans`): a `demodulate_stations` call is one
+`stations.pass` (id the call, count the blocks) holding `stations.load`
+(the fresh per-station state and controls), the scan path's `scan.stage`
+(the capture staged) and `scan.fetch_wait` / `scan.fetch_copy` (each
+device's outputs down), `stations.replays` (count the steps queued, every
+device's) and `stations.assemble` (the per-station split); counters
+`stations.rows` (station rows stepped, stations x blocks) and
+`stations.dummy_rows` (a mesh's padding rows x blocks).
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .receiver import Controls, Receiver, meta_dict_from_vec
+from ..runtime import spans
 from ..runtime.graph import StepGraph, tree_broadcast
 from ..runtime.stream import _wire_blocks
+
+_passes = itertools.count()       # the id of each demodulate_stations call
+
 
 class MultiStationReceiver:
     """`Receiver.step` over a leading station axis, one shared block."""
@@ -200,25 +214,33 @@ class ShardedMultiStationReceiver(MultiStationReceiver):
 
 class _Drive:
     """One device's share of `demodulate_stations`: its stations' graph
-    over the capture, stepped a block at a time (`step`) so that several
-    devices' drives can be interleaved, read at the end (`result`)."""
+    over the capture, its state loaded (`load`), stepped a block at a time
+    (`step`) so that several devices' drives can be interleaved, read at
+    the end (`result`)."""
 
     def __init__(self, msr: MultiStationReceiver, wire: np.ndarray,
                  offsets: Sequence[int], levels, scan: bool):
-        n = len(offsets)
+        self.msr, self.offsets, self.levels = msr, list(offsets), levels
         self.nblocks = wire.shape[0]
-        self.sg = msr.jit_step().for_stations(n)
-        self.states, self.controls = (msr.init_states(n),
-                                      msr.controls_for(offsets, levels))
+        self.sg = msr.jit_step().for_stations(len(self.offsets))
         self.sc = None
         if scan:
+            self.wire = wire
             self.sc = self.sg.scan(self.nblocks)
             self.sc.prepare()
-            self.sg.load(self.states, self.controls)
-            self.sc.load_blocks(wire)
         else:
             self.wire = torch.from_numpy(wire)
             self.acc, self.b = [], 0
+
+    def load(self) -> None:
+        """Every station's fresh state and its controls (on the scan path
+        into the graph's buffers)."""
+        n = len(self.offsets)
+        self.states, self.controls = (
+            self.msr.init_states(n),
+            self.msr.controls_for(self.offsets, self.levels))
+        if self.sc is not None:
+            self.sg.load(self.states, self.controls)
 
     def step(self) -> None:
         if self.sc is not None:
@@ -273,39 +295,50 @@ def demodulate_stations(rx: Receiver, iq: np.ndarray,
         raise ValueError(f"demodulate_stations: need at least one station "
                          f"and {cfg.wire_len} samples, got {n_real} "
                          f"stations and {len(iq)} samples")
-    wire = _wire_blocks(iq, cfg, nblocks)
-    if mesh is None:
-        parts, offs = [rx.stations()], list(offsets_hz)
-    else:
-        smsr = rx.stations_on(mesh)
-        offs = smsr.pad_offsets(offsets_hz)
-        parts = smsr.parts
-    levels = ([0.0] * len(offs) if squelch_levels is None
-              else list(squelch_levels) + [0.0] * (len(offs) - n_real))
-    if len(levels) != len(offs):
+    if squelch_levels is not None and len(squelch_levels) != n_real:
         raise ValueError(f"demodulate_stations: {len(squelch_levels)} "
                          f"squelch levels for {n_real} stations")
-    k = len(offs) // len(parts)
-    drives = [_Drive(p, wire, offs[i * k:(i + 1) * k],
-                     levels[i * k:(i + 1) * k], scan)
-              for i, p in enumerate(parts)]
-    for _ in range(nblocks):
-        for d in drives:
-            d.step()
-    gots = [d.result() for d in drives]
-    results = []
-    for s in range(n_real):      # padded dummy stations are dropped
-        got, j = gots[s // k], s % k
-        bits = None
-        if "rds_bits" in got:
-            bits = np.concatenate([got["rds_bits"][b, j,
-                                                   : int(got["rds_count"][b, j])]
-                                   for b in range(nblocks)])
-        audio = got["audio"]                   # [nb, k, Tb, 2]
-        results.append({
-            "offset_hz": int(offs[s]),
-            "audio": audio[:, j].reshape(-1, audio.shape[-1]),
-            "rds_bits": bits,
-            "meta": meta_dict_from_vec(got["meta_vec"][-1, j])[0],
-        })
+    with spans.span("stations.pass", id=next(_passes), count=nblocks):
+        wire = _wire_blocks(iq, cfg, nblocks)
+        if mesh is None:
+            parts, offs = [rx.stations()], list(offsets_hz)
+        else:
+            smsr = rx.stations_on(mesh)
+            offs = smsr.pad_offsets(offsets_hz)
+            parts = smsr.parts
+        levels = ([0.0] * len(offs) if squelch_levels is None
+                  else list(squelch_levels) + [0.0] * (len(offs) - n_real))
+        k = len(offs) // len(parts)
+        drives = [_Drive(p, wire, offs[i * k:(i + 1) * k],
+                         levels[i * k:(i + 1) * k], scan)
+                  for i, p in enumerate(parts)]
+        with spans.span("stations.load"):
+            for d in drives:
+                d.load()
+        if scan:
+            for d in drives:
+                d.sc.load_blocks(d.wire)
+        with spans.span("stations.replays", count=nblocks * len(drives)):
+            for _ in range(nblocks):
+                for d in drives:
+                    d.step()
+        spans.count("stations.rows", n_real * nblocks)
+        spans.count("stations.dummy_rows", (len(offs) - n_real) * nblocks)
+        gots = [d.result() for d in drives]
+        with spans.span("stations.assemble"):
+            results = []
+            for s in range(n_real):      # padded dummy stations are dropped
+                got, j = gots[s // k], s % k
+                bits = None
+                if "rds_bits" in got:
+                    bits = np.concatenate(
+                        [got["rds_bits"][b, j, : int(got["rds_count"][b, j])]
+                         for b in range(nblocks)])
+                audio = got["audio"]                   # [nb, k, Tb, 2]
+                results.append({
+                    "offset_hz": int(offs[s]),
+                    "audio": audio[:, j].reshape(-1, audio.shape[-1]),
+                    "rds_bits": bits,
+                    "meta": meta_dict_from_vec(got["meta_vec"][-1, j])[0],
+                })
     return results
