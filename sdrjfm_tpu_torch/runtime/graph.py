@@ -49,11 +49,12 @@ stores: `sdr_stream_copy` in `runtime/native/ingest.cc`), queues the
 range's host-to-device copy and then its replays (`steps`), and goes on to
 the next range while the card uploads and steps this one.  Then one `replay()`
 a block is the only host call per block, and one fetch of each output
-ends the chunk.  Every range has rows of its own and the fetch waits for
-the stream, so no pinned row is written while a copy reads it; each
-range's upload is queued ahead of its replays on the one stream, so a
-replay always reads a block that has arrived.  Small blocks make one
-range of a whole chunk.  It shares the state and controls buffers with
+ends the chunk: on CUDA one DMA copy an output into pinned host memory
+that the caller then owns (`fetch`).  Every range has rows of its own and
+the fetch waits for the stream, so no pinned row is written while a copy
+reads it; each range's upload is queued ahead of its replays on the one
+stream, so a replay always reads a block that has arrived.  Small blocks
+make one range of a whole chunk.  It shares the state and controls buffers with
 its `StepGraph`, so the state threads through both.  Its warm-up steps set
 the slot back to 0 after each step, so that a chunk of fewer blocks than
 warm-up steps never indexes past its buffers.  A `StepGraph` keeps one
@@ -458,11 +459,40 @@ class ScanGraph:
     def fetch(self, k: int) -> Dict[str, np.ndarray]:
         """The first k blocks of every chunk output, one transfer each:
         the wait for the chunk's replays (span `scan.fetch_wait`), then the
-        copies down (span `scan.fetch_copy`, count the bytes)."""
+        copies down (span `scan.fetch_copy`, count the bytes).
+
+        The arrays belong to the caller: no later fetch, staging or replay
+        writes into them.  On CUDA each output comes down in one DMA copy
+        into page-locked memory taken from torch's caching host allocator,
+        and the array is a view of it: fetched arrays live in pinned memory
+        until the caller drops them, and the allocator hands a dropped
+        block to a later fetch, so that passes in a loop allocate nothing
+        new once warm.  Counters `scan.fetch_pinned` (fetches into pinned
+        memory) and `scan.fetch_host_allocs` (pinned blocks the allocator
+        had to make for them).  On the CPU each output is copied once."""
         with spans.span("scan.fetch_wait"):
             if self.sg.captures:
                 torch.cuda.current_stream(self.sg.device).synchronize()
         with spans.span("scan.fetch_copy",
                         count=sum(v[:k].nbytes for v in self.outs.values())):
-            return {name: v[:k].cpu().numpy().copy()
-                    for name, v in self.outs.items()}
+            if not self.sg.captures:
+                return {name: v[:k].cpu().numpy().copy()
+                        for name, v in self.outs.items()}
+            made = _host_allocs()
+            got = {}
+            for name, v in self.outs.items():
+                got[name] = torch.empty(v[:k].shape, dtype=v.dtype,
+                                        pin_memory=True)
+                got[name].copy_(v[:k], non_blocking=True)
+            copied = torch.cuda.Event()         # one wait for every copy
+            copied.record(torch.cuda.current_stream(self.sg.device))
+            copied.synchronize()
+            spans.count("scan.fetch_pinned")
+            spans.count("scan.fetch_host_allocs", _host_allocs() - made)
+            return {name: t.numpy() for name, t in got.items()}
+
+
+def _host_allocs() -> int:
+    """The pinned blocks torch's caching host allocator has made (each a
+    cudaHostAlloc; a block it hands out again does not count)."""
+    return int(torch.cuda.host_memory_stats()["num_host_alloc"])

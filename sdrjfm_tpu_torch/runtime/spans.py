@@ -26,11 +26,14 @@ Clock: `time.monotonic_ns()` reads CLOCK_MONOTONIC, the clock that
 Counters are plain integers by name (`counters`, `count`):
 `kernel.builds` (nvcc and g++ runs), `graph.captures` (CUDA graphs
 captured), `scan.stage_ranges` (the scan runners' staging ranges,
-`ScanGraph.load_blocks`) and `scan.stage_overlapped` (those of them, after
-a chunk's first, whose staging began while the card still had the
-previous range's replays queued; always 0 on the CPU).  `records()` reads
-the record out; `write_json(path)` writes it with the counters (`rx
---profile DIR` writes `spans_<pid>.json`).
+`ScanGraph.load_blocks`), `scan.stage_overlapped` (those of them, after a
+chunk's first, whose staging began while the card still had the previous
+range's replays queued; always 0 on the CPU), `scan.fetch_pinned`
+(`ScanGraph.fetch`es whose outputs came down into pinned memory) and
+`scan.fetch_host_allocs` (the pinned blocks those fetches had to allocate,
+from `torch.cuda.host_memory_stats()`; both always 0 on the CPU).
+`records()` reads the record out; `write_json(path)` writes it with the
+counters (`rx --profile DIR` writes `spans_<pid>.json`).
 """
 
 from __future__ import annotations
@@ -74,7 +77,9 @@ _seq = itertools.count()
 _open = threading.local()
 counters: Dict[str, int] = {"kernel.builds": 0, "graph.captures": 0,
                             "scan.stage_ranges": 0,
-                            "scan.stage_overlapped": 0}
+                            "scan.stage_overlapped": 0,
+                            "scan.fetch_pinned": 0,
+                            "scan.fetch_host_allocs": 0}
 
 
 def _stack() -> list:

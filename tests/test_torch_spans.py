@@ -178,6 +178,26 @@ def test_output_bit_identical_with_the_record_on_or_off(rx, capture,
         assert r.meta == on.meta
 
 
+def test_fetch_counts_its_bytes_and_the_pinned_counters_stay_0(rx, capture,
+                                                            tmp_path):
+    """`scan.fetch_copy` counts the bytes of every output fetched; the
+    pinned fetch's counters are in the counter set, and a pass on the CPU,
+    where a fetch copies into plain memory, adds 0 to them (only the
+    stand-ins of the capture path below count there)."""
+    pinned = ("scan.fetch_pinned", "scan.fetch_host_allocs")
+    before = [spans.counters[name] for name in pinned]
+    seq0 = _next_seq()
+    TS.run_offline_scanned(rx, capture, chunk_blocks=2)
+    outs = rx.jit_step()._scan.outs
+    copies = [r for r in _after(seq0) if r.name == "scan.fetch_copy"]
+    assert [r.count for r in copies] == [
+        sum(v[:k].nbytes for v in outs.values()) for k in (2, 1)]
+    assert [spans.counters[name] for name in pinned] == before
+    doc = json.loads(open(spans.write_json(str(tmp_path / "s.json"))).read())
+    assert {"scan.fetch_pinned", "scan.fetch_host_allocs"} \
+        <= set(doc["counters"])
+
+
 def test_the_ring_is_bounded(tmp_path):
     ring = spans._ring
     seq0 = _next_seq()
@@ -261,7 +281,8 @@ def test_run_live_spans_and_arrival_stamps(tmp_path, rx, capture):
 def _cuda_stand_in(monkeypatch):
     """torch.cuda's stream, graph and pinned-memory calls as CPU stand-ins,
     so that StepGraph's capture path runs on the CPU (a 'replay' does
-    nothing)."""
+    nothing; each pinned allocation counts in the host allocator's
+    `num_host_alloc`)."""
     class Stream:
         def __init__(self, *a, **k):
             pass
@@ -288,16 +309,23 @@ def _cuda_stand_in(monkeypatch):
         def query(self):
             return not Event.pending
 
+        def synchronize(self):
+            pass
+
     empty = torch.empty
+    pinned = [0]
 
     def empty_unpinned(*a, pin_memory=False, **k):
+        pinned[0] += bool(pin_memory)
         return empty(*a, **k)
     for name, v in (("Stream", Stream), ("CUDAGraph", Graph),
                     ("Event", Event),
                     ("stream", lambda s: contextlib.nullcontext()),
                     ("graph", lambda g: contextlib.nullcontext()),
                     ("current_stream", lambda *a: Stream()),
-                    ("synchronize", lambda *a: None)):
+                    ("synchronize", lambda *a: None),
+                    ("host_memory_stats",
+                     lambda: {"num_host_alloc": pinned[0]})):
         monkeypatch.setattr(torch.cuda, name, v)
     monkeypatch.setattr(torch, "empty", empty_unpinned)
     yield Event
@@ -309,6 +337,7 @@ def test_one_capture_for_repeated_passes(capture, monkeypatch):
     with _cuda_stand_in(monkeypatch):
         rx.jit_step().captures = True
         n0 = spans.counters["graph.captures"]
+        f0 = spans.counters["scan.fetch_pinned"]
         seq0 = _next_seq()
         TS.run_offline_scanned(rx, capture)
         n1 = spans.counters["graph.captures"]
@@ -316,6 +345,7 @@ def test_one_capture_for_repeated_passes(capture, monkeypatch):
             TS.run_offline_scanned(rx, capture)
         assert n1 == n0 + 1
         assert spans.counters["graph.captures"] == n1
+        assert spans.counters["scan.fetch_pinned"] == f0 + 3
         caps = [r for r in _after(seq0) if r.name == "setup.capture"]
         assert len(caps) == 1
         sc = rx.jit_step()._scan
@@ -345,6 +375,36 @@ def test_stage_overlapped_counts_the_ranges_that_find_the_card_busy(
                 sc.inp.numpy().reshape(-1),
                 capture[:NBLOCKS * rx.cfg.wire_len].reshape(-1))
             sc.inp.zero_()
+
+
+def test_pinned_fetch_counts_each_fetch_and_its_allocations(capture,
+                                                          monkeypatch):
+    """On the capture path every fetch counts in `scan.fetch_pinned`, and
+    each pinned block it takes (the stand-in allocator keeps none for
+    reuse: one an output) in `scan.fetch_host_allocs`; the arrays hold the
+    chunk outputs' rows and share no memory with them."""
+    rx = Receiver(ReceiverConfig(block_fm=BLOCK_FM, rds="block",
+                                 iq_format="u8"), device="cpu")
+    with _cuda_stand_in(monkeypatch):
+        sg = rx.jit_step()
+        sg.captures = True
+        sc = sg.scan(2)
+        sc.prepare()
+        sg.load(rx.init_state(), rx.initial_controls())
+        sc.load_blocks(capture[:2 * rx.cfg.wire_len].reshape(
+            (2,) + G.wire_shape(rx.cfg)))
+        sc.steps(2)
+        for k in (2, 1):
+            f0 = spans.counters["scan.fetch_pinned"]
+            a0 = spans.counters["scan.fetch_host_allocs"]
+            got = sc.fetch(k)
+            assert spans.counters["scan.fetch_pinned"] == f0 + 1
+            assert spans.counters["scan.fetch_host_allocs"] \
+                == a0 + len(sc.outs)
+            assert set(got) == set(sc.outs)
+            for name, v in sc.outs.items():
+                np.testing.assert_array_equal(got[name], v[:k].numpy())
+                assert not np.shares_memory(got[name], v.numpy())
 
 
 def test_receiver_construction_is_a_span():

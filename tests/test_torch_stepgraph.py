@@ -10,7 +10,9 @@ the same body, buffers and leaf copies as on the card, without capture.
 - the chunk form (ScanGraph): the device slot counter, index_select of the
   block and index_copy_ of the outputs, a trailing partial chunk; a chunk
   staged a range of rows at a time, the ranges split from the blocks'
-  bytes (`stage_ranges`).
+  bytes (`stage_ranges`);
+- a fetch's arrays belong to the caller: a later chunk's fetch writes
+  into none of them, so a run of several chunks equals the one-chunk run.
 """
 
 import numpy as np
@@ -20,6 +22,7 @@ import torch
 from sdrjfm_tpu_torch.io import synth
 from sdrjfm_tpu_torch.models.receiver import Receiver, ReceiverConfig
 from sdrjfm_tpu_torch.runtime import graph as G
+from sdrjfm_tpu_torch.runtime import stream as TS
 from sdrjfm_tpu_torch.runtime.graph import tree_clone, tree_leaves
 
 import torch_parity as P
@@ -290,3 +293,44 @@ def test_only_the_latest_chunk_graph_is_kept():
     assert three is not two and sg._scan is three
     assert sg.scan(2) is not two and sg._scan.K == 2
     assert sg.scan(2, taps=True) is not sg.scan(2)
+
+
+def test_fetched_arrays_belong_to_the_caller(wire):
+    """Two chunks fetched through one chunk graph: the first fetch's arrays
+    share no memory with the second's or with the chunk buffers, and still
+    hold what they held before the second fetch."""
+    rx = _rx()
+    sg = rx.jit_step()
+    sc = sg.scan(2)
+    sg.load(rx.init_state(), rx.initial_controls())
+    blocks = torch.stack(wire).numpy()
+    sc.load_blocks(blocks[:2])
+    sc.steps(2)
+    first = sc.fetch(2)
+    kept = {name: v.copy() for name, v in first.items()}
+    sc.load_blocks(blocks[2:4])
+    sc.steps(2)
+    second = sc.fetch(2)
+    assert set(second) == set(first)
+    assert not np.array_equal(first["audio"], second["audio"])
+    for name, v in first.items():
+        assert not np.shares_memory(v, second[name]), name
+        assert not np.shares_memory(v, sc.outs[name].numpy()), name
+        np.testing.assert_array_equal(v, kept[name], err_msg=name)
+
+
+def test_chunks_of_two_over_five_blocks_equal_one_chunk():
+    """`run_offline_scanned(chunk_blocks=2)` collects three fetches (the
+    last a partial chunk) before it assembles: bit for bit the one-chunk
+    run."""
+    rx = _rx(block_fm=4096)
+    iq = P.station_iq(5 * 4096 / 192_000.0 + 0.01, seed=5)
+    capture = synth.iq_to_i16(iq)[:5 * 4096 * 12]
+    one = TS.run_offline_scanned(rx, capture)
+    got = TS.run_offline_scanned(rx, capture, chunk_blocks=2)
+    assert got.audio.shape == one.audio.shape == (5 * 1024, 2)
+    np.testing.assert_array_equal(got.audio, one.audio)
+    np.testing.assert_array_equal(got.rds_bits, one.rds_bits)
+    np.testing.assert_array_equal(got.rds_iq, one.rds_iq)
+    assert got.meta == one.meta
+    assert _equal(got.final_state, one.final_state)
