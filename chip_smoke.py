@@ -3090,7 +3090,8 @@ def phase_scanned(rx, wav, card, what: str, eager_step_ms: float,
     step; its output against the eager rx.step loop's."""
     from sdrjfm_tpu_torch import constants as C
     from sdrjfm_tpu_torch.io.wavio import read_iq_wav_raw
-    from sdrjfm_tpu_torch.runtime.stream import (_wire_blocks, run_offline,
+    from sdrjfm_tpu_torch.runtime.graph import wire_blocks
+    from sdrjfm_tpu_torch.runtime.stream import (run_offline,
                                                  run_offline_scanned)
     iq, _ = read_iq_wav_raw(str(wav))
     T = rx.cfg.wire_len
@@ -3123,7 +3124,7 @@ def phase_scanned(rx, wav, card, what: str, eager_step_ms: float,
     # the card's), and fetching the outputs
     sg = rx.jit_step()
     sc = sg.scan(nblk)
-    wire = _wire_blocks(iq, rx.cfg, nblk)
+    wire = wire_blocks(iq, rx.cfg, nblk)
     parts = {}
 
     def timed(name, fn):
@@ -3244,7 +3245,7 @@ def _ms_times(rx, iq, offsets, card, passes: int = 7):
     step, busy share and largest device ops from a profiled call."""
     from sdrjfm_tpu_torch import constants as C
     from sdrjfm_tpu_torch.models.multistation import demodulate_stations
-    from sdrjfm_tpu_torch.runtime.stream import _wire_blocks
+    from sdrjfm_tpu_torch.runtime.graph import stage_ranges, wire_blocks
     n = len(offsets)
     T = rx.cfg.wire_len
     nblk = len(iq) // T
@@ -3261,7 +3262,9 @@ def _ms_times(rx, iq, offsets, card, passes: int = 7):
     sg = msr.jit_step().for_stations(n)
     sc = sg.scan(nblk)
     sg.load(msr.init_states(n), msr.controls_for(offsets))
-    sc.load_blocks(_wire_blocks(iq, rx.cfg, nblk))
+    wire = wire_blocks(iq, rx.cfg, nblk)
+    for a, s in stage_ranges(wire[0].nbytes, nblk):   # as the drive stages
+        sc.load_blocks(wire[a:a + s], a)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(nblk):
@@ -3365,6 +3368,15 @@ def phase_multistation(card):
     need(launches == _main_launches(steps),
          f"multistation: wrapper launches {launches}, want "
          f"{_main_launches(steps)} (a step's for all {n} stations)")
+    # one front-end launch a block under the graph (captured before the
+    # trace, so no warm-up step is in it; scan=False below captures a
+    # one-block chunk graph in its place)
+    _, dl = _device_launches(lambda: demodulate_stations(rx, iq, offsets))
+    emit({"phase": "multistation", "what": "device launches under the graph "
+          "(profiler)", "blocks": nblk, "device_launches": dl})
+    need({k: dl[k] for k in MAIN_PER_STEP} == _main_launches(nblk),
+         f"multistation: device launches {dl}, want {_main_launches(nblk)} "
+         f"for all {n} stations")
     res_loop = demodulate_stations(rx, iq, offsets, scan=False)
     for s, (off, pi, name, _, _) in enumerate(MS_STATIONS):
         r = res[s]
@@ -3388,14 +3400,6 @@ def phase_multistation(card):
         need(a_err <= RUNNER_AUDIO_ATOL and bits_eq and ok
              and l_err <= RUNNER_AUDIO_ATOL and l_eq and 0.05 < rms < 1.0,
              f"multistation {name}: {row}")
-    # one front-end launch a block under the graph (captured before the
-    # trace, so no warm-up step is in it)
-    _, dl = _device_launches(lambda: demodulate_stations(rx, iq, offsets))
-    emit({"phase": "multistation", "what": "device launches under the graph "
-          "(profiler)", "blocks": nblk, "device_launches": dl})
-    need({k: dl[k] for k in MAIN_PER_STEP} == _main_launches(nblk),
-         f"multistation: device launches {dl}, want {_main_launches(nblk)} "
-         f"for all {n} stations")
     for what, kw, per_step, levels in MS_CONFIGS:
         _ms_config(iq, offsets, what, kw, per_step, levels, nblk)
     _mesh_stations(rx, iq, offsets, res)
@@ -3440,8 +3444,9 @@ def _ms_config(iq, offsets, what, kw, per_step, levels, nblk):
     eager n-station steps against its own single-station steps'."""
     from sdrjfm_tpu_torch.models.multistation import demodulate_stations
     from sdrjfm_tpu_torch.models.receiver import Receiver, ReceiverConfig
-    from sdrjfm_tpu_torch.runtime.graph import WARMUP_STEPS, tree_leaves
-    from sdrjfm_tpu_torch.runtime.stream import _wire_blocks, run_offline
+    from sdrjfm_tpu_torch.runtime.graph import (WARMUP_STEPS, tree_leaves,
+                                                wire_blocks)
+    from sdrjfm_tpu_torch.runtime.stream import run_offline
     rx = Receiver(ReceiverConfig(block_fm=BLOCK_FM, rds="block",
                                  audio_filter_hz=15000, iq_format="i16",
                                  **kw), device="cuda")
@@ -3490,7 +3495,7 @@ def _ms_config(iq, offsets, what, kw, per_step, levels, nblk):
                                                                   levels)
         ones = [(rx.init_state(), single_controls(o, lvl))
                 for o, lvl in zip(offsets, lv)]
-        wire = _wire_blocks(iq, rx.cfg, SQ_STATE_BLOCKS)
+        wire = wire_blocks(iq, rx.cfg, SQ_STATE_BLOCKS)
         for b in range(SQ_STATE_BLOCKS):
             blk = torch.from_numpy(wire[b]).to("cuda")
             st, _ = msr.step(st, ctl, blk)

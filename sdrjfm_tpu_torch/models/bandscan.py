@@ -27,8 +27,7 @@ import torch
 
 from .receiver import Receiver, default_controls
 from .scanner import scan_block
-from ..runtime.graph import tree_broadcast
-from ..runtime.stream import _WIRE_DTYPES
+from ..runtime.graph import tree_broadcast, wire_np_dtype
 
 #: FM broadcast band edges (radio.cpp MINIMUM_FREQ/MAXIMUM_FREQ usage)
 FM_BAND_START = 87_500_000
@@ -103,7 +102,7 @@ class BandScanner:
         clearAverage-style depth the single-block scan lacked."""
         cfg = self.rx.cfg
         wire = torch.from_numpy(np.ascontiguousarray(
-            iq_blocks, _WIRE_DTYPES[cfg.iq_format])).to(self.rx.device)
+            iq_blocks, wire_np_dtype(cfg))).to(self.rx.device)
         trig, contrast = self.scan(wire, offsets_hz)
         nb = iq_blocks.shape[0]
         hit = trig.cpu().numpy().sum(axis=1) >= (nb + 1) // 2

@@ -25,11 +25,11 @@ fetched.  A mesh may name one device more than once.
 
 Spans (`runtime.spans`): a `demodulate_stations` call is one
 `stations.pass` (id the call, count the blocks) holding `stations.load`
-(the fresh per-station state and controls), the scan path's `scan.stage`
-(the capture staged) and `scan.fetch_wait` / `scan.fetch_copy` (each
-device's outputs down), `stations.replays` (count the steps queued, every
-device's) and `stations.assemble` (the per-station split); counters
-`stations.rows` (station rows stepped, stations x blocks) and
+(each device's chunk graph, the fresh per-station state and controls),
+the spans of `runtime.graph.drive_chunks` (per staging range each
+device's `scan.stage` and `scan.replays`, per chunk each device's
+`scan.fetch_wait` and `scan.fetch_copy`) and `stations.assemble` (the
+per-station split); counters `stations.rows` (station rows stepped, stations x blocks) and
 `stations.dummy_rows` (a mesh's padding rows x blocks).
 """
 
@@ -43,8 +43,8 @@ import torch
 
 from .receiver import Controls, Receiver, meta_dict_from_vec
 from ..runtime import spans
-from ..runtime.graph import StepGraph, tree_broadcast
-from ..runtime.stream import _wire_blocks
+from ..runtime.graph import StepGraph, drive_chunks, tree_broadcast, \
+    wire_blocks
 
 _passes = itertools.count()       # the id of each demodulate_stations call
 
@@ -212,56 +212,6 @@ class ShardedMultiStationReceiver(MultiStationReceiver):
         return news, outs
 
 
-class _Drive:
-    """One device's share of `demodulate_stations`: its stations' graph
-    over the capture, its state loaded (`load`), stepped a block at a time
-    (`step`) so that several devices' drives can be interleaved, read at
-    the end (`result`)."""
-
-    def __init__(self, msr: MultiStationReceiver, wire: np.ndarray,
-                 offsets: Sequence[int], levels, scan: bool):
-        self.msr, self.offsets, self.levels = msr, list(offsets), levels
-        self.nblocks = wire.shape[0]
-        self.sg = msr.jit_step().for_stations(len(self.offsets))
-        self.sc = None
-        if scan:
-            self.wire = wire
-            self.sc = self.sg.scan(self.nblocks)
-            self.sc.prepare()
-        else:
-            self.wire = torch.from_numpy(wire)
-            self.acc, self.b = [], 0
-
-    def load(self) -> None:
-        """Every station's fresh state and its controls (on the scan path
-        into the graph's buffers)."""
-        n = len(self.offsets)
-        self.states, self.controls = (
-            self.msr.init_states(n),
-            self.msr.controls_for(self.offsets, self.levels))
-        if self.sc is not None:
-            self.sg.load(self.states, self.controls)
-
-    def step(self) -> None:
-        if self.sc is not None:
-            self.sc.step()
-            return
-        self.states, out = self.sg(self.states, self.controls,
-                                   self.wire[self.b])
-        self.b += 1
-        d = {"audio": out.audio.clone(), "meta_vec": out.meta_vec.clone()}
-        if out.rds is not None:
-            d.update(rds_bits=out.rds.bits.clone(),
-                     rds_count=out.rds.count.clone())
-        self.acc.append(d)
-
-    def result(self) -> dict:
-        if self.sc is not None:
-            return self.sc.fetch(self.nblocks)
-        return {k: torch.stack([d[k] for d in self.acc]).cpu().numpy()
-                for k in self.acc[0]}
-
-
 def demodulate_stations(rx: Receiver, iq: np.ndarray,
                         offsets_hz: Sequence[int],
                         mesh=None, scan: bool = True,
@@ -275,11 +225,11 @@ def demodulate_stations(rx: Receiver, iq: np.ndarray,
     The n-station graph is kept with `rx` (`Receiver.stations()`): a later
     call with as many stations replays it, one with another count captures
     anew.
-    scan: replay the n-station graph over the whole capture staged on the
-    device as one chunk (`ScanGraph`, one replay a block, one fetch at the
-    end); False steps it a block at a time (`jit_step()`, an upload and
-    the outputs kept on the device each block).  The two agree (on the
-    CPU bit for bit; on the card a look-back scan's last bits may vary).
+    scan: replay the n-station graph over the whole capture as one chunk
+    (`ScanGraph` through `runtime.graph.drive_chunks`: staged a range at a
+    time, one replay a block, one fetch at the end); False, in chunks of
+    one block (a fetch each block).  The two agree (on the CPU bit for bit;
+    on the card a look-back scan's last bits may vary).
     mesh: a `parallel.sharding.Mesh` puts the station axis on its devices
     (ShardedMultiStationReceiver, kept with `rx` per mesh): the list is
     padded to the mesh size, each device's blocks are queued in turn, and
@@ -299,7 +249,7 @@ def demodulate_stations(rx: Receiver, iq: np.ndarray,
         raise ValueError(f"demodulate_stations: {len(squelch_levels)} "
                          f"squelch levels for {n_real} stations")
     with spans.span("stations.pass", id=next(_passes), count=nblocks):
-        wire = _wire_blocks(iq, cfg, nblocks)
+        wire = wire_blocks(iq, cfg, nblocks)
         if mesh is None:
             parts, offs = [rx.stations()], list(offsets_hz)
         else:
@@ -309,36 +259,33 @@ def demodulate_stations(rx: Receiver, iq: np.ndarray,
         levels = ([0.0] * len(offs) if squelch_levels is None
                   else list(squelch_levels) + [0.0] * (len(offs) - n_real))
         k = len(offs) // len(parts)
-        drives = [_Drive(p, wire, offs[i * k:(i + 1) * k],
-                         levels[i * k:(i + 1) * k], scan)
-                  for i, p in enumerate(parts)]
+        graphs = []
         with spans.span("stations.load"):
-            for d in drives:
-                d.load()
-        if scan:
-            for d in drives:
-                d.sc.load_blocks(d.wire)
-        with spans.span("stations.replays", count=nblocks * len(drives)):
-            for _ in range(nblocks):
-                for d in drives:
-                    d.step()
+            for i, p in enumerate(parts):
+                sc = p.jit_step().for_stations(k).scan(nblocks if scan else 1)
+                sc.prepare()
+                sc.sg.load(p.init_states(k),
+                           p.controls_for(offs[i * k:(i + 1) * k],
+                                          levels[i * k:(i + 1) * k]))
+                graphs.append(sc)
+        chunks = [gots for _, gots in drive_chunks(graphs, wire)]
         spans.count("stations.rows", n_real * nblocks)
         spans.count("stations.dummy_rows", (len(offs) - n_real) * nblocks)
-        gots = [d.result() for d in drives]
         with spans.span("stations.assemble"):
             results = []
             for s in range(n_real):      # padded dummy stations are dropped
-                got, j = gots[s // k], s % k
+                i, j = divmod(s, k)
+                gots = [c[i] for c in chunks]  # audio [nb, k, Tb, 2] each
                 bits = None
-                if "rds_bits" in got:
+                if "rds_bits" in gots[0]:
                     bits = np.concatenate(
-                        [got["rds_bits"][b, j, : int(got["rds_count"][b, j])]
-                         for b in range(nblocks)])
-                audio = got["audio"]                   # [nb, k, Tb, 2]
+                        [g["rds_bits"][b, j, : int(g["rds_count"][b, j])]
+                         for g in gots for b in range(len(g["rds_count"]))])
+                audio = np.concatenate([g["audio"][:, j] for g in gots])
                 results.append({
                     "offset_hz": int(offs[s]),
-                    "audio": audio[:, j].reshape(-1, audio.shape[-1]),
+                    "audio": audio.reshape(-1, audio.shape[-1]),
                     "rds_bits": bits,
-                    "meta": meta_dict_from_vec(got["meta_vec"][-1, j])[0],
+                    "meta": meta_dict_from_vec(gots[-1]["meta_vec"][-1, j])[0],
                 })
     return results

@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -205,6 +205,21 @@ class Output(NamedTuple):
     taps: Optional[dict]      # debug taps (cfg.emit_taps), else None
     meta_vec: Optional[Tensor] = None    # f32[len(Meta._fields)+1]
     audio_i16: Optional[Tensor] = None   # [block_audio, 2] int16
+
+    def for_host(self, taps: bool = False) -> Dict[str, Tensor]:
+        """The leaves a runner brings to the host, by the names every
+        runner uses: `audio`, `audio_i16` (where the step makes it),
+        `meta_vec`, `rds_bits`, `rds_count` and `rds_iq` (with RDS), and
+        with `taps` each tap as `tap:<name>`."""
+        d = {"audio": self.audio, "meta_vec": self.meta_vec}
+        if self.audio_i16 is not None:
+            d["audio_i16"] = self.audio_i16
+        if self.rds is not None:
+            d.update(rds_bits=self.rds.bits, rds_count=self.rds.count,
+                     rds_iq=self.rds.iq)
+        if taps and self.taps:
+            d.update({f"tap:{k}": v for k, v in self.taps.items()})
+        return d
 
 
 def meta_dict_from_vec(mv) -> Tuple[dict, int]:

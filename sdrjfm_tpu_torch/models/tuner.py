@@ -31,8 +31,7 @@ import torch
 from .. import constants as C
 from .receiver import Controls, Receiver
 from .scanner import scan_decision
-from ..runtime.graph import tree_broadcast, tree_clone
-from ..runtime.stream import _WIRE_DTYPES
+from ..runtime.graph import tree_broadcast, tree_clone, wire_np_dtype
 
 
 class AFCTracker:
@@ -110,7 +109,7 @@ class RadioController:
 
     def _wire(self, iq_block) -> torch.Tensor:
         """A host block in the receiver's wire format, on its device."""
-        x = np.ascontiguousarray(iq_block, _WIRE_DTYPES[self.rx.cfg.iq_format])
+        x = np.ascontiguousarray(iq_block, wire_np_dtype(self.rx.cfg))
         return torch.from_numpy(x).to(self.rx.device)
 
     # -- processing with AFC -------------------------------------------

@@ -58,14 +58,19 @@ make one range of a whole chunk.  It shares the state and controls buffers with
 its `StepGraph`, so the state threads through both.  Its warm-up steps set
 the slot back to 0 after each step, so that a chunk of fewer blocks than
 warm-up steps never indexes past its buffers.  A `StepGraph` keeps one
-`ScanGraph`, the latest asked for.
+`ScanGraph`, the latest asked for.  What a step sends to the host is
+`Output.for_host`'s leaves, by its names.
+
+`drive_chunks` is the one loop that stages, replays and fetches chunk
+graphs over a capture: every scan runner of `runtime.stream` drives one
+graph through it, `demodulate_stations` one graph a device.
 """
 
 from __future__ import annotations
 
 import contextlib
 import gc
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -161,6 +166,18 @@ def wire_shape(cfg):
 
 def wire_dtype(cfg) -> torch.dtype:
     return WIRE_FORMATS[cfg.iq_format][1]
+
+
+def wire_np_dtype(cfg) -> np.dtype:
+    """`wire_dtype` as numpy's: the dtype of a host block."""
+    return torch.empty(0, dtype=wire_dtype(cfg)).numpy().dtype
+
+
+def wire_blocks(iq: np.ndarray, cfg, nblocks: int) -> np.ndarray:
+    """The first nblocks blocks of a capture as [nblocks, *wire_shape] in
+    the wire's dtype (a view where `iq` already has it)."""
+    x = np.ascontiguousarray(iq[: nblocks * cfg.wire_len], wire_np_dtype(cfg))
+    return x.reshape((nblocks,) + wire_shape(cfg))
 
 
 def stage_ranges(block_bytes: int, k: int) -> List[Tuple[int, int]]:
@@ -350,21 +367,6 @@ class StepGraph:
         return self._scan
 
 
-def collected_outputs(out, taps: bool) -> Dict[str, Tensor]:
-    """The Output leaves a scan runner collects, by name: the audio (and
-    its PCM16 form), `meta_vec`, the RDS bits, counts and points, and the
-    taps when asked for (`tap:<name>`)."""
-    d = {"audio": out.audio, "meta_vec": out.meta_vec}
-    if out.audio_i16 is not None:
-        d["audio_i16"] = out.audio_i16
-    if out.rds is not None:
-        d.update(rds_bits=out.rds.bits, rds_count=out.rds.count,
-                 rds_iq=out.rds.iq)
-    if taps and out.taps:
-        d.update({f"tap:{k}": v for k, v in out.taps.items()})
-    return d
-
-
 class ScanGraph:
     """One captured step that reads its block from a chunk buffer and
     writes its outputs into chunk buffers at a device-side slot counter,
@@ -390,7 +392,7 @@ class ScanGraph:
 
     def _body(self) -> None:
         iq = self.inp.index_select(0, self.slot).view(self.sg.iq.shape)
-        got = collected_outputs(self.sg.step_body(iq), self.taps)
+        got = self.sg.step_body(iq).for_host(self.taps)
         if self.outs is None:
             self.outs = {k: torch.zeros((self.K,) + tuple(v.shape),
                                         dtype=v.dtype, device=v.device)
@@ -490,6 +492,27 @@ class ScanGraph:
             spans.count("scan.fetch_pinned")
             spans.count("scan.fetch_host_allocs", _host_allocs() - made)
             return {name: t.numpy() for name, t in got.items()}
+
+
+def drive_chunks(graphs: Sequence[ScanGraph], wire: np.ndarray):
+    """Every graph over the [nblocks, *wire] host blocks, in chunks of the
+    graphs' K blocks: yields (the chunk's first block, [each graph's
+    `fetch`]) per chunk.  The graphs' states and controls are the caller's
+    to load first; each graph's state threads from chunk to chunk in its
+    buffers.  A chunk is staged a range at a time (`stage_ranges`): each
+    range's `load_blocks` on every graph, then its `steps` on every graph,
+    so that the host stages range j+1 while the card uploads and steps
+    range j, and every graph's replays (several devices' under a mesh) are
+    queued before any graph's outputs are fetched."""
+    K, nblocks = graphs[0].K, wire.shape[0]
+    for lo in range(0, nblocks, K):
+        k = min(K, nblocks - lo)
+        for a, s in stage_ranges(wire[0].nbytes, k):
+            for sc in graphs:
+                sc.load_blocks(wire[lo + a:lo + a + s], a)
+            for sc in graphs:
+                sc.steps(s)
+        yield lo, [sc.fetch(k) for sc in graphs]
 
 
 def _host_allocs() -> int:

@@ -8,8 +8,9 @@ sdrjfm_tpu.runtime.stream).
   until the run ends and come back in one transfer each.
 - `run_offline_scan` / `run_offline_scanned`, the throughput path: chunks of
   blocks staged on the device once, the captured step replayed once a block
-  (`runtime.graph.ScanGraph`), every output fetched once a chunk.  The JAX
-  runners dispatch one `lax.scan` a chunk instead.
+  (`runtime.graph.ScanGraph`), every output fetched once a chunk, all
+  through `runtime.graph.drive_chunks`.  The JAX runners dispatch one
+  `lax.scan` a chunk instead.
 - `run_streaming`, per-block callbacks through `Receiver.jit_step()` with
   block k+1's upload overlapping block k's compute, or chunks of the scan
   machinery with the callbacks fired a block at a time.
@@ -35,17 +36,8 @@ import torch
 from ..models.receiver import (BitBlock, Controls, Meta, Output, Receiver,
                                meta_dict_from_vec)
 from . import spans
-from .graph import stage_ranges, tree_clone, wire_dtype, wire_shape
-
-_WIRE_DTYPES = {"c64": np.complex64, "i16": np.int16, "i8": np.int8,
-                "u8": np.uint8}
-
-
-def _wire_blocks(iq: np.ndarray, cfg, nblocks: int) -> np.ndarray:
-    """The capture as [nblocks, *wire block shape] in its wire dtype."""
-    x = np.ascontiguousarray(iq[: nblocks * cfg.wire_len],
-                             _WIRE_DTYPES[cfg.iq_format])
-    return x.reshape((nblocks,) + wire_shape(cfg))
+from .graph import (drive_chunks, tree_clone, wire_blocks, wire_dtype,
+                    wire_np_dtype, wire_shape)
 
 
 def _nblocks(iq, cfg) -> int:
@@ -88,7 +80,7 @@ class _Uploader:
     def __init__(self, cfg, device):
         self.device = device
         self.cuda = device.type == "cuda"
-        self.np_dtype = _WIRE_DTYPES[cfg.iq_format]
+        self.np_dtype = wire_np_dtype(cfg)
         self.i = 0
         if self.cuda:
             shape, dt = wire_shape(cfg), wire_dtype(cfg)
@@ -100,9 +92,8 @@ class _Uploader:
             self.copied = [None, None]
             self.used = [None, None]
 
-    def put(self, blk: np.ndarray, wait: bool = False):
-        """Start the upload of one block; returns its token.  wait=True
-        returns only when the block is on the device."""
+    def put(self, blk: np.ndarray):
+        """Start the upload of one block; returns its token."""
         blk = np.asarray(blk, self.np_dtype)
         if not self.cuda:
             return torch.from_numpy(blk.copy())
@@ -117,8 +108,6 @@ class _Uploader:
             ev = torch.cuda.Event()
             ev.record(self.stream)
         self.copied[i] = ev
-        if wait:
-            ev.synchronize()
         return i
 
     def take(self, tok) -> torch.Tensor:
@@ -170,16 +159,26 @@ class _Fetch:
         return {k: t.numpy().copy() for k, t in self.pending.items()}
 
 
-def _block_outputs(out, want_meta: bool, keep_iq: bool):
-    """What a per-block runner reads of one block's Output."""
-    d = {"audio": out.audio_i16 if out.audio_i16 is not None else out.audio}
-    if want_meta or out.rds is not None:
-        d["meta_vec"] = out.meta_vec
-    if out.rds is not None:
-        d["bits"] = out.rds.bits
-        if keep_iq:
-            d["biq"] = out.rds.iq
+def _block_outputs(out: Output, want_meta: bool, keep_iq: bool):
+    """What a per-block runner fetches of one block's Output, under
+    `Output.for_host`'s names: the PCM16 audio in place of the float audio
+    where the step makes it, `meta_vec` when wanted or with RDS (it holds
+    the bits' count), the bits, and their points when kept."""
+    d = out.for_host()
+    d.pop("rds_count", None)
+    if "audio_i16" in d:
+        del d["audio"]
+    if not (want_meta or "rds_bits" in d):
+        del d["meta_vec"]
+    if not keep_iq:
+        d.pop("rds_iq", None)
     return d
+
+
+def _audio(got: dict, pcm: bool) -> np.ndarray:
+    """The audio of fetched outputs: `audio_i16` where asked for and made,
+    else `audio`."""
+    return got["audio_i16"] if pcm and "audio_i16" in got else got["audio"]
 
 
 def _result(audio_acc, metas, bits_acc, biq_acc, state, taps=None
@@ -205,33 +204,38 @@ _passes = itertools.count()       # the id of each scan runner's pass
 
 def _scan_chunks(rx: Receiver, iq: np.ndarray, controls, init_state,
                  chunk_blocks: Optional[int], taps: bool):
-    """The capture through the chunk graph: yields (first block, {output:
-    [k, ...] host array}) per chunk of k <= chunk_blocks blocks (all blocks
-    in one chunk when chunk_blocks is None).  The state threads from chunk
-    to chunk in the step's buffers; rx.jit_step().state holds the final one
-    when the generator ends.  A chunk is staged a range at a time
-    (`graph.stage_ranges`): each range's copy into pinned memory, upload
-    and replays are queued before the next range is staged, so the host
-    stages range j+1 while the card uploads and steps range j.  Spans:
-    `scan.load` (the chunk graph and the initial state), then per range
-    `scan.stage` and `scan.replays` (count: its blocks), then the chunk's
-    `scan.fetch_*` (`ScanGraph`)."""
-    cfg = rx.cfg
+    """The capture through the receiver's chunk graph: span `scan.load`
+    (the chunk graph, the initial state and controls), then the chunks of
+    `graph.drive_chunks` as (first block, {output: [k, ...] host array}),
+    k <= chunk_blocks blocks (all blocks in one chunk when chunk_blocks is
+    None), with their spans.  rx.jit_step().state holds the final state
+    once the last chunk has been read."""
     with spans.span("scan.load"):
-        nblocks = _nblocks(iq, cfg)
+        nblocks = _nblocks(iq, rx.cfg)
         K = nblocks if chunk_blocks is None else int(chunk_blocks)
-        wire = _wire_blocks(iq, cfg, nblocks)
+        wire = wire_blocks(iq, rx.cfg, nblocks)
         sg = rx.jit_step()
         sc = sg.scan(min(K, nblocks), taps)
         sc.prepare()
         sg.load(init_state if init_state is not None else rx.init_state(),
                 controls if controls is not None else rx.initial_controls())
-    for lo in range(0, nblocks, sc.K):
-        k = min(sc.K, nblocks - lo)
-        for a, s in stage_ranges(wire[0].nbytes, k):
-            sc.load_blocks(wire[lo + a:lo + a + s], a)
-            sc.steps(s)
-        yield lo, sc.fetch(k)
+    return ((lo, got) for lo, (got,) in drive_chunks([sc], wire))
+
+
+def _blocks_of(chunks, drop_blocks: int, pcm: bool):
+    """Each block of fetched chunks from block drop_blocks on, in order:
+    (audio (`_audio`), meta_vec, the RDS bits and their points up to the
+    block's count or None and None without RDS, {tap: samples})."""
+    for lo, got in chunks:
+        audio = _audio(got, pcm)
+        taps = {k[4:]: v for k, v in got.items() if k.startswith("tap:")}
+        for j in range(max(0, drop_blocks - lo), audio.shape[0]):
+            bits = biq = None
+            if "rds_bits" in got:
+                n = int(got["rds_count"][j])
+                bits, biq = got["rds_bits"][j, :n], got["rds_iq"][j, :n]
+            yield (audio[j], got["meta_vec"][j], bits, biq,
+                   {k: v[j].reshape(-1) for k, v in taps.items()})
 
 
 def run_offline_scan(rx: Receiver, iq: np.ndarray,
@@ -297,22 +301,15 @@ def run_offline_scanned(rx: Receiver, iq: np.ndarray,
         chunks = list(_scan_chunks(rx, iq, controls, init_state,
                                    chunk_blocks, collect_taps))
         with spans.span("scan.assemble"):
-            audio, mvs, bits, biq, tap_acc = [], [], [], [], {}
-            for lo, got in chunks:
-                for j in range(got["audio"].shape[0]):
-                    if lo + j < drop_blocks:
-                        continue
-                    audio.append(got["audio"][j])
-                    mvs.append(got["meta_vec"][j])
-                    if "rds_bits" in got:
-                        n = int(got["rds_count"][j])
-                        bits.append(got["rds_bits"][j, :n])
-                        biq.append(got["rds_iq"][j, :n])
-                    for k, v in got.items():
-                        if k.startswith("tap:"):
-                            tap_acc.setdefault(k[4:], []).append(
-                                v[j].reshape(-1))
-            metas = [meta_dict_from_vec(mv)[0] for mv in mvs]
+            audio, metas, bits, biq, tap_acc = [], [], [], [], {}
+            for a, mv, b, q, taps in _blocks_of(chunks, drop_blocks, False):
+                audio.append(a)
+                metas.append(meta_dict_from_vec(mv)[0])
+                if b is not None:
+                    bits.append(b)
+                    biq.append(q)
+                for k, v in taps.items():
+                    tap_acc.setdefault(k, []).append(v)
             return _result(audio, metas, bits, biq,
                            tree_clone(rx.jit_step().state), tap_acc)
 
@@ -333,8 +330,7 @@ def run_streaming(rx: Receiver, iq: np.ndarray,
                   rds_feedback=None,
                   controls_update=None,
                   command_hook=None,
-                  on_state=None,
-                  double_buffer: bool = True) -> StreamResult:
+                  on_state=None) -> StreamResult:
     """Streaming block driver: per-block callbacks, double-buffered input.
 
     Each block runs through `Receiver.jit_step()`.  Block k+1's upload
@@ -350,9 +346,7 @@ def run_streaming(rx: Receiver, iq: np.ndarray,
 
     keep_outputs=False keeps no outputs (long captures; the result then
     carries the meta and the final state).  collect_meta=False fetches no
-    metadata unless on_meta or a hook needs it.  double_buffer=False
-    uploads block k and waits for it before the step (the control for
-    measuring the overlap).
+    metadata unless on_meta or a hook needs it.
 
     chunk_blocks > 1 is the throughput mode: chunks of the scan runner's
     graph, each output fetched once a chunk, the callbacks fired per block
@@ -379,7 +373,7 @@ def run_streaming(rx: Receiver, iq: np.ndarray,
     cfg = rx.cfg
     controls = controls if controls is not None else rx.initial_controls()
     nblocks = _nblocks(iq, cfg)
-    wire = _wire_blocks(iq, cfg, nblocks)
+    wire = wire_blocks(iq, cfg, nblocks)
     step = rx.jit_step()
     state = init_state if init_state is not None else rx.init_state()
     up, fetch = _Uploader(cfg, rx.device), _Fetch(rx.device)
@@ -387,30 +381,27 @@ def run_streaming(rx: Receiver, iq: np.ndarray,
                  or controls_update is not None or command_hook is not None)
     audio_acc, metas, bits_acc, biq_acc = [], [], [], []
     tap_acc: dict = {}
-    tok = up.put(wire[0]) if double_buffer else None
+    tok = up.put(wire[0])
     for b in range(nblocks):
-        if not double_buffer:
-            tok = up.put(wire[b], wait=True)
         state, out = step(state, controls, up.take(tok))
         up.release(tok)
-        if b < drop_blocks:
-            if double_buffer and b + 1 < nblocks:
-                tok = up.put(wire[b + 1])
-            continue
-        fetch.start(_block_outputs(out, want_meta, keep_outputs))
-        if double_buffer and b + 1 < nblocks:
+        if b >= drop_blocks:
+            fetch.start(_block_outputs(out, want_meta, keep_outputs))
+        if b + 1 < nblocks:
             tok = up.put(wire[b + 1])       # stage the next block meanwhile
+        if b < drop_blocks:
+            continue
         if collect_taps and out.taps:
             for k, v in out.taps.items():
                 tap_acc.setdefault(k, []).append(_host(v))
         host = fetch.wait()
-        frames = host["audio"]
+        frames = _audio(host, True)
         meta = n = None
         if "meta_vec" in host:
             m, n = meta_dict_from_vec(host["meta_vec"])
             if want_meta:
                 meta = m
-        blk_bits = host["bits"][:n] if "bits" in host else None
+        blk_bits = host["rds_bits"][:n] if "rds_bits" in host else None
         if on_audio is not None:
             on_audio(frames)
         if on_meta is not None:
@@ -433,7 +424,7 @@ def run_streaming(rx: Receiver, iq: np.ndarray,
             audio_acc.append(frames)
             if blk_bits is not None:
                 bits_acc.append(blk_bits)
-                biq_acc.append(host["biq"][:n])
+                biq_acc.append(host["rds_iq"][:n])
         if stop:
             break
     return _result(audio_acc, metas, bits_acc, biq_acc, tree_clone(state),
@@ -450,32 +441,24 @@ def _run_streaming_chunked(rx: Receiver, iq: np.ndarray, controls,
     `run_offline_scanned` with the same chunk_blocks."""
     want_meta = collect_meta or on_meta is not None
     audio_acc, metas, bits_acc, biq_acc = [], [], [], []
-    for lo, got in _scan_chunks(rx, iq, controls, init_state, chunk_blocks,
-                                False):
-        audio = got.get("audio_i16", got["audio"])
-        for j in range(audio.shape[0]):
-            if lo + j < drop_blocks:
-                continue
-            frames = audio[j]
-            if on_audio is not None:
-                on_audio(frames)
-            if want_meta:
-                meta, _ = meta_dict_from_vec(got["meta_vec"][j])
-                if on_meta is not None:
-                    on_meta(meta)
-                if collect_meta:
-                    metas.append(meta)
-            blk_bits = None
-            if "rds_bits" in got:
-                n = int(got["rds_count"][j])
-                blk_bits = got["rds_bits"][j, :n]
-            if on_rds_bits is not None and blk_bits is not None:
-                on_rds_bits(blk_bits)
-            if keep_outputs:
-                audio_acc.append(frames)
-                if blk_bits is not None:
-                    bits_acc.append(blk_bits)
-                    biq_acc.append(got["rds_iq"][j, :n])
+    chunks = _scan_chunks(rx, iq, controls, init_state, chunk_blocks, False)
+    for frames, mv, blk_bits, blk_iq, _ in _blocks_of(chunks, drop_blocks,
+                                                       True):
+        if on_audio is not None:
+            on_audio(frames)
+        if want_meta:
+            meta = meta_dict_from_vec(mv)[0]
+            if on_meta is not None:
+                on_meta(meta)
+            if collect_meta:
+                metas.append(meta)
+        if on_rds_bits is not None and blk_bits is not None:
+            on_rds_bits(blk_bits)
+        if keep_outputs:
+            audio_acc.append(frames)
+            if blk_bits is not None:
+                bits_acc.append(blk_bits)
+                biq_acc.append(blk_iq)
     return _result(audio_acc, metas, bits_acc, biq_acc,
                    tree_clone(rx.jit_step().state))
 
@@ -547,7 +530,7 @@ def run_live(rx: Receiver, source,
                 tok = up.put(blk) if len(blk) == T else None
             with spans.span("live.fetch_wait"):
                 host = fetch.wait()
-            frames = host["audio"]
+            frames = _audio(host, True)
             with spans.span("live.deliver") as delivered:
                 if on_audio is not None:
                     on_audio(frames)
@@ -559,7 +542,8 @@ def run_live(rx: Receiver, source,
                 meta["latency_ms"] = (delivered.t1 - t_ready[0]) * 1e-6
                 timed += t_ready[1]
                 t_ready = t_next_ready
-                blk_bits = host["bits"][:n] if "bits" in host else None
+                blk_bits = (host["rds_bits"][:n] if "rds_bits" in host
+                            else None)
                 if on_taps is not None and out.taps:
                     on_taps(dict(out.taps))
                 if on_meta is not None:
@@ -582,7 +566,7 @@ def run_live(rx: Receiver, source,
                     audio_acc.append(frames)
                     if blk_bits is not None:
                         bits_acc.append(blk_bits)
-                        biq_acc.append(host["biq"][:n])
+                        biq_acc.append(host["rds_iq"][:n])
         b += 1
         if stop:
             break
@@ -649,10 +633,9 @@ def run_offline(rx: Receiver, iq: np.ndarray,
     one transfer), so they add no sync of their own."""
     cfg = rx.cfg
     controls = controls if controls is not None else rx.initial_controls()
-    T = cfg.wire_len
     nblocks = _nblocks(iq, cfg)
     state = init_state if init_state is not None else rx.init_state()
-    wire = np.ascontiguousarray(iq[: nblocks * T], _WIRE_DTYPES[cfg.iq_format])
+    wire = wire_blocks(iq, cfg, nblocks)
     if not wire.flags.writeable:      # a wav read straight from its buffer
         wire = wire.copy()
     wire_t = torch.from_numpy(wire)
@@ -664,7 +647,7 @@ def run_offline(rx: Receiver, iq: np.ndarray,
     fed, counts = [], []              # deferred feedback: every block's bits
     taps: dict = {}
     for b in range(nblocks):
-        state, out = step(state, controls, wire_t[b * T:(b + 1) * T])
+        state, out = step(state, controls, wire_t[b])
         # the one device->host transfer per block
         meta, n = meta_dict_from_vec(out.meta_vec.cpu().numpy())
         if per_block_feedback and out.rds is not None:

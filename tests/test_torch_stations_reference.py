@@ -8,8 +8,11 @@ size: a four-station capture (`fmbench.synth.StationsSynth`) through
   tuned to each station: audio within AUDIO_ATOL, no RDS bit error
   (`fmbench.compare.numbers`).
 - One call is one `stations.pass` span whose direct children are the
-  path's parts, and the counters `stations.rows` and
-  `stations.dummy_rows` grow by its rows.
+  path's parts (`stations.load`, the chunk drive's staging ranges,
+  replays and fetches on every device, `stations.assemble`), and the
+  counters `stations.rows` and `stations.dummy_rows` grow by its rows.
+- Staged a block a range, each block is its own `scan.stage` and
+  `scan.replays` on every device, and the outputs do not change.
 - Every receiver's outputs hash to the bytes pinned before the path had
   spans (SHA-256 of offset, audio, RDS bits and the last metadata, the
   same seed), on the scan path, the block-by-block path and a two-device
@@ -30,6 +33,7 @@ from fmbench.synth import StationParams, StationsSynth
 from sdrjfm_tpu_torch.models.multistation import demodulate_stations
 from sdrjfm_tpu_torch.models.receiver import Receiver, ReceiverConfig
 from sdrjfm_tpu_torch.parallel.sharding import make_mesh
+from sdrjfm_tpu_torch.runtime import graph as G
 from sdrjfm_tpu_torch.runtime import spans
 
 # the benchmark's four stations (offset Hz, PI, PS, left Hz, right Hz),
@@ -55,13 +59,16 @@ AUDIO_ATOL = 2e-5             # the port's float32 chain against the
                               # reference's on the CPU
 # every receiver's outputs at SEED before the path had spans
 PINNED = "d51d763bb3fa1b1335cf3b0ed00cda3da0c86b43038a970ad1503d2d710336f6"
+RANGES = 8                    # 5 blocks of 786,432 B a 4 MiB staging range
+FETCH = ["scan.fetch_wait", "scan.fetch_copy"]
+RANGE = ["scan.stage", "scan.replays"]
 CHILDREN = {
-    "scan": ["stations.load", "scan.stage", "stations.replays",
-             "scan.fetch_wait", "scan.fetch_copy", "stations.assemble"],
-    "loop": ["stations.load", "stations.replays", "stations.assemble"],
-    "mesh": ["stations.load", "scan.stage", "scan.stage",
-             "stations.replays", "scan.fetch_wait", "scan.fetch_copy",
-             "scan.fetch_wait", "scan.fetch_copy", "stations.assemble"]}
+    "scan": ["stations.load"] + RANGE * RANGES + FETCH
+    + ["stations.assemble"],
+    "loop": ["stations.load"] + (RANGE + FETCH) * NB          # chunks of 1
+    + ["stations.assemble"],
+    "mesh": ["stations.load"] + (["scan.stage"] * 2 + ["scan.replays"] * 2)
+    * RANGES + FETCH * 2 + ["stations.assemble"]}
 DRIVES = {"scan": 1, "loop": 1, "mesh": 2}
 PATHS = sorted(CHILDREN)
 
@@ -121,19 +128,16 @@ def test_one_call_is_one_pass_of_spans(calls, path):
     kids = [r for r in c["records"] if r.parent == p.seq]
     assert [r.name for r in kids] == CHILDREN[path]
     assert all(p.t0 <= r.t0 <= r.t1 <= p.t1 for r in kids)
-    by = {r.name: r for r in kids}
-    assert by["stations.replays"].count == DRIVES[path] * NB
-    if path != "loop":
-        assert by["scan.stage"].count == NB
-        assert by["scan.fetch_copy"].count > 0
+    for name in RANGE:
+        assert sum(r.count for r in kids if r.name == name) \
+            == DRIVES[path] * NB
+    assert all(r.count > 0 for r in kids if r.name == "scan.fetch_copy")
     assert c["rows"] == len(RASTER_19) * NB
     # 19 stations over two devices: one padding row
     assert c["dummy_rows"] == (DRIVES[path] - 1) * NB
 
 
-@pytest.mark.parametrize("path", PATHS)
-def test_outputs_unchanged_by_the_spans(calls, path):
-    res = calls[path]["results"]
+def _digest(res) -> str:
     assert [r["offset_hz"] for r in res] == RASTER_19
     h = hashlib.sha256()
     for r in res:
@@ -141,4 +145,35 @@ def test_outputs_unchanged_by_the_spans(calls, path):
         h.update(np.ascontiguousarray(r["audio"]).tobytes())
         h.update(np.ascontiguousarray(r["rds_bits"]).tobytes())
         h.update(json.dumps(r["meta"], sort_keys=True).encode())
-    assert h.hexdigest() == PINNED
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_outputs_unchanged_by_the_spans(calls, path):
+    assert _digest(calls[path]["results"]) == PINNED
+
+
+@pytest.mark.parametrize("devices", [1, 2])
+def test_a_range_a_block_stages_and_replays_each_block(capture, monkeypatch,
+                                                       devices):
+    """With a staging range of one block's bytes, each block is its own
+    `scan.stage` and `scan.replays` (count 1) on every device's part,
+    `scan.stage_ranges` grows by the blocks times the parts, and every
+    receiver's outputs still hash to PINNED."""
+    rx = Receiver(ReceiverConfig(**CFG), device="cpu")
+    kw = ({} if devices == 1
+          else {"mesh": make_mesh(2, axis="stations", device="cpu")})
+    monkeypatch.setattr(G, "STAGE_RANGE_BYTES", T * 2 * 2)     # i16 pairs
+    ranges = spans.counters["scan.stage_ranges"]
+    last = max((r.seq for r in spans.records()), default=-1)
+    res = demodulate_stations(rx, capture, RASTER_19, **kw)
+    recs = [r for r in spans.records() if r.seq > last]
+    p, = [r for r in recs if r.name == "stations.pass"]
+    kids = [r for r in recs if r.parent == p.seq]
+    assert [r.name for r in kids] == (
+        ["stations.load"]
+        + (["scan.stage"] * devices + ["scan.replays"] * devices) * NB
+        + FETCH * devices + ["stations.assemble"])
+    assert all(r.count == 1 for r in kids if r.name in RANGE)
+    assert spans.counters["scan.stage_ranges"] - ranges == NB * devices
+    assert _digest(res) == PINNED
