@@ -272,10 +272,11 @@ class CommandProcessor:
     setVFOFrequency and the LO rebases to 0.  Any >= 100 kHz effective step
     fires Receiver.retune_reset (mute ramp, PSS and RDS resets,
     fm-processor.cpp:849-855) and resets the host RDS stack via
-    `on_retune`.  After the hardware retune the source's ring is flushed;
-    the block the runner had already read from the ring (run_live reads
-    block k+1 before the hook runs) is still the old frequency's, as in
-    the JAX runner.
+    `on_retune`.  After the hardware retune the source's ring is flushed.
+    run_live reads block k+1 only after block k's hook has run, so the
+    next block is read after the flush, at the new frequency.  The JAX
+    runner reads block k+1 before the hook and demodulates one block of
+    the old frequency first (ROADMAP.md, queue 3: standing decisions).
 
     The AFC loop (radio.cpp:1786-1809) accumulates into the LO, and when
     the corrected offset leaves the window on a retunable source the

@@ -31,7 +31,9 @@ chunk's first, whose staging began while the card still had the previous
 range's replays queued; always 0 on the CPU), `scan.fetch_pinned`
 (`ScanGraph.fetch`es whose outputs came down into pinned memory) and
 `scan.fetch_host_allocs` (the pinned blocks those fetches had to allocate,
-from `torch.cuda.host_memory_stats()`; both always 0 on the CPU).
+from `torch.cuda.host_memory_stats()`; both always 0 on the CPU), and
+`live.backlog` (`run_live`'s blocks whose successor was already whole in
+the source's ring when they were delivered: the runner behind the air).
 `records()` reads the record out; `write_json(path)` writes it with the
 counters (`rx --profile DIR` writes `spans_<pid>.json`).
 """
@@ -79,7 +81,8 @@ counters: Dict[str, int] = {"kernel.builds": 0, "graph.captures": 0,
                             "scan.stage_ranges": 0,
                             "scan.stage_overlapped": 0,
                             "scan.fetch_pinned": 0,
-                            "scan.fetch_host_allocs": 0}
+                            "scan.fetch_host_allocs": 0,
+                            "live.backlog": 0}
 
 
 def _stack() -> list:

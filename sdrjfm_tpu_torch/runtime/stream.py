@@ -15,7 +15,7 @@ sdrjfm_tpu.runtime.stream).
   block k+1's upload overlapping block k's compute, or chunks of the scan
   machinery with the callbacks fired a block at a time.
 - `run_live`, the same step over a streaming source's ring
-  (runtime.native_source), reading block k+1 while block k computes.
+  (runtime.native_source), delivering block k before it waits for k+1.
 
 Every runner steps through `Receiver.jit_step()` (the scan runners through
 its chunk form), whose outputs are views that the next call overwrites:
@@ -482,12 +482,15 @@ def run_live(rx: Receiver, source,
     """Live block driver: pull blocks from a streaming source's ring
     (runtime.native_source.NativeWavSource / NativeRawSource /
     NativePipeSource: a C++ producer thread feeding a lock-free SPSC ring)
-    and step each through `Receiver.jit_step()`.  While block k computes,
-    the host pre-reads block k+1 from the ring and starts its upload, and
-    block k's outputs copy back to pinned host buffers.  Runs until EOF,
-    `max_blocks`, or a read timeout (a stalled producer).  The source's
-    wire format must match rx.cfg.iq_format (NativeWavSource -> 'c64',
-    NativeRawSource -> its fmt).
+    and step each through `Receiver.jit_step()`.  Block k is stepped, its
+    outputs copy back to pinned host buffers, it is delivered and its hooks
+    run; only then does the runner wait on the ring for block k+1 and start
+    its upload.  A live block k+1 is still on the air while block k
+    computes, so reading it first would only hold block k back a block
+    period.  Runs until EOF, `max_blocks`, a command_hook's stop (no block
+    is read after the last one stepped), or a read timeout (a stalled
+    producer).  The source's wire format must match rx.cfg.iq_format
+    (NativeWavSource -> 'c64', NativeRawSource -> its fmt).
 
     meta gains 'ingest_dropped' (overrun drops since the last block) and
     'latency_ms': from the block's last frame's arrival in the source's
@@ -501,9 +504,13 @@ def run_live(rx: Receiver, source,
     on_state sees the step's state buffer view.
 
     Each block is a span `live.block` (`runtime.spans`; id the block) of
-    `live.step` (the step's call, its output copies queued), the next
-    block's `source.read` and `live.upload`, `live.fetch_wait`,
-    `live.deliver` (on_audio) and `live.hooks` (the meta and the hooks).
+    `live.step` (the step's call, its output copies queued),
+    `live.fetch_wait`, `live.deliver` (on_audio), `live.hooks` (the meta
+    and the hooks), then the next block's `source.read` and `live.upload`.
+    The counter `live.backlog` counts the blocks whose successor was
+    already whole in the ring when they were delivered (the source's
+    `available()`; none counted where it has none): the runner behind the
+    air.
     """
     cfg = rx.cfg
     controls = controls if controls is not None else rx.initial_controls()
@@ -511,23 +518,28 @@ def run_live(rx: Receiver, source,
     step = rx.jit_step()
     state = init_state if init_state is not None else rx.init_state()
     up, fetch = _Uploader(cfg, rx.device), _Fetch(rx.device)
+    available = getattr(source, "available", None)
     audio_acc, metas, bits_acc, biq_acc = [], [], [], []
     dropped_last = source.dropped
     b = timed = 0
-    blk = source.read_block(T, timeout_ms)
-    t_ready = _ready_ns(source)
-    tok = up.put(blk) if len(blk) == T else None
-    while tok is not None and (max_blocks is None or b < max_blocks):
+
+    def read_next():
+        """The next block from the ring, its upload started: (its token,
+        None at the end; (ready ns, from the arrival))."""
+        blk = source.read_block(T, timeout_ms)
+        ready = _ready_ns(source)
+        with spans.span("live.upload"):
+            return (up.put(blk) if len(blk) == T else None), ready
+
+    tok = None
+    if max_blocks is None or max_blocks > 0:
+        tok, t_ready = read_next()
+    while tok is not None:
         with spans.span("live.block", id=b):
             with spans.span("live.step"):
                 state, out = step(state, controls, up.take(tok))
                 up.release(tok)
                 fetch.start(_block_outputs(out, True, keep_outputs))
-            # the next block from the ring, uploaded while this one computes
-            blk = source.read_block(T, timeout_ms)
-            t_next_ready = _ready_ns(source)
-            with spans.span("live.upload"):
-                tok = up.put(blk) if len(blk) == T else None
             with spans.span("live.fetch_wait"):
                 host = fetch.wait()
             frames = _audio(host, True)
@@ -535,13 +547,14 @@ def run_live(rx: Receiver, source,
                 if on_audio is not None:
                     on_audio(frames)
             with spans.span("live.hooks"):
+                if available is not None and available() >= T:
+                    spans.count("live.backlog")
                 drops_total = source.dropped
                 meta, n = meta_dict_from_vec(host["meta_vec"])
                 meta["ingest_dropped"] = int(drops_total - dropped_last)
                 dropped_last = drops_total
                 meta["latency_ms"] = (delivered.t1 - t_ready[0]) * 1e-6
                 timed += t_ready[1]
-                t_ready = t_next_ready
                 blk_bits = (host["rds_bits"][:n] if "rds_bits" in host
                             else None)
                 if on_taps is not None and out.taps:
@@ -567,9 +580,10 @@ def run_live(rx: Receiver, source,
                     if blk_bits is not None:
                         bits_acc.append(blk_bits)
                         biq_acc.append(host["rds_iq"][:n])
-        b += 1
-        if stop:
-            break
+            b += 1
+            tok = None
+            if not stop and (max_blocks is None or b < max_blocks):
+                tok, t_ready = read_next()
     res = _result(audio_acc, metas, bits_acc, biq_acc, tree_clone(state))
     res.dropped_total = int(source.dropped)
     res.arrival_timed = timed

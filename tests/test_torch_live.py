@@ -8,7 +8,11 @@
   libraries, the audio O(0.5)), meta within 1e-3 (booleans and drops
   exact), RDS bits exactly;
 - a pipe: NativePipeSource on a FIFO fed by a writer thread, through
-  run_live, equals run_offline on the same frames bit for bit.
+  run_live, equals run_offline on the same frames bit for bit;
+- the live loop's order against a source that logs its calls: block k is
+  delivered before block k+1 is read, no block is read past `max_blocks`
+  or a command_hook's stop, and `live.backlog` counts the blocks whose
+  successor was already whole in the source's ring.
 
 No wall-clock limit is asserted (a loaded host runs slower, not wrong).
 """
@@ -32,6 +36,7 @@ from sdrjfm_tpu_torch.io import synth
 from sdrjfm_tpu_torch.io.wavio import write_iq_wav, write_wav
 from sdrjfm_tpu_torch.models.receiver import Receiver, ReceiverConfig
 from sdrjfm_tpu_torch.runtime import native_source as tnative
+from sdrjfm_tpu_torch.runtime import spans
 from sdrjfm_tpu_torch.runtime import stream as TS
 
 import torch_parity as P
@@ -232,3 +237,100 @@ def test_pipe_adapter_decodes_as_the_receiver(tmp_path, fmt):
     else:
         assert jdepth == depth
         np.testing.assert_array_equal(jx, x)
+
+
+# -- the live loop's order, against a source that logs its calls ------------
+
+LOG_BLOCK_FM = 4096
+LOG_BLOCKS = 4
+
+
+class _LoggedSource:
+    """A live source over a u8 wire that logs each `read_block` (and the
+    runner's deliveries through `on_audio`); `available`, where given,
+    is the frames its ring reports."""
+
+    dropped = 0
+
+    def __init__(self, wire, T, log, available=None):
+        self.wire, self.T, self.log = wire, T, log
+        self.k = self.delivered = 0
+        if available is not None:
+            self.available = lambda: available
+
+    def read_block(self, n, timeout_ms=10_000):
+        assert n == self.T
+        self.log.append(("read", self.k))
+        blk = self.wire[self.k * n:(self.k + 1) * n]
+        self.k += 1
+        return blk
+
+    def on_audio(self, frames):
+        self.log.append(("audio", self.delivered))
+        self.delivered += 1
+
+
+@pytest.fixture(scope="module")
+def logged_rx():
+    return Receiver(ReceiverConfig(block_fm=LOG_BLOCK_FM, iq_format="u8"),
+                    device="cpu")
+
+
+@pytest.fixture(scope="module")
+def logged_wire(iq):
+    return synth.iq_to_u8(iq[:LOG_BLOCKS * LOG_BLOCK_FM * 12])
+
+
+def _logged_run(rx, wire, available=None, **kw):
+    log = []
+    src = _LoggedSource(wire, rx.cfg.wire_len, log, available)
+    res = TS.run_live(rx, src, on_audio=src.on_audio, **kw)
+    return res, log
+
+
+def test_run_live_delivers_each_block_before_reading_the_next(logged_rx,
+                                                             logged_wire):
+    res, log = _logged_run(logged_rx, logged_wire)
+    want = [("read", 0)]
+    for k in range(LOG_BLOCKS):
+        want += [("audio", k), ("read", k + 1)]
+    assert log == want                 # the last read finds the end
+    assert len(res.meta) == LOG_BLOCKS
+    ref = TS.run_offline(logged_rx, logged_wire)
+    np.testing.assert_array_equal(res.audio, ref.audio)
+
+
+@pytest.mark.parametrize("n", [0, 1, 3])
+def test_run_live_reads_no_block_past_max_blocks(logged_rx, logged_wire, n):
+    res, log = _logged_run(logged_rx, logged_wire, max_blocks=n)
+    assert [e for e in log if e[0] == "read"] == [("read", k)
+                                                   for k in range(n)]
+    assert log[-1:] == ([("audio", n - 1)] if n else [])
+    assert len(res.meta) == n
+
+
+def test_run_live_command_hook_stop_ends_the_reads(logged_rx, logged_wire):
+    seen = []
+
+    def hook(state, controls, meta):
+        seen.append(meta)
+        return state, controls, len(seen) == 2
+
+    res, log = _logged_run(logged_rx, logged_wire, command_hook=hook)
+    assert log == [("read", 0), ("audio", 0), ("read", 1), ("audio", 1)]
+    assert len(res.meta) == len(seen) == 2
+
+
+@pytest.mark.parametrize("available,counted", [
+    ("whole", LOG_BLOCKS), ("short", 0), ("none", 0), ("absent", 0)])
+def test_run_live_backlog_counts_a_whole_successor(logged_rx, logged_wire,
+                                                   available, counted):
+    """`live.backlog` counts a block whose successor the source's ring
+    already holds whole at its delivery; a ring short of a block, empty,
+    or a source without `available()` counts none."""
+    T = logged_rx.cfg.wire_len
+    frames = {"whole": T, "short": T - 1, "none": 0, "absent": None}
+    before = spans.counters["live.backlog"]
+    res, _ = _logged_run(logged_rx, logged_wire, frames[available])
+    assert len(res.meta) == LOG_BLOCKS
+    assert spans.counters["live.backlog"] - before == counted

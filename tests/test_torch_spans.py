@@ -36,8 +36,8 @@ RANGED_PARTS = {      # a staging range of one block
     + ["scan.assemble"],
     2: ["scan.load"] + ["scan.stage", "scan.replays"] * 2 + FETCH
     + ["scan.stage", "scan.replays"] + FETCH + ["scan.assemble"]}
-LIVE_PARTS = ["live.step", "source.read", "live.upload", "live.fetch_wait",
-              "live.deliver", "live.hooks"]
+LIVE_PARTS = ["live.step", "live.fetch_wait", "live.deliver", "live.hooks",
+              "source.read", "live.upload"]
 
 
 @pytest.fixture(scope="module")
@@ -229,9 +229,10 @@ def test_ingest_clock_is_monotonic_ns():
 
 
 def test_run_live_spans_and_arrival_stamps(tmp_path, rx, capture):
-    """run_live over a pipe: a live.block of its six parts a block; each
-    block's arrival in the ring lies after the writer began its last write
-    and before source.read returned; latency_ms starts there."""
+    """run_live over a pipe: a live.block of its six parts a block, the
+    block delivered before the next one is read; each block's arrival in
+    the ring lies after the writer began its last write and before
+    source.read returned; latency_ms starts there."""
     T = rx.cfg.wire_len
     blocks = [capture[b * T:(b + 1) * T].tobytes() for b in range(NBLOCKS)]
     fifo = str(tmp_path / "iq.fifo")
@@ -272,9 +273,10 @@ def test_run_live_spans_and_arrival_stamps(tmp_path, rx, capture):
         kids = _children(recs, blk)
         assert [k.name for k in kids] == LIVE_PARTS
         assert all(k.id == blk.id for k in kids)
+        assert kids[4].seq == reads[blk.id + 1].seq     # read after deliver
         # block b's arrival: the read before the loop's, then block b-1's
         assert meta["latency_ms"] == pytest.approx(
-            (kids[4].t1 - arrivals[blk.id].t0) * 1e-6)
+            (kids[2].t1 - arrivals[blk.id].t0) * 1e-6)
 
 
 @contextlib.contextmanager
