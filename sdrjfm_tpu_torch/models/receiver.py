@@ -18,7 +18,10 @@ metadata.  Chain layout (rates):
              scan) -> volume -> ÷4 -> ramp -> (test tone) -> (÷ to 192k)
     [24k]    RDS bit recovery (block BPSK, or the scan decoders 1-3)
 
-Every option of the JAX ReceiverConfig runs here.  `step` never
+Every option of the JAX ReceiverConfig runs here.  The input filter, the
+squelch and a scan decoder each run inside a span of `runtime.spans`
+(`rx.input_filter`, `rx.squelch`, `rx.rds_scan`), opened only under its
+option and only where the step runs as Python.  `step` never
 synchronises with the host; the one device-to-host transfer a runner needs
 per block is `Output.meta_vec`.
 
@@ -491,9 +494,10 @@ class Receiver:
         cfg = self.cfg
         if cfg.rds == "block":
             return recover_bits(z24, self.bitrec_cfg, bitrec_state)
-        bits, count, biq, iq, new = SD.decoder_block(
-            cfg.rds, z24, self.scan_cfg, bitrec_state, want_iq,
-            self._scan_consts)
+        with spans.span("rx.rds_scan", count=z24.shape[-1]):
+            bits, count, biq, iq, new = SD.decoder_block(
+                cfg.rds, z24, self.scan_cfg, bitrec_state, want_iq,
+                self._scan_consts)
         valid = torch.arange(bits.shape[0], device=z24.device) < count
         return BitBlock(bits=bits, valid=valid, count=count, iq=biq), iq, new
 
@@ -619,8 +623,10 @@ class Receiver:
             x = B.mix_lo(x, controls.lo_freq_hz, q, n0)
             input_tail = None
             if cfg.input_filter:
-                x, input_tail = B.fft_filter_apply(
-                    x, self.H_input, cfg.input_hop, halo(x, state.input_filt))
+                with spans.span("rx.input_filter", count=x.shape[-1]):
+                    x, input_tail = B.fft_filter_apply(
+                        x, self.H_input, cfg.input_hop,
+                        halo(x, state.input_filt))
             if cfg.frontend == "reference":
                 x, tail1 = B.fir_decimate(x, self._k_bands[0], 6,
                                           halo(x, state.band1))
@@ -728,14 +734,17 @@ class Receiver:
 
         # --- squelch ---------------------------------------------------------
         squelch_state = state.squelch
-        if cfg.squelch == "nsq":
-            demod, squelch_state = noise_squelch(
-                demod, controls.squelch_level, self.squelch_cfg,
-                squelch_state, self._squelch_bank, axis=axis)
-        elif cfg.squelch == "lsq":
-            demod, squelch_state = level_squelch(
-                demod, carrier, controls.squelch_level, self.squelch_cfg,
-                squelch_state, axis=axis)
+        if cfg.squelch in ("nsq", "lsq"):
+            with spans.span("rx.squelch", count=demod.shape[-1]
+                            // self.squelch_cfg.hold_period):
+                if cfg.squelch == "nsq":
+                    demod, squelch_state = noise_squelch(
+                        demod, controls.squelch_level, self.squelch_cfg,
+                        squelch_state, self._squelch_bank, axis=axis)
+                else:
+                    demod, squelch_state = level_squelch(
+                        demod, carrier, controls.squelch_level,
+                        self.squelch_cfg, squelch_state, axis=axis)
         if taps is not None:
             taps["demod"] = demod           # post-squelch, as the reference
 

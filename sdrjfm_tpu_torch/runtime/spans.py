@@ -19,6 +19,12 @@ the spans sit in the profiler's trace on its device events' clock; with
 no profiler the one check costs tens of nanoseconds and no range is
 entered.
 
+The receiver's optional stages are spans of their own wherever the step
+runs as Python (an eager step, a graph's warm-up and capture; a replay runs
+none): `rx.input_filter` (count: input frames), `rx.squelch` (hold
+periods) and `rx.rds_scan` (24 kS/s samples), each only under its option,
+so that a profiled step gives their kernels to them.
+
 Clock: `time.monotonic_ns()` reads CLOCK_MONOTONIC, the clock that
 `std::chrono::steady_clock` reads on Linux, so the ingest thread's stamps
 (`runtime/native/ringbuffer.h`) subtract from spans with no conversion.
